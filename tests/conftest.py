@@ -15,6 +15,7 @@ import inspect
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test (subprocess compiles)")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU; skips without one")
 import random
 import sys
 import types
