@@ -4,20 +4,28 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a)
-and runs five phases; any failure raises, so the exit code is nonzero and
+and runs six phases; any failure raises, so the exit code is nonzero and
 the last line is not the ``ok`` line:
 
   1. environment: the card's name and power limit, torch/CUDA versions, and
      the kernels' build time;
   2. every kernel against its plain PyTorch version on the card, at the
-     shapes of gemma-2b's fused linears and decode step, with CUDA-event
-     medians of the kernel, the plain version and one library call;
+     shapes of gemma-2b's fused linears and decode step, and the three paged
+     kernels on a shuffled block pool (pool bytes exact, the fused paged
+     step bitwise equal to append-then-attend and to the dense step on the
+     same contents), with CUDA-event medians of the kernel, the plain
+     version and one library call;
   3. full-width gemma-2b in f32: prefill + 8 teacher-forced decode steps
      through the kernels and again through the plain versions;
   4. serving full-width gemma-2b in bf16 (its own dtype) through
      ``ServeEngine``: 8 requests on 4 slots, with the launch counts read
      right after, while the plain versions must show no call;
-  5. one ``{"kernels": [...]}`` JSON line, the card's line, and last
+  5. paged serving of full-width gemma-2b in bf16: 16 chat requests behind
+     one 256-token system prompt on 8 slots, through a dense engine and
+     three paged ones (unshared, shared, and a 40-block pool under
+     backpressure with the invariants checked every step): equal streams,
+     sharing and copy-on-write, 18 paged-step launches per decode step;
+  6. one ``{"kernels": [...]}`` JSON line, the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
 Weights are random, made from a seeded CUDA generator.  Nothing of JAX is
@@ -51,15 +59,26 @@ SERVE_M = 4                       # the serving engine's decode batch (max_slots
 KV = dict(B=4, n_kv=1, g=8, hd=256, S=512, block=16)
 KV_POS = (37, 200, 415, 496)      # last row of a block, first row of one, and between
 KV_BITS = ((8, 8), (8, 4), (4, 4), (4, 2))
+#: the paged kernels' check: 8 slots over max_seq 1024, a pool of 8 x 64 usable blocks
+PG = dict(B=8, n_kv=1, g=8, hd=256, S=1024, block=16, pool=512)
+#: write positions on block edges and between; slot 6 is idle (its table row all -1)
+PG_POS = (15, 16, 255, 256, 1000, 1023, 500, 600)
+PG_IDLE = 6
 REPLACES = {
     "quant_gemv": "src/repro/kernels/quant_gemv/kernel.py:64",
     "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:68",
     "quant_kv_decode_step": "src/repro/kernels/quant_kv/kernel.py:358",
+    "quant_kv_attention_paged": "src/repro/kernels/quant_kv/kernel.py:237",
+    "quant_kv_decode_step_paged": "src/repro/kernels/quant_kv/kernel.py:491",
+    "quant_kv_append_paged": "src/repro/kernels/quant_kv/kernel.py:737",
 }
 SOURCES = {
     "quant_gemv": "src/repro_torch/csrc/quant_gemv.cu",
     "quant_matmul": "src/repro_torch/csrc/quant_matmul.cu",
     "quant_kv_decode_step": "src/repro_torch/csrc/quant_kv_decode_step.cu",
+    "quant_kv_attention_paged": "src/repro_torch/csrc/quant_kv_paged.cu",
+    "quant_kv_decode_step_paged": "src/repro_torch/csrc/quant_kv_paged.cu",
+    "quant_kv_append_paged": "src/repro_torch/csrc/quant_kv_paged.cu",
 }
 
 
@@ -227,7 +246,8 @@ def check_decode_step(torch, gen, results: dict) -> None:
                 nblk = sum(p // c["block"] + 1 for p in KV_POS)
                 nbytes = c["n_kv"] * (npos * (hdp[k_bits] + hdp[v_bits]) + 8 * nblk
                                       + c["block"] * (hdp[k_bits] + hdp[v_bits]) * c["B"])
-                nbytes += 2 * (q.numel() + kn.numel() + vn.numel()) + 4 * q.numel()
+                # bf16 q, new rows and output; the validity at one byte a position
+                nbytes += 2 * (2 * q.numel() + kn.numel() + vn.numel()) + valid.numel()
                 flops = 4.0 * hq * c["hd"] * npos
                 b_ms, b_by = bound(nbytes, flops)
                 log(f"  quant_kv_decode_step k{k_bits}/v{v_bits} B={c['B']} S={c['S']} "
@@ -237,6 +257,213 @@ def check_decode_step(torch, gen, results: dict) -> None:
                     r.update(ms=t_k, plain_ms=t_p, library_ms=t_l, bytes=nbytes, flops=flops)
             log(f"  ok decode step k{k_bits}/v{v_bits} {dt}: cache bytes and scales exact, "
                 f"rel {err:.2e}")
+
+
+def _paged_layer(torch, gen, k_bits, v_bits):
+    """A paged layer over a pool of random bytes and scales, mapped through a
+    shuffled table: slots 2 and 3 share their first 8 blocks (refcount 2),
+    slot 4 has one unmapped block inside its valid range, slot 6 is idle."""
+    from repro_torch.kvcache.paged import init_paged_layer
+
+    c = PG
+    nb = c["S"] // c["block"]
+    layer = init_paged_layer(c["pool"], c["B"], c["S"], c["n_kv"], c["hd"], k_bits=k_bits,
+                             v_bits=v_bits, block=c["block"], device="cuda")
+    for pool, scale in ((layer.k_packed, layer.k_scale), (layer.v_packed, layer.v_scale)):
+        pool.copy_(torch.randint(-128, 128, pool.shape, generator=gen, device="cuda",
+                                 dtype=torch.int8))
+        scale.copy_(torch.rand(scale.shape, generator=gen, device="cuda") * 0.09 + 0.01)
+    ids = iter((torch.randperm(c["pool"], generator=gen, device="cuda") + 1).tolist())
+    table = torch.full((c["B"], nb), -1, dtype=torch.int32)
+    for b, p in enumerate(PG_POS):
+        if b != PG_IDLE:
+            table[b, : p // c["block"] + 1] = torch.tensor([next(ids) for _ in
+                                                            range(p // c["block"] + 1)])
+    table[3, :8] = table[2, :8]
+    table[4, 30] = -1
+    layer.block_table.copy_(table)
+    return layer
+
+
+def _paged_bytes(torch, layer, pos, valid, hq: int,
+                 act: int) -> tuple[float, float, float, float]:
+    """Bytes the fused step, its attention half and its append half must move on
+    this layer's table with ``act``-byte activations in and out, and the
+    attention's operations.  Each input is read once and each output written
+    once: a pool row is read where some slot attends to it (a row that two
+    slots map is read once), a scale where its block holds such a row, the
+    validity at one byte a position; the append reads the touched block's
+    rows before the write offset, and only slots whose touched entry is
+    mapped read a new row and write a block."""
+    from repro_torch.core.packing import LANES
+
+    b, s, n_kv, hd = layer.shape
+    blk = layer.block
+    tbl = layer.block_table.long()
+    p = torch.arange(s, device=tbl.device)
+    phys = tbl[:, p // blk]                                        # (B, S)
+    seen = valid & (phys >= 0)
+    raw = tbl.gather(1, (pos.long() // blk)[:, None])[:, 0]
+    writers = raw >= 0
+    at_pos = (p[None, :] == pos.long()[:, None]) & writers[:, None]
+
+    def rows_blocks(m):
+        return (int((phys * blk + p % blk)[m].unique().numel()), int(phys[m].unique().numel()))
+
+    row = n_kv * sum(-(-hd // LANES[bits]) for bits in (layer.k_bits, layer.v_bits))
+    scales = n_kv * 8                                              # K and V, f32
+    touched = int(writers.sum())           # a live slot's touched block is its own
+    new_rows = 2 * touched * n_kv * hd * act
+    q_out = 2 * b * hq * hd * act
+    fixed = q_out + tbl.numel() * 4 + valid.numel()
+    r_all, b_all = rows_blocks(seen)
+    r_old, b_old = rows_blocks(seen & ~at_pos)                     # the step writes pos anew
+    written = touched * (blk * row + scales)
+    attn = r_all * row + b_all * scales + fixed
+    step = r_old * row + b_old * scales + fixed + new_rows + written + b * 4
+    before = int((pos.long() % blk)[writers].sum())
+    append = before * row + touched * scales + new_rows + written + b * 8
+    return step, attn, append, 4.0 * hq * hd * int(valid.sum())
+
+
+def check_paged(torch, gen, results: dict) -> None:
+    from repro_torch.kernels.quant_kv import ops as kv_ops
+    from repro_torch.kvcache.paged import to_dense
+
+    c = PG
+    hq = c["n_kv"] * c["g"]
+    pos = torch.tensor(PG_POS, dtype=torch.int32, device="cuda")
+    valid = torch.arange(c["S"], device="cuda")[None, :] <= pos[:, None].long()
+    live = [b for b in range(c["B"]) if b != PG_IDLE]
+    fields = ("k_packed", "k_scale", "v_packed", "v_scale")
+
+    def same(a, b, what, rows=slice(1, None)):
+        # block 0 is the trash block: an idle slot's append lands there in the
+        # plain version and nowhere on the card, so its bytes are no part of
+        # the contract
+        for f in fields:
+            x, y = getattr(a, f)[rows], getattr(b, f)[rows]
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: {f} differs in {int((x != y).sum())} entries")
+
+    for k_bits, v_bits in KV_BITS:
+        for dt in (torch.float32, torch.bfloat16):
+            base = _paged_layer(torch, gen, k_bits, v_bits)
+            q = torch.randn((c["B"], hq, c["hd"]), generator=gen, device="cuda").to(dt)
+            kn, vn = (torch.randn((c["B"], 1, c["n_kv"], c["hd"]), generator=gen,
+                                  device="cuda").to(dt) for _ in range(2))
+            tag = f"paged k{k_bits}/v{v_bits} {dt}"
+            # kernel 7 against its plain version
+            lk, lp, ls = _clone(base), _clone(base), _clone(base)
+            o_k, _ = kv_ops.quant_kv_decode_step(q, lk, pos, kn, vn, valid, impl="cuda",
+                                                 out_dtype=torch.float32)
+            o_p, _ = kv_ops.quant_kv_decode_step(q, lp, pos, kn, vn, valid, impl="torch",
+                                                 out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            same(lk, lp, f"{tag} step vs plain")
+            err = rel(o_k, o_p)
+            if not err <= 1e-4:
+                raise AssertionError(f"{tag} step: rel {err:.3g} against the plain version")
+            r = results["quant_kv_decode_step_paged"]
+            r["max_abs_err"] = max(r["max_abs_err"], float((o_k - o_p).abs().max()))
+            # kernel 9 x 2 then kernel 6 equal kernel 7 bit for bit
+            kv_ops.quant_kv_append(ls, pos, kn, vn, impl="cuda")
+            o_s = kv_ops.quant_kv_attention(q, ls, valid, impl="cuda", out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            same(lk, ls, f"{tag} fused vs append-then-attend", rows=slice(None))
+            if not torch.equal(o_k, o_s):
+                raise AssertionError(f"{tag}: fused output differs from append-then-attend")
+            # kernel 7 on the pool equals kernel 3 on to_dense of the same pool
+            dense = to_dense(base)
+            o_d, dense = kv_ops.quant_kv_decode_step(q, dense, pos, kn, vn, valid, impl="cuda",
+                                                     out_dtype=torch.float32)
+            now = to_dense(lk)
+            torch.cuda.synchronize()
+            # the idle slot's dense block is written, its paged one is not
+            same(now, dense, f"{tag} paged vs dense", rows=live)
+            if not torch.equal(o_k[live], o_d[live]):
+                raise AssertionError(f"{tag}: paged output differs from the dense kernel's")
+            # kernel 6 and kernel 9 alone against their plain versions
+            o6 = kv_ops.quant_kv_attention(q, lk, valid, impl="cuda", out_dtype=torch.float32)
+            o6p = kv_ops.quant_kv_attention(q, lk, valid, impl="torch", out_dtype=torch.float32)
+            la, lap = _clone(base), _clone(base)
+            kv_ops.quant_kv_append(la, pos, kn, vn, impl="cuda")
+            kv_ops.quant_kv_append(lap, pos, kn, vn, impl="torch")
+            torch.cuda.synchronize()
+            r9 = results["quant_kv_append_paged"]
+            r9["max_abs_err"] = max([r9["max_abs_err"]] + [
+                float((getattr(la, f)[1:].float() - getattr(lap, f)[1:].float()).abs().max())
+                for f in fields])
+            same(la, lap, f"{tag} append vs plain")
+            err6 = rel(o6, o6p)
+            if not err6 <= 1e-4:
+                raise AssertionError(f"{tag} attention: rel {err6:.3g} against the plain version")
+            r6 = results["quant_kv_attention_paged"]
+            r6["max_abs_err"] = max(r6["max_abs_err"], float((o6 - o6p).abs().max()))
+            log(f"  ok {tag}: pool bytes and scales exact at blocks 1..P-1, step rel {err:.2e}, "
+                f"attention rel {err6:.2e}; fused = append-then-attend and paged = dense "
+                f"bit for bit")
+            if dt is torch.bfloat16:
+                time_paged(torch, lk, q, kn, vn, pos, valid, k_bits, v_bits, dt, results)
+
+
+def time_paged(torch, layer, q, kn, vn, pos, valid, k_bits, v_bits, dt, results) -> None:
+    """CUDA-event medians of the three paged kernels' wrappers, their plain
+    versions, and SDPA on the gathered, dequantized bf16 K/V."""
+    from repro_torch.kernels.quant_kv import kernel as kv_kernel
+    from repro_torch.kernels.quant_kv import ref as kv_ref
+    from repro_torch.kvcache.paged import to_dense
+
+    c = PG
+    kw = dict(k_bits=k_bits, v_bits=v_bits, hd=c["hd"], block=c["block"])
+    qg = q.reshape(c["B"], c["n_kv"], c["g"], c["hd"])
+    mask = torch.where(valid, 0.0, -1e30).float()
+    k3, v3 = kn[:, 0].contiguous(), vn[:, 0].contiguous()
+    tbl = layer.block_table
+    pool = (layer.k_packed, layer.k_scale, layer.v_packed, layer.v_scale)
+    plain = _clone(layer)
+    kd, vd = to_dense(layer).dequantize(dt)                       # (B, S, H, hd)
+    kd = kd.transpose(1, 2).repeat_interleave(c["g"], dim=1)
+    vd = vd.transpose(1, 2).repeat_interleave(c["g"], dim=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_lib = time_ms(torch, lambda: sdpa(q[:, :, None, :], kd, vd,
+                                        attn_mask=valid[:, None, None, :]))
+
+    def append_both():
+        kv_kernel.quant_kv_append_paged_cuda(pos, tbl, k3, layer.k_packed, layer.k_scale,
+                                             bits=k_bits, hd=c["hd"], block=c["block"])
+        kv_kernel.quant_kv_append_paged_cuda(pos, tbl, v3, layer.v_packed, layer.v_scale,
+                                             bits=v_bits, hd=c["hd"], block=c["block"])
+
+    times = {
+        "quant_kv_decode_step_paged": (
+            time_ms(torch, lambda: kv_kernel.quant_kv_decode_step_paged_cuda(
+                pos, tbl, qg, k3, v3, *pool, mask, **kw)),
+            time_ms(torch, lambda: kv_ref.quant_kv_decode_step_paged_ref(
+                q, plain, pos, kn, vn, valid)), t_lib),
+        "quant_kv_attention_paged": (
+            time_ms(torch, lambda: kv_kernel.quant_kv_attention_paged_cuda(
+                tbl, qg, *pool, mask, **kw)),
+            time_ms(torch, lambda: kv_ref.quant_kv_attention_paged_ref(q, plain, valid)),
+            t_lib),
+        "quant_kv_append_paged": (
+            time_ms(torch, append_both),
+            time_ms(torch, lambda: kv_ref.quant_kv_append_paged_ref(plain, pos, kn, vn)), None),
+    }
+    step_b, attn_b, append_b, flops = _paged_bytes(torch, layer, pos, valid, q.shape[1],
+                                                   q.element_size())
+    sizes = {"quant_kv_decode_step_paged": (step_b, flops),
+             "quant_kv_attention_paged": (attn_b, flops), "quant_kv_append_paged": (append_b, 0.0)}
+    for name, (t_k, t_p, t_l) in times.items():
+        nbytes, fl = sizes[name]
+        b_ms, b_by = bound(nbytes, fl)
+        lib = "none" if t_l is None else f"{t_l:.4f} ms"
+        log(f"  {name} k{k_bits}/v{v_bits} B={c['B']} S={c['S']} hd={c['hd']} g={c['g']} "
+            f"bf16: kernel {t_k:.4f} ms  plain {t_p:.4f} ms  sdpa {lib}  "
+            f"bound {b_ms:.5f} ms ({b_by})")
+        if (k_bits, v_bits) == (8, 4):                  # the serving phase's state bits
+            results[name].update(ms=t_k, plain_ms=t_p, library_ms=t_l, bytes=nbytes, flops=fl)
+    del kd, vd
 
 
 # ---------------------------------------------------------------------------
@@ -330,9 +557,10 @@ def serve_bf16(torch, cfg) -> dict:
     st = eng.stats()
     launches, plain = st["launches"], st["plain_calls"]
     per_linear = 4 * cfg.n_layers
-    want = {"quant_gemv": per_linear * st["decode_steps"],
-            "quant_kv_decode_step": cfg.n_layers * st["decode_steps"],
-            "quant_matmul": per_linear * st["admissions"]}
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(quant_gemv=per_linear * st["decode_steps"],
+                quant_kv_decode_step=cfg.n_layers * st["decode_steps"],
+                quant_matmul=per_linear * st["admissions"])
     if sorted(out) != list(range(n_req)) or any(len(v) != new for v in out.values()):
         raise AssertionError(f"incomplete streams: {[len(v) for v in out.values()]}")
     if not all(0 <= t < cfg.vocab_size for v in out.values() for t in v):
@@ -349,6 +577,111 @@ def serve_bf16(torch, cfg) -> dict:
     del eng
     torch.cuda.empty_cache()
     return launches
+
+
+def chat_requests(torch, cfg, n_req: int, new: int) -> list:
+    """A fleet of chat requests behind one system prompt: a shared 256-token
+    prefix (16 full blocks) plus a private 8-64-token suffix each, except that
+    the second request of each wave of 8 repeats the first (a retried
+    request), so it shares even its write block and takes a copy-on-write
+    split at its first append."""
+    from repro_torch.serve.engine import Request
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    prefix = torch.randint(1, cfg.vocab_size, (256,), generator=gen).tolist()
+    prompts = []
+    for i in range(n_req):
+        if i % 8 == 1:
+            prompts.append(list(prompts[-1]))
+            continue
+        n = int(torch.randint(8, 65, (1,), generator=gen))
+        prompts.append(prefix + torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist())
+    return [Request(uid=i, prompt=p, max_new_tokens=new) for i, p in enumerate(prompts)]
+
+
+def serve_paged(torch, cfg) -> dict:
+    """Phase 5: the same requests through a dense engine and three paged ones."""
+    from repro_torch import kernels
+    from repro_torch.serve.engine import ServeEngine
+
+    slots, seq, new, n_req = 8, 1024, 32, 16
+    serve, _ = packed_model(torch, cfg, SEED + 5)
+    reqs = chat_requests(torch, cfg, n_req, new)
+    lens = [len(r.prompt) for r in reqs]
+    log(f"  {n_req} requests in two waves of {slots}: prompts {min(lens)}-{max(lens)} tokens "
+        f"(one shared 256-token prefix), {new} new tokens each, max_seq {seq}")
+    engines = {"a dense": {},
+               "b paged, unshared, 512 blocks": dict(paged=True, pool_blocks=512,
+                                                     share_prefix=False),
+               "c paged, shared, 512 blocks": dict(paged=True, pool_blocks=512),
+               "d paged, shared, 40 blocks": dict(paged=True, pool_blocks=40,
+                                                  debug_invariants=True)}
+    outs, stats, paged_launches = {}, {}, dict.fromkeys(kernels.KERNELS, 0)
+    dense_bytes = None
+    for key, kw in engines.items():
+        eng = ServeEngine(cfg, serve, max_slots=slots, max_seq=seq,
+                          state_bits=state_policy(cfg, slots, seq), **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        out = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        peak = torch.cuda.max_memory_allocated()
+        launches, plain = st["launches"], st["plain_calls"]
+        steps = st["decode_steps"]
+        if sorted(out) != list(range(n_req)) or any(len(v) != new for v in out.values()):
+            raise AssertionError(f"{key}: incomplete streams {[len(v) for v in out.values()]}")
+        if any(plain.values()):
+            raise AssertionError(f"{key}: plain calls {plain}")
+        step_kernel = "quant_kv_decode_step_paged" if eng.paged else "quant_kv_decode_step"
+        other = "quant_kv_decode_step" if eng.paged else "quant_kv_decode_step_paged"
+        if launches[step_kernel] != cfg.n_layers * steps or launches[other]:
+            raise AssertionError(f"{key}: launches {launches} over {steps} decode steps")
+        line = (f"  ok ({key}): {steps} decode steps, {st['admissions']} admissions, "
+                f"median decode step {st['decode_step_median_s'] * 1e3:.3f} ms, "
+                f"{n_req * new / wall:.2f} tok/s over {wall:.3f} s, peak allocated "
+                f"{peak / 1e9:.3f} GB")
+        if eng.paged:
+            if eng.pool.allocated or eng.pool.reserved:
+                raise AssertionError(f"{key}: the pool ends with {eng.pool.allocated} blocks "
+                                     f"allocated, {eng.pool.reserved} reserved")
+            for name in ("quant_kv_attention_paged", "quant_kv_decode_step_paged",
+                         "quant_kv_append_paged"):
+                paged_launches[name] += launches[name]
+            line += (f"; pool peak {st['pool_peak_allocated']} blocks, shared maps "
+                     f"{st['shared_maps']}, copy-on-write {st['cow_copies']}; allocated state "
+                     f"{eng.allocated_state_bytes() / 1e6:.3f} MB at peak against the dense "
+                     f"container's {dense_bytes / 1e6:.3f} MB")
+        else:
+            dense_bytes = eng.state_container_bytes()
+        log(line)
+        log(f"    launches {launches}")
+        outs[key], stats[key] = out, st
+        if key.startswith("c"):
+            profile_steps(torch, eng, reqs[:slots])
+        del eng
+        torch.cuda.empty_cache()
+    a, b, c, d = (outs[k] for k in engines)
+    sb, sc, sd = (stats[k] for k in list(engines)[1:])
+    if b != a or c != a or d != a:
+        diff = [u for u in a if b[u] != a[u] or c[u] != a[u] or d[u] != a[u]]
+        raise AssertionError(f"paged streams differ from the dense engine's for uids {diff}")
+    if not (sc["shared_maps"] > 0 and sc["cow_copies"] > 0
+            and sc["pool_peak_allocated"] < sb["pool_peak_allocated"]):
+        raise AssertionError(f"(c) shared {sc['shared_maps']} blocks, copied "
+                             f"{sc['cow_copies']}, peak {sc['pool_peak_allocated']} against "
+                             f"(b)'s {sb['pool_peak_allocated']}")
+    if sd["pool_peak_allocated"] > 40:
+        raise AssertionError(f"(d) peak {sd['pool_peak_allocated']} blocks > 40")
+    log(f"  ok streams (b) = (c) = (d) = (a); (c) shares and copies on write; (d) completed "
+        f"{len(d)} streams in {sd['decode_steps']} decode steps under backpressure with the "
+        f"invariants checked every step; every pool ends empty")
+    del serve
+    torch.cuda.empty_cache()
+    return paged_launches
 
 
 def profile_steps(torch, eng, reqs) -> None:
@@ -419,6 +752,7 @@ def main() -> int:
     log("== 2. kernels against their plain versions")
     check_linears(torch, gen, results)
     check_decode_step(torch, gen, results)
+    check_paged(torch, gen, results)
 
     cfg = configs.get_config(ARCH)
     log(f"== 3. {cfg.name} full width, f32: kernels against plain versions")
@@ -427,7 +761,13 @@ def main() -> int:
     log(f"== 4. {cfg.name} full width, {cfg.dtype}: ServeEngine")
     launches = serve_bf16(torch, cfg)
 
-    log("== 5. summary")
+    log(f"== 5. {cfg.name} full width, {cfg.dtype}: paged ServeEngine")
+    paged = serve_paged(torch, cfg)
+    for name in ("quant_kv_attention_paged", "quant_kv_decode_step_paged",
+                 "quant_kv_append_paged"):
+        launches[name] = paged[name]        # phase 5's paged engines (b)-(d)
+
+    log("== 6. summary")
     rows = []
     for name in kernels.KERNELS:
         r = results[name]

@@ -38,6 +38,14 @@ SIGNATURES = {
     # pos, q, k_new, v_new, k_packed, k_scale, v_packed, v_scale, mask, out,
     # B, n_kv, g, S, hd, block, k_bits, v_bits, dtype, stream
     "rq_quant_kv_decode_step": [_P] * 10 + [_I] * 9 + [_P],
+    # pos, table, q, k_new, v_new, k_pool, k_scale, v_pool, v_scale, mask, out,
+    # B, n_kv, g, nb, hd, block, k_bits, v_bits, dtype, stream
+    "rq_quant_kv_decode_step_paged": [_P] * 11 + [_I] * 9 + [_P],
+    # table, q, k_pool, k_scale, v_pool, v_scale, mask, out,
+    # B, n_kv, g, nb, hd, block, k_bits, v_bits, dtype, stream
+    "rq_quant_kv_attention_paged": [_P] * 8 + [_I] * 9 + [_P],
+    # pos, table, new, pool, scale, B, H, nb, hd, block, bits, dtype, stream
+    "rq_quant_kv_append_paged": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,11 +1,14 @@
-"""Plain PyTorch version of the quantized-KV decode step (dense cache).
+"""Plain PyTorch versions of the quantized-KV decode ops (dense and paged).
 
-Mirrors ``quant_kv_decode_step_ref`` (repro/kernels/quant_kv/ref.py:82) in
-its default config (``place="select"``, ``attend="substitute"``; every JAX
-config is bitwise-equal): requantize exactly the block holding ``pos``
-with the new row inserted, then attend over the post-append view, with the
-per-block scales folded into the (·, S) scores and probabilities.  The
-cache is updated in place.
+Mirror ``repro/kernels/quant_kv/ref.py`` in its default config
+(``place="select"``, ``attend="substitute"``; every JAX config is
+bitwise-equal): an append requantizes exactly the block holding ``pos``
+with the new row inserted, and attention folds the per-block scales into
+the (·, S) scores and probabilities.  Caches and pools are updated in place.
+
+The paged versions go through the dense ones: paged attention is dense
+attention over ``to_dense`` of the pool, so a pool and a dense cache with
+the same contents give the same output bit for bit.
 """
 from __future__ import annotations
 
@@ -15,7 +18,8 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.kernels import PLAIN_CALLS
-from repro_torch.kvcache.cache import QuantizedKVLayer, append_side
+from repro_torch.kvcache.cache import QuantizedKVLayer, append_side, append_token
+from repro_torch.kvcache.paged import append_token_paged, to_dense
 
 
 def _scale_per_pos(scale: torch.Tensor, block: int) -> torch.Tensor:
@@ -39,6 +43,31 @@ def _attention_from_levels(qg, klev, k_scale, vlev, v_scale, kv_valid, *, block:
     return torch.einsum("bkgt,bkth->bkgh", p, vlev.to(torch.float32))
 
 
+def _attend_dense(q: torch.Tensor, layer: QuantizedKVLayer, kv_valid: torch.Tensor,
+                  out_dtype) -> torch.Tensor:
+    b, s, n_kv, hd = layer.shape
+    hq = q.shape[1]
+    qg = q.to(torch.float32).reshape(b, n_kv, hq // n_kv, hd)
+    klev = packing.unpack(layer.k_packed, layer.k_bits, hd)   # (B, H, S, hd)
+    vlev = packing.unpack(layer.v_packed, layer.v_bits, hd)
+    o = _attention_from_levels(qg, klev, layer.k_scale, vlev, layer.v_scale, kv_valid,
+                               block=layer.block, hd=hd)
+    return o.reshape(b, hq, hd).to(out_dtype or q.dtype)
+
+
+def quant_kv_attention_ref(q: torch.Tensor, layer: QuantizedKVLayer, kv_valid: torch.Tensor,
+                           *, out_dtype=None) -> torch.Tensor:
+    """softmax(q @ dequant(K).T / sqrt(hd), masked) @ dequant(V) -> (B, hq, hd)."""
+    PLAIN_CALLS["quant_kv_attention"] += 1
+    return _attend_dense(q, layer, kv_valid, out_dtype)
+
+
+def quant_kv_append_ref(layer: QuantizedKVLayer, pos, k_new, v_new) -> QuantizedKVLayer:
+    """One-token append, in place: requantize exactly the block containing ``pos``."""
+    PLAIN_CALLS["quant_kv_append"] += 1
+    return append_token(layer, pos, k_new, v_new)
+
+
 def quant_kv_decode_step_ref(q: torch.Tensor, layer: QuantizedKVLayer, pos, k_new, v_new,
                              kv_valid: torch.Tensor, *, out_dtype=None):
     """Append + attend for one decode token per slot.
@@ -49,15 +78,41 @@ def quant_kv_decode_step_ref(q: torch.Tensor, layer: QuantizedKVLayer, pos, k_ne
     """
     PLAIN_CALLS["quant_kv_decode_step"] += 1
     b, s, n_kv, hd = layer.shape
-    hq = q.shape[1]
     pos = torch.as_tensor(pos, device=q.device).reshape(-1).expand(b)
     append_side(layer.k_packed, layer.k_scale, k_new.transpose(1, 2)[:, :, 0], pos,
                 layer.k_bits, hd, layer.block)
     append_side(layer.v_packed, layer.v_scale, v_new.transpose(1, 2)[:, :, 0], pos,
                 layer.v_bits, hd, layer.block)
-    klev = packing.unpack(layer.k_packed, layer.k_bits, hd)
-    vlev = packing.unpack(layer.v_packed, layer.v_bits, hd)
-    qg = q.to(torch.float32).reshape(b, n_kv, hq // n_kv, hd)
-    o = _attention_from_levels(qg, klev, layer.k_scale, vlev, layer.v_scale, kv_valid,
-                               block=layer.block, hd=hd)
-    return o.reshape(b, hq, hd).to(out_dtype or q.dtype), layer
+    return _attend_dense(q, layer, kv_valid, out_dtype), layer
+
+
+# ---------------------------------------------------------------------------
+# paged variants
+# ---------------------------------------------------------------------------
+
+
+def quant_kv_attention_paged_ref(q: torch.Tensor, layer, kv_valid: torch.Tensor, *,
+                                 out_dtype=None) -> torch.Tensor:
+    """Paged attention: the dense version over ``to_dense`` of the pool."""
+    PLAIN_CALLS["quant_kv_attention_paged"] += 1
+    return _attend_dense(q, to_dense(layer), kv_valid, out_dtype)
+
+
+def quant_kv_append_paged_ref(layer, pos, k_new, v_new):
+    """Paged append, in place: requantize each slot's mapped block."""
+    PLAIN_CALLS["quant_kv_append_paged"] += 1
+    return append_token_paged(layer, pos, k_new, v_new)
+
+
+def quant_kv_decode_step_paged_ref(q: torch.Tensor, layer, pos, k_new, v_new,
+                                   kv_valid: torch.Tensor, *, out_dtype=None):
+    """Fused paged step: the paged append, then dense attention over ``to_dense``.
+
+    The JAX package's ``attend="reunpack"`` graph, bitwise equal to its
+    default ``"substitute"`` because the engine's copy-on-write leaves a live
+    slot's touched block mapped by that slot alone, and an idle slot's write
+    lands in the never-mapped trash block.  Returns ``(out (B, hq, hd), layer)``.
+    """
+    PLAIN_CALLS["quant_kv_decode_step_paged"] += 1
+    append_token_paged(layer, pos, k_new, v_new)
+    return _attend_dense(q, to_dense(layer), kv_valid, out_dtype), layer

@@ -1,4 +1,4 @@
-# Packed quantized decode state (dense container) and its bit resolution.
+# Packed quantized decode state (dense and paged containers) and its bit resolution.
 from .cache import (  # noqa: F401
     DEFAULT_BLOCK,
     QuantizedKVLayer,
@@ -7,6 +7,12 @@ from .cache import (  # noqa: F401
     insert_rows,
     insert_state_rows,
     quantize_kv_rows,
+)
+from .paged import (  # noqa: F401
+    BlockPool,
+    PagedKVLayer,
+    init_paged_layer,
+    pool_blocks_for_budget,
 )
 from .policy import (  # noqa: F401
     kv_entry_names,

@@ -9,6 +9,7 @@ from __future__ import annotations
 from repro_torch.core.policy import BitPolicy, LayerInfo
 
 from .cache import QuantizedKVLayer
+from .paged import PagedKVLayer
 
 
 def kv_entry_names(cfg) -> list[str]:
@@ -74,7 +75,7 @@ def packed_state_bits(state) -> dict[str, int]:
     out: dict[str, int] = {}
     if isinstance(state, (list, tuple)):
         for i, node in enumerate(state):
-            if isinstance(node, QuantizedKVLayer):
+            if isinstance(node, (QuantizedKVLayer, PagedKVLayer)):
                 out[f"layer{i:03d}.state.k"] = node.k_bits
                 out[f"layer{i:03d}.state.v"] = node.v_bits
     return out

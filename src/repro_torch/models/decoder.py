@@ -12,7 +12,8 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.device import resolve_device
-from repro_torch.kvcache.cache import DEFAULT_BLOCK, QuantizedKVLayer, init_kv_layer
+from repro_torch.kvcache.cache import DEFAULT_BLOCK, QuantizedKVLayer, init_kv_layer, resolve_block
+from repro_torch.kvcache.paged import PagedKVLayer, init_paged_layer
 from repro_torch.quant.tensor import QuantizedTensor
 from . import layers
 
@@ -88,15 +89,32 @@ def logits_fn(params: dict, hidden: torch.Tensor, cfg, *, impl: str = "auto") ->
 
 
 def init_cache(cfg, batch: int, seq: int, dtype=torch.bfloat16, *, state_bits=None,
-               block: int | None = None, device=None) -> list:
-    """Decode KV cache: fp ``{"k", "v"}`` dicts, or packed ``QuantizedKVLayer``
-    containers when ``state_bits`` (per-layer ``[(k_bits, v_bits), ...]``) is given."""
+               block: int | None = None, paged: bool = False, pool_blocks: int | None = None,
+               device=None) -> list:
+    """Decode KV cache: fp ``{"k", "v"}`` dicts, packed ``QuantizedKVLayer``
+    containers when ``state_bits`` (per-layer ``[(k_bits, v_bits), ...]``) is
+    given, or block-pool ``PagedKVLayer`` containers when additionally
+    ``paged`` (``pool_blocks`` usable blocks, default the dense equivalent
+    ``batch * seq / block``).  The paged layers share one block-table tensor."""
     device = resolve_device(device)
     hd = cfg.resolved_head_dim
+    if paged and state_bits is None:
+        raise ValueError("paged KV cache requires state_bits (the pool stores packed "
+                         "lanes only)")
     if state_bits is not None:
         if len(state_bits) != cfg.n_layers:
             raise ValueError(f"state_bits has {len(state_bits)} entries for "
                              f"{cfg.n_layers} layers")
+        if paged:
+            blk = resolve_block(seq, block or DEFAULT_BLOCK)
+            n_blocks = pool_blocks or (batch * seq) // blk
+            layers_ = [init_paged_layer(n_blocks, batch, seq, cfg.n_kv_heads, hd, k_bits=kb,
+                                        v_bits=vb, block=blk, device=device)
+                       for kb, vb in state_bits]
+            table = layers_[0].block_table
+            for layer in layers_:
+                layer.block_table = table
+            return layers_
         return [init_kv_layer(batch, seq, cfg.n_kv_heads, hd, k_bits=kb, v_bits=vb,
                               block=block or DEFAULT_BLOCK, device=device)
                 for kb, vb in state_bits]
@@ -148,7 +166,7 @@ def decode_step(params: dict, cfg, caches: list, token: torch.Tensor, pos, *,
     x = embed_tokens(params, token, cfg)
     for lp, cache in zip(params["layers"], caches):
         xn = layers.norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
-        if isinstance(cache, QuantizedKVLayer):
+        if isinstance(cache, (QuantizedKVLayer, PagedKVLayer)):
             att, _ = layers.attention_decode_quant(lp["attn"], xn, cache, pos, cfg, impl=impl)
         else:
             att, _ = layers.attention_decode(lp["attn"], xn, cache, pos, cfg, impl=impl)

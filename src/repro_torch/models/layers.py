@@ -181,8 +181,8 @@ def decode_attend_one(cache, q, k_new, v_new, pos, cfg, *, window: int = 0,
                       impl: str = "auto"):
     """Write ONE position's K/V at ``pos`` (B,) and attend over ``cache[: pos+1]``.
 
-    ``cache`` is an fp ``{"k", "v"}`` dict or a ``QuantizedKVLayer``; both are
-    updated in place.  Returns ``(o (B, 1, hq, hd), cache)``.
+    ``cache`` is an fp ``{"k", "v"}`` dict, a ``QuantizedKVLayer`` or a
+    ``PagedKVLayer``; each is updated in place.  Returns ``(o (B, 1, hq, hd), cache)``.
     """
     b = q.shape[0]
     posv = torch.as_tensor(pos, device=q.device).reshape(-1)
@@ -223,7 +223,8 @@ def attention_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg, *, window:
 
 def attention_decode_quant(p: dict, x: torch.Tensor, cache, pos, cfg, *, window: int = 0,
                            impl: str = "auto"):
-    """One decode step over a packed ``QuantizedKVLayer`` (updated in place).
+    """One decode step over a packed ``QuantizedKVLayer`` or ``PagedKVLayer``
+    (updated in place).
 
     The JAX package's projection-fused branch is gated off at full width
     (f32 activations and d <= 512 only), so this is always the unfused one.

@@ -24,14 +24,15 @@ class ModelAPI:
     unstack: Callable
     prefill: Callable            # accepts lengths= (per-row valid prompt lengths)
     decode_step: Callable
-    # (cfg, batch, seq, dtype, *, state_bits, block, device) -> decode state
+    # (cfg, batch, seq, dtype, *, state_bits, block, paged, pool_blocks, device)
+    #   -> decode state
     init_decode_state: Callable
 
 
 def _decoder_state(cfg, batch, seq, dtype=torch.bfloat16, *, state_bits=None, block=None,
-                   device=None):
+                   paged=False, pool_blocks=None, device=None):
     return decoder.init_cache(cfg, batch, seq, dtype, state_bits=state_bits, block=block,
-                              device=device)
+                              paged=paged, pool_blocks=pool_blocks, device=device)
 
 
 _DECODER_API = ModelAPI(

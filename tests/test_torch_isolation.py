@@ -70,4 +70,5 @@ def test_kernel_build_is_not_started_by_imports():
     assert _build._lib is None
     assert all(p.suffix in (".cu", ".cuh") for p in _build.sources())
     assert {p.name for p in _build.sources()} >= {
-        "quant_gemv.cu", "quant_matmul.cu", "quant_kv_decode_step.cu"}
+        "quant_gemv.cu", "quant_matmul.cu", "quant_kv_decode_step.cu", "quant_kv_paged.cu",
+        "quant_kv.cuh"}
