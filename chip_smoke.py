@@ -4,19 +4,24 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a)
-and runs six phases; any failure raises, so the exit code is nonzero and
+and runs seven phases; any failure raises, so the exit code is nonzero and
 the last line is not the ``ok`` line:
 
   1. environment: the card's name and power limit, torch/CUDA versions, and
      the kernels' build time;
   2. every kernel against its plain PyTorch version on the card, at the
-     shapes of gemma-2b's fused linears and decode step, and the three paged
+     shapes of gemma-2b's fused linears and decode step (the dense append
+     and attention alone too: bytes exact with a masked row, the fused step
+     bitwise equal to the append then the attention), and the three paged
      kernels on a shuffled block pool (pool bytes exact, the fused paged
      step bitwise equal to append-then-attend and to the dense step on the
      same contents), with CUDA-event medians of the kernel, the plain
-     version and one library call;
+     version and one library call; and the dense append where phase 6's
+     commit runs it (8 slots over 1024 positions, a masked slot, rows at
+     and past the cache's end), bytes exact after every burst position;
   3. full-width gemma-2b in f32: prefill + 8 teacher-forced decode steps
-     through the kernels and again through the plain versions;
+     through the kernels and again through the plain versions, and the
+     speculative verify pass against K+1 decode steps;
   4. serving full-width gemma-2b in bf16 (its own dtype) through
      ``ServeEngine``: 8 requests on 4 slots, with the launch counts read
      right after, while the plain versions must show no call;
@@ -25,7 +30,16 @@ the last line is not the ``ok`` line:
      three paged ones (unshared, shared, and a 40-block pool under
      backpressure with the invariants checked every step): equal streams,
      sharing and copy-on-write, 18 paged-step launches per decode step;
-  6. one ``{"kernels": [...]}`` JSON line, the card's line, and last
+  6. self-speculative serving of full-width gemma-2b in bf16 from a v6
+     policy artifact saved and loaded back (a 4-bit draft at K = 3): the
+     chat fleet through a dense engine without speculation and three
+     speculative ones (dense, paged, paged over 40 blocks under the
+     invariant checker), with acceptance, round times and the launches the
+     rounds predict; the paged streams equal the dense speculative ones,
+     and those leave the non-speculative streams only at near-ties: where
+     a stream parts, the two engines' logits for the two tokens differ by
+     no more than the verify pass and the decode steps part on one cache;
+  7. one ``{"kernels": [...]}`` JSON line, the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
 Weights are random, made from a seeded CUDA generator.  Nothing of JAX is
@@ -56,6 +70,9 @@ LINEARS = {"wqkv": (2560, 2048), "wo": (2048, 2048), "w_gu": (32768, 2048),
 GEMV_MS = (1, 4, 8)
 GEMM_M = 128                      # one admission of 4 prompts padded to 32
 SERVE_M = 4                       # the serving engine's decode batch (max_slots)
+SERVE_SLOTS = 8                   # phases 5 and 6: the chat fleet's slots
+SPEC_K = 3                        # phase 6: the draft's burst length
+SPEC_M = SERVE_SLOTS * (SPEC_K + 1)   # the verify pass's rows through the GEMM
 KV = dict(B=4, n_kv=1, g=8, hd=256, S=512, block=16)
 KV_POS = (37, 200, 415, 496)      # last row of a block, first row of one, and between
 KV_BITS = ((8, 8), (8, 4), (4, 4), (4, 2))
@@ -64,6 +81,13 @@ PG = dict(B=8, n_kv=1, g=8, hd=256, S=1024, block=16, pool=512)
 #: write positions on block edges and between; slot 6 is idle (its table row all -1)
 PG_POS = (15, 16, 255, 256, 1000, 1023, 500, 600)
 PG_IDLE = 6
+#: phase 6's dense commit replay: 8 slots over max_seq 1024 at K 8 / V 4
+SPEC_KV = dict(B=8, n_kv=1, g=8, hd=256, S=1024, block=16)
+#: each slot's burst start (burst index j writes at start + j) and accepted
+#: count; slot 7 accepts nothing (pos -1 at every j) and slots 5 and 6 run
+#: past S, as idle slots at stale positions do
+SPEC_START = (264, 487, 509, 764, 1015, 1021, 1023, 700)
+SPEC_ACC = (3, 0, 2, 1, 3, 3, 3, -1)
 REPLACES = {
     "quant_gemv": "src/repro/kernels/quant_gemv/kernel.py:64",
     "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:68",
@@ -71,6 +95,8 @@ REPLACES = {
     "quant_kv_attention_paged": "src/repro/kernels/quant_kv/kernel.py:237",
     "quant_kv_decode_step_paged": "src/repro/kernels/quant_kv/kernel.py:491",
     "quant_kv_append_paged": "src/repro/kernels/quant_kv/kernel.py:737",
+    "quant_kv_attention": "src/repro/kernels/quant_kv/kernel.py:103",
+    "quant_kv_append": "src/repro/kernels/quant_kv/kernel.py:165",
 }
 SOURCES = {
     "quant_gemv": "src/repro_torch/csrc/quant_gemv.cu",
@@ -79,6 +105,8 @@ SOURCES = {
     "quant_kv_attention_paged": "src/repro_torch/csrc/quant_kv_paged.cu",
     "quant_kv_decode_step_paged": "src/repro_torch/csrc/quant_kv_paged.cu",
     "quant_kv_append_paged": "src/repro_torch/csrc/quant_kv_paged.cu",
+    "quant_kv_attention": "src/repro_torch/csrc/quant_kv_dense.cu",
+    "quant_kv_append": "src/repro_torch/csrc/quant_kv_dense.cu",
 }
 
 
@@ -167,6 +195,20 @@ def check_linears(torch, gen, results: dict) -> None:
                                              ("bytes", nbytes), ("flops", 2.0 * m * n * k)):
                                 r[key] += val
                         del wd
+            if bits == 4:
+                # the same 8 rows through the GEMV and, inside the verify pass's
+                # 32 rows, through the GEMM: how far the two kernels' sums differ
+                x = torch.randn((SPEC_M, k), generator=gen, device="cuda").to(torch.bfloat16)
+                gap = float((quant_gemv_cuda(x[:SERVE_SLOTS], packed, scale, bits=bits, k=k)
+                             .float() - quant_matmul_cuda(x, packed, scale, bits=bits, k=k)
+                             [:SERVE_SLOTS].float()).abs().max())
+                results["gemv_gemm_gap"][name] = gap
+                t_v = time_ms(torch, lambda: quant_matmul_cuda(x, packed, scale, bits=bits, k=k))
+                t_d = time_ms(torch, lambda: quant_gemv_cuda(x[:SERVE_SLOTS], packed, scale,
+                                                             bits=bits, k=k))
+                log(f"  GEMV (M={SERVE_SLOTS}) vs GEMM (M={SPEC_M}) on {name} bits=4 bf16, "
+                    f"the same rows: max abs difference {gap:.4g}; GEMM {t_v:.4f} ms, "
+                    f"GEMV {t_d:.4f} ms")
             log(f"  ok {name} bits={bits}: GEMV M={GEMV_MS} and GEMM M={GEMM_M}, f32 and bf16")
             del qt, packed, scale
 
@@ -257,6 +299,180 @@ def check_decode_step(torch, gen, results: dict) -> None:
                     r.update(ms=t_k, plain_ms=t_p, library_ms=t_l, bytes=nbytes, flops=flops)
             log(f"  ok decode step k{k_bits}/v{v_bits} {dt}: cache bytes and scales exact, "
                 f"rel {err:.2e}")
+            check_dense_halves(torch, base, q, kn, vn, pos, valid, k_bits, v_bits, dt, results)
+
+
+def _dense_bytes(torch, layer, pos, hq: int, act: int) -> tuple[float, float, float]:
+    """Bytes the dense attention and ONE side's append (the K side) must move,
+    by ``_paged_bytes``' rules, and the attention's operations: the attention
+    reads the rows each slot attends to (positions 0..pos) and their blocks'
+    scales, bf16 q and output and the validity at one byte a position; the
+    append reads the touched block's rows before the write offset, its scale
+    and the new row, and writes the block, its scale and reads pos."""
+    from repro_torch.core.packing import LANES
+
+    b, s, n_kv, hd = layer.shape
+    blk = layer.block
+    hdp = {bits: -(-hd // LANES[bits]) for bits in (layer.k_bits, layer.v_bits)}
+    p = [int(x) for x in pos.tolist()]
+    npos = sum(x + 1 for x in p)
+    nblk = sum(x // blk + 1 for x in p)
+    attn = (n_kv * (npos * (hdp[layer.k_bits] + hdp[layer.v_bits]) + 8 * nblk)
+            + 2 * b * hq * hd * act + b * s)
+    append = n_kv * (sum(x % blk for x in p) * hdp[layer.k_bits]
+                     + b * (4 + hd * act + blk * hdp[layer.k_bits] + 4)) + 4 * b
+    return attn, append, 4.0 * hq * hd * npos
+
+
+def check_dense_halves(torch, base, q, kn, vn, pos, valid, k_bits, v_bits, dt, results) -> None:
+    """Kernels 5 and 4 (the dense append and attention alone) against their
+    plain versions, with slot 1 masked (pos -1) for the append, and the fused
+    step (kernel 3) equal to kernel 5 then kernel 4 bit for bit.  In bf16,
+    CUDA-event medians and the bounds."""
+    from repro_torch.kernels.quant_kv import kernel as kv_kernel
+    from repro_torch.kernels.quant_kv import ops as kv_ops
+    from repro_torch.kernels.quant_kv import ref as kv_ref
+    from repro_torch.kvcache.cache import append_side
+
+    c = KV
+    fields = ("k_packed", "k_scale", "v_packed", "v_scale")
+    tag = f"dense k{k_bits}/v{v_bits} {dt}"
+    masked = pos.clone()
+    masked[1] = -1
+    la, lp = _clone(base), _clone(base)
+    kv_ops.quant_kv_append(la, masked, kn, vn, impl="cuda")
+    kv_ops.quant_kv_append(lp, masked, kn, vn, impl="torch")
+    torch.cuda.synchronize()
+    r5 = results["quant_kv_append"]
+    for f in fields:
+        x, y = getattr(la, f), getattr(lp, f)
+        r5["max_abs_err"] = max(r5["max_abs_err"], float((x.float() - y.float()).abs().max()))
+        if not torch.equal(x, y):
+            raise AssertionError(f"{tag} append: {f} differs from the plain version in "
+                                 f"{int((x != y).sum())} entries")
+        if not torch.equal(x[1], getattr(base, f)[1]):
+            raise AssertionError(f"{tag} append: the masked row's {f} was written")
+    ls, fused = _clone(base), _clone(base)
+    kv_ops.quant_kv_append(ls, pos, kn, vn, impl="cuda")
+    o_s = kv_ops.quant_kv_attention(q, ls, valid, impl="cuda", out_dtype=torch.float32)
+    o_k, _ = kv_ops.quant_kv_decode_step(q, fused, pos, kn, vn, valid, impl="cuda",
+                                         out_dtype=torch.float32)
+    o_f = kv_ops.quant_kv_attention(q, fused, valid, impl="cuda", out_dtype=torch.float32)
+    o_p = kv_ops.quant_kv_attention(q, fused, valid, impl="torch", out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    for f in fields:
+        if not torch.equal(getattr(ls, f), getattr(fused, f)):
+            raise AssertionError(f"{tag}: fused step's {f} differs from append-then-attend")
+    if not (torch.equal(o_s, o_k) and torch.equal(o_f, o_k)):
+        raise AssertionError(f"{tag}: fused output differs from append-then-attend")
+    err = rel(o_f, o_p)
+    r4 = results["quant_kv_attention"]
+    r4["max_abs_err"] = max(r4["max_abs_err"], float((o_f - o_p).abs().max()))
+    if not err <= 1e-4:
+        raise AssertionError(f"{tag} attention: rel {err:.3g} against the plain version")
+    log(f"  ok {tag}: append bytes and scales exact (masked row untouched), attention rel "
+        f"{err:.2e}; fused = append-then-attend bit for bit")
+    if dt is not torch.bfloat16:
+        return
+    hq = q.shape[1]
+    qg = q.reshape(c["B"], c["n_kv"], c["g"], c["hd"])
+    mask = torch.where(valid, 0.0, -1e30).float()
+    k3 = kn[:, 0].contiguous()
+    kd, vd = fused.dequantize(dt)                                  # (B, S, H, hd)
+    kd = kd.transpose(1, 2).repeat_interleave(c["g"], dim=1)
+    vd = vd.transpose(1, 2).repeat_interleave(c["g"], dim=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    plain = _clone(fused)
+    kw = dict(k_bits=k_bits, v_bits=v_bits, hd=c["hd"], block=c["block"])
+    t4 = (time_ms(torch, lambda: kv_kernel.quant_kv_attention_cuda(
+              qg, fused.k_packed, fused.k_scale, fused.v_packed, fused.v_scale, mask, **kw)),
+          time_ms(torch, lambda: kv_ref.quant_kv_attention_ref(q, plain, valid)),
+          time_ms(torch, lambda: sdpa(q[:, :, None, :], kd, vd,
+                                      attn_mask=valid[:, None, None, :])))
+    # one side (K) of the append: one launch; the plain side is the same
+    # requantize of ref.py's append on that side alone
+    t5 = (time_ms(torch, lambda: kv_kernel.quant_kv_append_cuda(
+              pos, k3, fused.k_packed, fused.k_scale, bits=k_bits, hd=c["hd"],
+              block=c["block"])),
+          time_ms(torch, lambda: append_side(plain.k_packed, plain.k_scale, k3.float(), pos,
+                                             k_bits, c["hd"], c["block"])),
+          None)
+    attn_b, append_b, flops = _dense_bytes(torch, fused, pos, hq, q.element_size())
+    for name, (t_k, t_p, t_l), nbytes, fl in (("quant_kv_attention", t4, attn_b, flops),
+                                              ("quant_kv_append", t5, append_b, 0.0)):
+        b_ms, b_by = bound(nbytes, fl)
+        lib = "none" if t_l is None else f"{t_l:.4f} ms"
+        log(f"  {name} k{k_bits}/v{v_bits} B={c['B']} S={c['S']} hd={c['hd']} g={c['g']} "
+            f"bf16: kernel {t_k:.4f} ms  plain {t_p:.4f} ms  sdpa {lib}  "
+            f"bound {b_ms:.6f} ms ({b_by})")
+        if (k_bits, v_bits) == (8, 4):                  # the serving phases' state bits
+            results[name].update(ms=t_k, plain_ms=t_p, library_ms=t_l, bytes=nbytes, flops=fl)
+    del kd, vd
+
+
+def check_dense_replay(torch, gen, results: dict) -> None:
+    """Kernel 5 where phase 6's dense commit runs it: ``spec.loop._masked_append``
+    as ``commit_state`` calls it, over 8 slots of max_seq 1024 at K 8 / V 4,
+    with bf16 rows sliced from a (B, K+1, H, hd) burst.  After every burst
+    position the bytes and scales equal the plain path's exactly; at the
+    end every block the accepted positions in [0, S) do not touch, the
+    masked slot's included, is as before; the attention over the result is
+    within rel 1e-4 of its plain version."""
+    from repro_torch.kernels.quant_kv import ops as kv_ops
+    from repro_torch.kvcache.cache import init_kv_layer, insert_rows
+    from repro_torch.spec.loop import _masked_append
+
+    c = SPEC_KV
+    b, h, hd, s, blk = c["B"], c["n_kv"], c["hd"], c["S"], c["block"]
+    dt = torch.bfloat16
+    fields = ("k_packed", "k_scale", "v_packed", "v_scale")
+    start = torch.tensor(SPEC_START, dtype=torch.int32, device="cuda")
+    acc = torch.tensor(SPEC_ACC, device="cuda")
+    layer = init_kv_layer(b, s, h, hd, k_bits=8, v_bits=4, block=blk, device="cuda")
+    k = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
+    v = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
+    before = insert_rows(layer, torch.arange(b, device="cuda"), k, v, valid_len=start.long())
+    kb = torch.randn((b, SPEC_K + 1, h, hd), generator=gen, device="cuda").to(dt)
+    vb = torch.randn((b, SPEC_K + 1, h, hd), generator=gen, device="cuda").to(dt)
+    la, lp = _clone(before), _clone(before)
+    r5 = results["quant_kv_append"]
+    for j in range(SPEC_K + 1):
+        mask = j <= acc
+        for lay, impl in ((la, "cuda"), (lp, "torch")):
+            _masked_append(lay, start + j, kb[:, j:j + 1], vb[:, j:j + 1], mask, impl)
+        torch.cuda.synchronize()
+        for f in fields:
+            x, y = getattr(la, f), getattr(lp, f)
+            r5["max_abs_err"] = max(r5["max_abs_err"], float((x.float() - y.float()).abs().max()))
+            if not torch.equal(x, y):
+                raise AssertionError(f"dense replay, burst index {j}: {f} differs from the "
+                                     f"plain version in {int((x != y).sum())} entries")
+    touched = torch.zeros((b, s // blk), dtype=torch.bool, device="cuda")
+    for i, (p0, a) in enumerate(zip(SPEC_START, SPEC_ACC)):
+        for p in range(p0, p0 + a + 1):
+            if p < s:
+                touched[i, p // blk] = True
+    for f in fields:
+        x, y = getattr(la, f), getattr(before, f)
+        x, y = x.reshape(b, h, s // blk, -1), y.reshape(b, h, s // blk, -1)
+        if not torch.equal(x.transpose(1, 2)[~touched], y.transpose(1, 2)[~touched]):
+            raise AssertionError(f"dense replay wrote {f} outside the accepted positions' "
+                                 f"blocks")
+    valid = (torch.arange(s, device="cuda")[None, :]
+             <= (start + acc).clamp(max=s - 1)[:, None].long())
+    q = torch.randn((b, h * c["g"], hd), generator=gen, device="cuda").to(dt)
+    o_c = kv_ops.quant_kv_attention(q, la, valid, impl="cuda", out_dtype=torch.float32)
+    o_p = kv_ops.quant_kv_attention(q, la, valid, impl="torch", out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    err = rel(o_c, o_p)
+    r4 = results["quant_kv_attention"]
+    r4["max_abs_err"] = max(r4["max_abs_err"], float((o_c - o_p).abs().max()))
+    if not err <= 1e-4:
+        raise AssertionError(f"dense attention at phase 6's shapes: rel {err:.3g}")
+    log(f"  ok dense commit replay at phase 6's shapes (B={b} S={s} hd={hd} k8/v4 bf16, "
+        f"starts {SPEC_START}, accepted {SPEC_ACC}): bytes and scales exact after each of "
+        f"{SPEC_K + 1} burst positions, slot 7 (pos -1) and every block outside the accepted "
+        f"positions untouched, nothing written at pos >= S; attention rel {err:.2e}")
 
 
 def _paged_layer(torch, gen, k_bits, v_bits):
@@ -527,7 +743,31 @@ def parity_f32(torch, cfg) -> None:
         worst = max(worst, err)
     log(f"  ok {cfg.name} f32, {cfg.n_layers} layers: prefill + {steps} decode steps, "
         f"kernels vs plain logits rel <= {worst:.2e} (limit 1e-3)")
-    del serve, caches, kv
+    # the verify pass (GEMM over b x (K+1) rows) against K+1 decode steps
+    # (GEMV), both through the kernels: in f32 the two compute one function
+    burst = torch.randint(0, cfg.vocab_size, (b, SPEC_K + 1), generator=gen, device="cuda")
+    pos = lens.to(torch.int32)
+    pair = [insert_state_rows(decoder.init_cache(cfg32, b, seq, state_bits=bits, device="cuda"),
+                              torch.arange(b, device="cuda"), kv, lens) for _ in range(2)]
+    ver, _, _ = decoder.decode_verify(serve, cfg32, pair[0], burst, pos)
+    worst = 0.0
+    for j in range(SPEC_K + 1):
+        step, _ = decoder.decode_step(serve, cfg32, pair[1], burst[:, j:j + 1], pos + j)
+        torch.cuda.synchronize()
+        err = rel(step[:, 0], ver[:, j])
+        if not (torch.isfinite(ver[:, j]).all() and err <= 1e-4):
+            raise AssertionError(f"f32 full-width decode_verify position {j}: rel {err:.3g} "
+                                 f"against the decode step")
+        worst = max(worst, err)
+    for x, y in zip(*pair):
+        for f in ("k_scale", "v_scale"):
+            err = rel(getattr(x, f), getattr(y, f))
+            if not err <= 1e-5:
+                raise AssertionError(f"f32 full-width decode_verify: cache {f} rel {err:.3g}")
+    log(f"  ok {cfg.name} f32: decode_verify (GEMM, M={b * (SPEC_K + 1)}) vs {SPEC_K + 1} "
+        f"decode steps (GEMV, M={b}) logits rel <= {worst:.2e} (limit 1e-4), cache scales "
+        f"within rel 1e-5")
+    del serve, caches, kv, pair, ver, step
     torch.cuda.empty_cache()
 
 
@@ -684,9 +924,262 @@ def serve_paged(torch, cfg) -> dict:
     return paged_launches
 
 
+def verify_gap(torch, cfg, serve, reqs, slots: int, seq: int, state) -> float:
+    """Largest |logit| difference between ``decode_verify`` (the linears as one
+    GEMM over slots x (K+1) rows) and K+1 ``decode_step`` calls (the GEMV) on
+    the same cache and burst: how far the two paths' sums may part.  The
+    heads of the first ``slots`` requests prefill a dense cache; the burst is
+    each request's last prompt token and K random ones.  Phase 3 holds the
+    two paths to one function in f32; here each position's logits must also
+    agree within rel 5e-2 in bf16 (rounding through 18 layers stays well
+    under it, a wrong position, mask or cache write gives order 1), so a
+    faulty verify cannot widen the gap it is gated by."""
+    from repro_torch.kvcache import insert_state_rows, resolve_state_bits
+    from repro_torch.models import decoder
+    from repro_torch.quant.apply import fuse_projections
+
+    params = fuse_projections(serve)
+    heads = [r.prompt[:-1] for r in reqs[:slots]]
+    pad = max(map(len, heads))
+    toks = torch.zeros((slots, pad), dtype=torch.int32, device="cuda")
+    for i, h in enumerate(heads):
+        toks[i, : len(h)] = torch.tensor(h, device="cuda")
+    lens = torch.tensor([len(h) for h in heads], device="cuda")
+    _, kv = decoder.prefill(params, cfg, toks, logits=False)
+    bits = resolve_state_bits(state, cfg)
+    caches = [insert_state_rows(decoder.init_cache(cfg, slots, seq, state_bits=bits,
+                                                   device="cuda"),
+                                torch.arange(slots, device="cuda"), kv, lens) for _ in range(2)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    burst = torch.randint(1, cfg.vocab_size, (slots, SPEC_K + 1), generator=gen, device="cuda")
+    burst[:, 0] = torch.tensor([r.prompt[-1] for r in reqs[:slots]], device="cuda")
+    pos = lens.to(torch.int32)
+    ver, _, _ = decoder.decode_verify(params, cfg, caches[0], burst, pos)
+    gap = worst = 0.0
+    for j in range(SPEC_K + 1):
+        step, _ = decoder.decode_step(params, cfg, caches[1], burst[:, j:j + 1], pos + j)
+        gap = max(gap, float((step[:, 0].float() - ver[:, j].float()).abs().max()))
+        worst = max(worst, rel(ver[:, j], step[:, 0]))
+    if not worst <= 5e-2:
+        raise AssertionError(f"bf16 decode_verify against the decode steps: rel {worst:.3g}")
+    log(f"  verify (GEMM, M={SPEC_M}) vs decode steps (GEMV, M={slots}) on the same cache, "
+        f"bf16: logits rel <= {worst:.3g} (limit 5e-2), max |logit difference| {gap:.4g}, "
+        f"largest |logit| {float(ver.float().abs().max()):.4g}")
+    del params, caches, kv, ver, step
+    torch.cuda.empty_cache()
+    return gap
+
+
+def serve_speculative(torch, cfg, linear_gap: dict) -> dict:
+    """Phase 6: speculative serving from a saved and reloaded v6 artifact.
+
+    The chat fleet through (a) the dense engine without speculation, (b) the
+    dense engine speculating at K = 3 with a uniform 4-bit draft, (c) the
+    paged engine with shared prefixes over 512 blocks, speculating, and (d)
+    the same over 40 blocks under the invariant checker.  (c) and (d) must
+    emit (b)'s streams; (b) may leave (a)'s only at a near-tie, since its
+    verify pass sums its linears in the GEMM and (a) in the GEMV.  At every
+    first divergence (a)'s logits prefer its token by m_a and (b)'s verify
+    logits prefer (b)'s by m_b; m_a + m_b, how far the two paths moved that
+    pair of logits, must stay within twice the largest logit difference
+    ``verify_gap`` measures between the two paths on one cache (each of the
+    two logits may move by that much)."""
+    from repro_torch import kernels
+    from repro_torch.core.policy import BitPolicy, PolicyArtifact
+    from repro_torch.serve.engine import ServeEngine
+
+    slots, seq, new, n_req = SERVE_SLOTS, 1024, 32, 16
+    serve, policy = packed_model(torch, cfg, 7)
+    specs = policy.layers
+    path = ROOT / "build" / "phase6_policy.json"
+    path.parent.mkdir(exist_ok=True)
+    PolicyArtifact.build(policy, state_policy=state_policy(cfg, slots, seq),
+                         pool={"block": 16, "num_blocks": 512},
+                         draft_policy=BitPolicy.uniform(specs, 4), draft_k=SPEC_K,
+                         meta={"arch": cfg.name, "source": "chip_smoke.py phase 6"}).save(str(path))
+    art = PolicyArtifact.load(str(path))
+    art.verify_layers(specs)
+    if art.version != 6 or art.draft_k != SPEC_K:
+        raise AssertionError(f"reloaded artifact v{art.version}, draft_k {art.draft_k}")
+    log(f"  artifact v{art.version} saved and reloaded from {path.relative_to(ROOT)}: weights mean "
+        f"{art.policy.mean_bits():.3f} bits, K 8 / V 4 state, pool {art.pool}, draft "
+        f"{art.draft_policy.mean_bits():.1f} bits at K={art.draft_k}")
+    reqs = chat_requests(torch, cfg, n_req, new)
+    dense = dataclasses.replace(art, pool=None)
+    engines = {"a dense": dict(artifact=dataclasses.replace(dense, draft_policy=None, draft_k=0)),
+               "b dense, speculative": dict(artifact=dense),
+               "c paged, shared, 512 blocks, speculative": dict(artifact=art),
+               "d paged, shared, 40 blocks, speculative": dict(artifact=art, pool_blocks=40,
+                                                               debug_invariants=True)}
+    outs, runs, rows = {}, {}, {}
+    for key, kw in engines.items():
+        eng = ServeEngine(cfg, serve, max_slots=slots, max_seq=seq, **kw)
+        collect = record_logits(torch, eng) if key[0] in "ab" else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        out = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        launches, plain = st["launches"], st["plain_calls"]
+        if sorted(out) != list(range(n_req)) or any(len(v) != new for v in out.values()):
+            raise AssertionError(f"{key}: incomplete streams {[len(v) for v in out.values()]}")
+        if any(plain.values()):
+            raise AssertionError(f"{key}: plain calls {plain}")
+        want = spec_launches(cfg, st, eng.paged)
+        if launches != want or (eng.speculate and not st["spec_steps"]):
+            raise AssertionError(f"{key}: launches {launches}, the rounds predict {want}")
+        if collect is not None:
+            rows[key[0]] = collect()
+        line = (f"  ok ({key}): {len(out)} streams of {new}, {st['decode_steps']} "
+                f"{'rounds' if eng.speculate else 'decode steps'}, {st['admissions']} "
+                f"admissions, median {'round' if eng.speculate else 'step'} "
+                f"{st['decode_step_median_s'] * 1e3:.3f} ms, {n_req * new / wall:.2f} tok/s "
+                f"over {wall:.3f} s, peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        if eng.speculate:
+            rounds = st["spec_proposed"] / SPEC_K             # slot-rounds of active slots
+            line += (f"; acceptance {st['spec_accepted'] / st['spec_proposed']:.4f} "
+                     f"({st['spec_accepted']} of {st['spec_proposed']} drafted), "
+                     f"{st['spec_accepted'] / st['spec_steps']:.3f} accepted tokens per verify "
+                     f"step, {1 + st['spec_accepted'] / rounds:.3f} tokens per slot per verify "
+                     f"step")
+        if eng.paged:
+            if eng.pool.allocated or eng.pool.reserved:
+                raise AssertionError(f"{key}: the pool ends with {eng.pool.allocated} blocks "
+                                     f"allocated, {eng.pool.reserved} reserved")
+            line += (f"; pool peak {st['pool_peak_allocated']} blocks, shared maps "
+                     f"{st['shared_maps']}, copy-on-write {st['cow_copies']}, pool ends empty")
+        log(line)
+        log(f"    launches {launches}")
+        outs[key], runs[key] = out, launches
+        if key.startswith("b"):
+            profile_steps(torch, eng, reqs[:slots])
+        del eng
+        torch.cuda.empty_cache()
+    a, b, c, d = (outs[k] for k in engines)
+    if c != b or d != b:
+        diff = [u for u in b if c[u] != b[u] or d[u] != b[u]]
+        raise AssertionError(f"paged speculative streams differ from (b)'s for uids {diff}")
+    gap = verify_gap(torch, cfg, serve, reqs, slots, seq, state_policy(cfg, slots, seq))
+    log(f"  phase 2's per-linear GEMV/GEMM gaps "
+        f"{ {n: round(v, 5) for n, v in linear_gap.items()} }")
+    # (b)'s own top-2 margins, to show how many tokens a gate on them alone
+    # would pass at 2 x gap
+    top2 = torch.stack([rows["b"][(u, t)] for u in b for t in range(len(b[u]))])
+    top2 = torch.topk(top2.float(), 2, dim=-1).values
+    every = sorted((top2[:, 0] - top2[:, 1]).tolist())
+    inside = sum(m <= 2 * gap for m in every)
+    log(f"  verify top-2 margins of (b)'s {len(every)} emitted tokens: min {every[0]:.4g}, "
+        f"10th percentile {every[len(every) // 10]:.4g}, median "
+        f"{statistics.median(every):.4g}; {inside} ({100 * inside / len(every):.1f}%) "
+        f"within 2 x gap = {2 * gap:.4g}")
+    # at a first divergence both engines saw the same prefix; (a)'s logits
+    # prefer its token by m_a, (b)'s verify logits prefer its own by m_b, so
+    # the two paths' logits for that pair of tokens differ by m_a + m_b: a
+    # near-tie is one where that stays within 2 x gap (each logit may move
+    # by gap), which a fault moving (b) by more than rounding fails
+    diverged = 0
+    for uid in sorted(a):
+        t = next((i for i, (x, y) in enumerate(zip(a[uid], b[uid])) if x != y), None)
+        if t is None:
+            continue
+        diverged += 1
+        xa, xb = a[uid][t], b[uid][t]
+        la, lb = rows["a"][(uid, t)].float(), rows["b"][(uid, t)].float()
+        m_a, m_b = float(la[xa] - la[xb]), float(lb[xb] - lb[xa])
+        log(f"    stream {uid}: (b) leaves (a) at token {t} ({xa} -> {xb}): (a) prefers "
+            f"{xa} by {m_a:.4g}, (b)'s verify prefers {xb} by {m_b:.4g}, pair moved "
+            f"{m_a + m_b:.4g}")
+        if m_a < 0 or m_b < 0:
+            raise AssertionError(f"stream {uid} token {t}: the kept logits do not rank the "
+                                 f"emitted tokens first (m_a {m_a:.4g}, m_b {m_b:.4g})")
+        if not m_a + m_b <= 2 * gap:
+            raise AssertionError(f"stream {uid} diverges at token {t}: the two paths' logits "
+                                 f"for ({xa}, {xb}) differ by {m_a + m_b:.4g} > 2 x {gap:.4g}"
+                                 f": not a near-tie")
+    log(f"  ok streams (c) = (d) = (b); (b) = (a) in {n_req - diverged} of {n_req} streams, "
+        f"every divergence at a near-tie; every pool ends empty")
+    del serve
+    torch.cuda.empty_cache()
+    return runs
+
+
+def spec_launches(cfg, st, paged: bool) -> dict:
+    """Launches a run's structure predicts: a decode step is 4 fused linears
+    (GEMV) and one decode step kernel per layer; a speculative round at K
+    is K such draft steps, one verify (4 GEMMs per layer, one decode step
+    kernel per layer and burst position) and K+1 two-sided replays of the
+    append per layer; an admission is 4 GEMMs per layer."""
+    from repro_torch import kernels
+
+    n = cfg.n_layers
+    out = dict.fromkeys(kernels.KERNELS, 0)
+    step = "quant_kv_decode_step_paged" if paged else "quant_kv_decode_step"
+    append = "quant_kv_append_paged" if paged else "quant_kv_append"
+    rounds = st["spec_steps"]
+    plain_steps = st["decode_steps"] - rounds
+    out["quant_matmul"] = 4 * n * (st["admissions"] + rounds)
+    out["quant_gemv"] = 4 * n * (plain_steps + SPEC_K * rounds)
+    out[step] = n * (plain_steps + (2 * SPEC_K + 1) * rounds)
+    out[append] = 2 * n * (SPEC_K + 1) * rounds
+    return out
+
+
+def record_logits(torch, eng):
+    """Wrap the engine so that the logits row behind every token it emits is
+    kept on the card: the decode step's for a plain engine, the verify
+    pass's for a speculative one.  The returned ``collect()`` maps them to
+    ``{(uid, token index): (V,) logits}``."""
+    calls, rounds = [], []
+    name = "decode_verify" if eng.speculate else "decode_step"
+    fn = getattr(eng.api, name)
+
+    def keep(*args, **kw):
+        out = fn(*args, **kw)
+        calls.append(out[0])                                    # (B, T, V)
+        return out
+
+    def where(active):
+        return {i: (eng.slots[i].req.uid, len(eng.slots[i].generated)) for i in active}
+
+    if eng.speculate:
+        spec_step = eng._spec_step
+
+        def note_round(active, tokens_h, pos_h, k):
+            at = where(active)
+            out = spec_step(active, tokens_h, pos_h, k)
+            rounds.append({i: (uid, start, len(out[i])) for i, (uid, start) in at.items()})
+            return out
+
+        eng._spec_step = note_round
+    else:
+        decode = eng._decode
+
+        def note_step(tokens_h, pos_h):
+            at = where(eng._active())
+            out = decode(tokens_h, pos_h)
+            rounds.append({i: (uid, start, 1) for i, (uid, start) in at.items()})
+            return out
+
+        eng._decode = note_step
+
+    def collect() -> dict:
+        return {(uid, start + j): logits[i, j]
+                for logits, slots in zip(calls, rounds)
+                for i, (uid, start, n) in slots.items() for j in range(n)}
+
+    eng.api = dataclasses.replace(eng.api, **{name: keep})
+    return collect
+
+
 def profile_steps(torch, eng, reqs) -> None:
     """Device time by kernel over a short rerun of ``reqs`` (4 new tokens each),
-    and the device's busy share of the wall time, from ``torch.profiler``."""
+    and the device's busy share of the wall time, from ``torch.profiler``.
+    Only device events (kernels, copies, fills) are summed: an operator's
+    own entry repeats the device time of the kernels it launched."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     short = [dataclasses.replace(r, uid=100 + r.uid, max_new_tokens=4) for r in reqs]
@@ -698,6 +1191,8 @@ def profile_steps(torch, eng, reqs) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
     for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
         dev = getattr(evt, "self_device_time_total", None)
         if dev is None:
             dev = getattr(evt, "self_cuda_time_total", 0.0)
@@ -748,10 +1243,12 @@ def main() -> int:
 
     results = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0,
                           max_abs_err=0.0) for name in kernels.KERNELS}
+    results["gemv_gemm_gap"] = {}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     log("== 2. kernels against their plain versions")
     check_linears(torch, gen, results)
     check_decode_step(torch, gen, results)
+    check_dense_replay(torch, gen, results)
     check_paged(torch, gen, results)
 
     cfg = configs.get_config(ARCH)
@@ -767,7 +1264,15 @@ def main() -> int:
                  "quant_kv_append_paged"):
         launches[name] = paged[name]        # phase 5's paged engines (b)-(d)
 
-    log("== 6. summary")
+    log(f"== 6. {cfg.name} full width, {cfg.dtype}: speculative ServeEngine from a v6 artifact")
+    t_phase = time.perf_counter()
+    runs = serve_speculative(torch, cfg, results["gemv_gemm_gap"])
+    launches["quant_kv_append"] = runs["b dense, speculative"]["quant_kv_append"]
+    launches["quant_kv_append_paged"] = sum(           # engines (c) and (d)'s commit replays
+        r["quant_kv_append_paged"] for k, r in runs.items() if k[0] in "cd")
+    log(f"  phase 6 took {time.perf_counter() - t_phase:.1f} s")
+
+    log("== 7. summary")
     rows = []
     for name in kernels.KERNELS:
         r = results[name]

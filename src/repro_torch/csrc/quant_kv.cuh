@@ -1,5 +1,5 @@
 // Device code shared by the quantized-KV kernels (quant_kv_decode_step.cu,
-// quant_kv_paged.cu): the in-place requantization of one touched block and
+// quant_kv_dense.cu, quant_kv_paged.cu): the in-place requantization of one touched block and
 // the tiled online-softmax attention of one (slot, kv head).
 //
 // Both take the cache through a ROW LOCATOR, so the dense and the paged
@@ -248,7 +248,17 @@ __device__ void attend(const T* __restrict__ q, const float* __restrict__ mrow,
     out[i] = sm.acc[i] / fmaxf(sm.l[i / hd], 1e-30f);
 }
 
+// Dynamic shared memory of an append kernel: the reduction scratch, the
+// block in f32 and one packed copy of it.
+inline size_t append_smem_bytes(int hd, int block, int bits) {
+  return ((size_t)kRed + (size_t)block * hd) * sizeof(float) +
+         (size_t)block * (hd / lanes_of(bits));
+}
+
 inline bool bad_kv_bits(int bits) { return bits != 2 && bits != 4 && bits != 6 && bits != 8; }
+
+// The attention bodies read packed rows as 4-byte words.
+inline bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) & 3; }
 
 // Raise the kernel's dynamic shared-memory limit, then launch it.
 template <typename Kernel, typename... Args>

@@ -126,11 +126,6 @@ quant_kv_append_paged_kernel(const int* __restrict__ pos, const int* __restrict_
                red);
 }
 
-inline size_t append_smem_bytes(int hd, int block, int bits) {
-  return ((size_t)kRed + (size_t)block * hd) * sizeof(float) +
-         (size_t)block * (hd / lanes_of(bits));
-}
-
 template <typename T>
 cudaError_t launch_step_paged(const void* pos, const void* table, const void* q,
                               const void* k_new, const void* v_new, void* k_pool, void* k_scale,
@@ -176,8 +171,6 @@ cudaError_t launch_append_paged(const void* pos, const void* table, const void* 
 inline bool bad_paged_shape(int B, int n_kv, int nb, int hd, int block) {
   return B < 1 || n_kv < 1 || nb < 1 || hd < 16 || hd % 16 || block < 1;
 }
-
-inline bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) & 3; }
 
 }  // namespace rq
 

@@ -7,17 +7,15 @@ version (``ref.py``) for CPU tensors; "cuda" on a CPU tensor raises.
 ``LAUNCHES`` counts kernel launches (incremented by each wrapper in
 ``kernel.py`` right where it launches) and ``PLAIN_CALLS`` counts calls of
 the plain versions, so a run can show which of the two it went through.
-``PLAIN_ONLY`` names the ops that have a plain version but no kernel yet.
 """
 from __future__ import annotations
 
 KERNELS = ("quant_gemv", "quant_matmul", "quant_kv_decode_step", "quant_kv_attention_paged",
-           "quant_kv_decode_step_paged", "quant_kv_append_paged")
-#: dense attention and append alone (ROADMAP queue 2, rows 4 and 5)
-PLAIN_ONLY = ("quant_kv_attention", "quant_kv_append")
+           "quant_kv_decode_step_paged", "quant_kv_append_paged", "quant_kv_attention",
+           "quant_kv_append")
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
-PLAIN_CALLS: dict[str, int] = dict.fromkeys(KERNELS + PLAIN_ONLY, 0)
+PLAIN_CALLS: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 IMPLS = ("auto", "cuda", "torch")
 

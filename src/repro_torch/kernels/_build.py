@@ -46,6 +46,11 @@ SIGNATURES = {
     "rq_quant_kv_attention_paged": [_P] * 8 + [_I] * 9 + [_P],
     # pos, table, new, pool, scale, B, H, nb, hd, block, bits, dtype, stream
     "rq_quant_kv_append_paged": [_P] * 5 + [_I] * 7 + [_P],
+    # q, k_packed, k_scale, v_packed, v_scale, mask, out,
+    # B, n_kv, g, S, hd, block, k_bits, v_bits, dtype, stream
+    "rq_quant_kv_attention": [_P] * 7 + [_I] * 9 + [_P],
+    # pos, new, packed, scale, B, H, S, hd, block, bits, dtype, stream
+    "rq_quant_kv_append": [_P] * 4 + [_I] * 7 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

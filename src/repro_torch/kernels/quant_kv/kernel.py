@@ -1,5 +1,5 @@
 """ctypes bindings of the CUDA quantized-KV kernels (``csrc/quant_kv_decode_step.cu``,
-``csrc/quant_kv_paged.cu``)."""
+``csrc/quant_kv_dense.cu``, ``csrc/quant_kv_paged.cu``)."""
 from __future__ import annotations
 
 import torch
@@ -57,6 +57,60 @@ def quant_kv_decode_step_cuda(pos, q, k_new, v_new, k_packed, k_scale, v_packed,
     LAUNCHES["quant_kv_decode_step"] += 1
     _build.check(rc, "quant_kv_decode_step")
     return out
+
+
+def _require_dense(prefix, packed, scale, bits, *, b, h, s, hd, block, dev) -> None:
+    _build.require(packed, f"{prefix}packed", dtype=torch.int8,
+                   shape=(b, h, s, -(-hd // LANES[bits])), device=dev)
+    _build.require(scale, f"{prefix}scale", dtype=torch.float32, shape=(b, h, s // block, 1),
+                   device=dev)
+
+
+def quant_kv_attention_cuda(q, k_packed, k_scale, v_packed, v_scale, mask, *, k_bits: int,
+                            v_bits: int, hd: int, block: int) -> torch.Tensor:
+    """One kernel per (slot, kv head): attention over the dense packed cache.
+
+    ``q`` (B, n_kv, g, hd); packed ``(B, n_kv, S, hd/lanes)`` int8 and scales
+    ``(B, n_kv, S/block, 1)`` f32, only read; ``mask`` (B, S) f32 additive.
+    Returns (B, n_kv, g, hd) f32.
+    """
+    b, n_kv, g, _ = q.shape
+    s = k_packed.shape[2]
+    dev = q.device
+    _check_hd("quant_kv_attention", hd, s, block)
+    code = _build.dtype_code(q, "quant_kv_attention")
+    _build.require(q, "q", shape=(b, n_kv, g, hd))
+    _require_dense("k_", k_packed, k_scale, k_bits, b=b, h=n_kv, s=s, hd=hd, block=block, dev=dev)
+    _require_dense("v_", v_packed, v_scale, v_bits, b=b, h=n_kv, s=s, hd=hd, block=block, dev=dev)
+    _build.require(mask, "mask", dtype=torch.float32, shape=(b, s), device=dev)
+    out = torch.empty((b, n_kv, g, hd), dtype=torch.float32, device=dev)
+    rc = _build.lib().rq_quant_kv_attention(
+        q.data_ptr(), k_packed.data_ptr(), k_scale.data_ptr(), v_packed.data_ptr(),
+        v_scale.data_ptr(), mask.data_ptr(), out.data_ptr(), b, n_kv, g, s, hd, block, k_bits,
+        v_bits, code, _build.stream_of(q))
+    LAUNCHES["quant_kv_attention"] += 1
+    _build.check(rc, "quant_kv_attention")
+    return out
+
+
+def quant_kv_append_cuda(pos, new, packed, scale, *, bits: int, hd: int, block: int) -> None:
+    """One side's append, one kernel per (slot, head): requantize the block
+    holding each slot's ``pos`` with ``new`` (B, H, hd) inserted, IN PLACE in
+    ``packed`` (B, H, S, hd/lanes) int8 and ``scale`` (B, H, S/block, 1) f32.
+    A slot whose ``pos`` lies outside [0, S) writes nothing (a masked row)."""
+    b, h, _ = new.shape
+    s = packed.shape[2]
+    dev = new.device
+    _check_hd("quant_kv_append", hd, s, block)
+    code = _build.dtype_code(new, "quant_kv_append")
+    _build.require(new, "new", shape=(b, h, hd))
+    _build.require(pos, "pos", dtype=torch.int32, shape=(b,), device=dev)
+    _require_dense("", packed, scale, bits, b=b, h=h, s=s, hd=hd, block=block, dev=dev)
+    rc = _build.lib().rq_quant_kv_append(
+        pos.data_ptr(), new.data_ptr(), packed.data_ptr(), scale.data_ptr(), b, h, s, hd, block,
+        bits, code, _build.stream_of(new))
+    LAUNCHES["quant_kv_append"] += 1
+    _build.check(rc, "quant_kv_append")
 
 
 def quant_kv_decode_step_paged_cuda(pos, table, q, k_new, v_new, k_pool, k_scale, v_pool,

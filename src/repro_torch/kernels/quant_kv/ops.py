@@ -7,9 +7,7 @@
 Every op takes the cache container, the dense ``QuantizedKVLayer`` or the
 paged ``PagedKVLayer``, and dispatches on its type, so
 ``models/layers.attention_decode_quant`` is the one call site that needs to
-know.  Both paths update the container in place and return it.  The dense
-attention and append alone have no kernel yet (ROADMAP queue 2, rows 4 and
-5): on CUDA tensors they raise.
+know.  Both paths update the container in place and return it.
 """
 from __future__ import annotations
 
@@ -18,7 +16,8 @@ import torch
 from repro_torch.kernels import LAUNCHES, PLAIN_CALLS, resolve_impl  # noqa: F401
 from repro_torch.kvcache.cache import QuantizedKVLayer
 from repro_torch.kvcache.paged import PagedKVLayer, place_paged_block  # noqa: F401
-from .kernel import (quant_kv_append_paged_cuda, quant_kv_attention_paged_cuda,
+from .kernel import (quant_kv_append_cuda, quant_kv_append_paged_cuda,
+                     quant_kv_attention_cuda, quant_kv_attention_paged_cuda,
                      quant_kv_decode_step_cuda, quant_kv_decode_step_paged_cuda)
 from .ref import (quant_kv_append_paged_ref, quant_kv_append_ref, quant_kv_attention_paged_ref,
                   quant_kv_attention_ref, quant_kv_decode_step_paged_ref,
@@ -32,12 +31,6 @@ def _container(layer) -> bool:
     if isinstance(layer, QuantizedKVLayer):
         return False
     raise TypeError(f"expected a QuantizedKVLayer or PagedKVLayer, got {type(layer).__name__}")
-
-
-def _no_dense_kernel(op: str, row: int):
-    return NotImplementedError(
-        f"{op} on a dense cache has no CUDA kernel yet (ROADMAP queue 2, row {row}); "
-        f"use quant_kv_decode_step, a paged cache, or impl='torch'")
 
 
 def _mask(kv_valid: torch.Tensor) -> torch.Tensor:
@@ -74,14 +67,15 @@ def quant_kv_attention(q: torch.Tensor, layer, kv_valid: torch.Tensor, *, impl: 
         ref = quant_kv_attention_paged_ref if paged else quant_kv_attention_ref
         o = ref(q3, layer, kv_valid, out_dtype=out_dtype)
     else:
-        if not paged:
-            raise _no_dense_kernel("quant_kv_attention", 4)
         b, s, n_kv, hd = layer.shape
         g = q3.shape[1] // n_kv
-        o = quant_kv_attention_paged_cuda(
-            layer.block_table, q3.reshape(b, n_kv, g, hd).contiguous(), layer.k_packed,
-            layer.k_scale, layer.v_packed, layer.v_scale, _mask(kv_valid),
-            k_bits=layer.k_bits, v_bits=layer.v_bits, hd=hd, block=layer.block)
+        args = (q3.reshape(b, n_kv, g, hd).contiguous(), layer.k_packed, layer.k_scale,
+                layer.v_packed, layer.v_scale, _mask(kv_valid))
+        kw = dict(k_bits=layer.k_bits, v_bits=layer.v_bits, hd=hd, block=layer.block)
+        if paged:
+            o = quant_kv_attention_paged_cuda(layer.block_table, *args, **kw)
+        else:
+            o = quant_kv_attention_cuda(*args, **kw)
         o = o.reshape(b, n_kv * g, hd).to(out_dtype or q.dtype)
     return o[:, None] if lead4 else o
 
@@ -89,20 +83,28 @@ def quant_kv_attention(q: torch.Tensor, layer, kv_valid: torch.Tensor, *, impl: 
 def quant_kv_append(layer, pos, k_new: torch.Tensor, v_new: torch.Tensor, *,
                     impl: str = "auto"):
     """Write one decode token's K/V (``(B, 1, H, hd)``) at ``pos``, in place;
-    requantizes only the touched block.  Returns the layer."""
+    requantizes only the touched block.  Returns the layer.
+
+    A slot whose position lies outside ``[0, S)`` (dense) or whose touched
+    table entry is unmapped (paged) is left alone by the kernels; the plain
+    versions write nothing there on a dense cache either, and write the
+    trash block on a paged one."""
     paged = _container(layer)
     impl = resolve_impl(impl, layer.k_packed.device)
     if impl == "torch":
         ref = quant_kv_append_paged_ref if paged else quant_kv_append_ref
         return ref(layer, pos, k_new, v_new)
-    if not paged:
-        raise _no_dense_kernel("quant_kv_append", 5)
     b = k_new.shape[0]
     pos = _positions(pos, b, layer.k_packed.device)
-    for new, pool, scale, bits in ((k_new, layer.k_packed, layer.k_scale, layer.k_bits),
-                                   (v_new, layer.v_packed, layer.v_scale, layer.v_bits)):
-        quant_kv_append_paged_cuda(pos, layer.block_table, new[:, 0].contiguous(), pool, scale,
-                                   bits=bits, hd=layer.head_dim, block=layer.block)
+    kw = dict(hd=layer.head_dim, block=layer.block)
+    for new, packed, scale, bits in ((k_new, layer.k_packed, layer.k_scale, layer.k_bits),
+                                     (v_new, layer.v_packed, layer.v_scale, layer.v_bits)):
+        new = new[:, 0].contiguous()
+        if paged:
+            quant_kv_append_paged_cuda(pos, layer.block_table, new, packed, scale, bits=bits,
+                                       **kw)
+        else:
+            quant_kv_append_cuda(pos, new, packed, scale, bits=bits, **kw)
     return layer
 
 

@@ -20,4 +20,6 @@ from .policy import (  # noqa: F401
     resolve_state_bits,
     state_bits_by_name,
     state_layer_infos,
+    state_surface_hash,
+    verify_state_bits,
 )

@@ -204,20 +204,23 @@ def append_side(packed: torch.Tensor, scale: torch.Tensor, new: torch.Tensor,
                 pos: torch.Tensor, bits: int, hd: int, block: int) -> torch.Tensor:
     """Requantize, in place, the block holding ``pos`` with the new row inserted.
 
-    ``new``: fp (B, H, hd); ``pos``: (B,).  Returns the block's new levels
-    (B, H, block, hd).
+    ``new``: fp (B, H, hd); ``pos``: (B,).  A slot whose ``pos`` lies outside
+    ``[0, S)`` is left alone, as the JAX package's block select matches no
+    block there.  Returns the block's new levels (B, H, block, hd).
     """
     b, h, s, hdp = packed.shape
     pos = pos.to(device=packed.device, dtype=torch.long)
-    bidx, off = pos // block, pos % block
+    inside = (pos >= 0) & (pos < s)
+    bidx = torch.where(inside, pos // block, 0)
+    off = pos % block
     view = packed.view(b, h, s // block, block, hdp)
     blk = torch.take_along_dim(view, bidx[:, None, None, None, None], dim=2)[:, :, 0]
     lev = packing.unpack(blk, bits, hd)
     sc_b = torch.take_along_dim(scale, bidx[:, None, None, None], dim=2)   # (B, H, 1, 1)
     lev_new, sc_new = requantize_block_levels(lev.to(torch.float32) * sc_b, new, off, bits)
-    rows = torch.arange(b, device=packed.device)
-    view[rows, :, bidx] = packing.pack(lev_new, bits)
-    scale[rows, :, bidx] = sc_new[:, :, 0]
+    rows = torch.arange(b, device=packed.device)[inside]
+    view[rows, :, bidx[inside]] = packing.pack(lev_new, bits)[inside]
+    scale[rows, :, bidx[inside]] = sc_new[inside][:, :, 0]
     return lev_new
 
 

@@ -306,7 +306,9 @@ def append_token_paged(layer: PagedKVLayer, pos, k_new: torch.Tensor,
     b = k_new.shape[0]
     dev = layer.k_packed.device
     pos = torch.as_tensor(pos, device=dev).reshape(-1).expand(b).to(torch.long)
-    bidx = (pos // layer.block)[:, None]
+    # a position past the table (an idle slot's stale one) reads the last
+    # entry, as the JAX package's clamped gather does
+    bidx = (pos // layer.block).clamp(0, layer.block_table.shape[1] - 1)[:, None]
     phys = torch.take_along_dim(layer.block_table.to(torch.long), bidx, dim=1)[:, 0]
     phys = phys.clamp_min(TRASH_BLOCK)
     off = pos % layer.block

@@ -1,4 +1,5 @@
-"""State bitwidth resolution (the serving half of ``repro/kvcache/policy.py``).
+"""State bitwidth resolution and verification (the serving half of
+``repro/kvcache/policy.py``).
 
 The decode state is a quantizable surface like the weights: one
 ``LayerInfo`` per KV entry and side (``kind="state"``), named
@@ -6,7 +7,7 @@ The decode state is a quantizable surface like the weights: one
 """
 from __future__ import annotations
 
-from repro_torch.core.policy import BitPolicy, LayerInfo
+from repro_torch.core.policy import BitPolicy, LayerInfo, PolicyArtifact, layer_registry_hash
 
 from .cache import QuantizedKVLayer
 from .paged import PagedKVLayer
@@ -41,6 +42,16 @@ def state_layer_infos(cfg, batch: int, seq: int, *,
     return tuple(sorted(infos, key=lambda l: l.name))
 
 
+def state_surface_hash(layers) -> str:
+    """Identity of a state registry without its geometry: each entry's shape
+    keeps only ``(n_kv, hd)``, since slots and max_seq are deployment choices.
+    Two deployments agree iff they expose the same KV entries with the same
+    head geometry (``PolicyArtifact.verify_state_layers`` is the strict,
+    geometry-inclusive check)."""
+    canon = tuple(LayerInfo(l.name, tuple(l.shape[-2:]), 0, l.kind) for l in layers)
+    return layer_registry_hash(canon)
+
+
 def state_bits_by_name(policy: BitPolicy) -> dict[str, tuple[int, int]]:
     """Policy -> entry name -> (k_bits, v_bits)."""
     out: dict[str, tuple[int, int]] = {}
@@ -52,13 +63,18 @@ def state_bits_by_name(policy: BitPolicy) -> dict[str, tuple[int, int]]:
 
 
 def resolve_state_bits(spec, cfg) -> list[tuple[int, int]] | None:
-    """Engine-facing: None (fp state), an int (uniform) or a state ``BitPolicy``
-    -> per-entry ``(k_bits, v_bits)`` in entry order."""
+    """Engine-facing: None (fp state), an int (uniform), a state ``BitPolicy``
+    or a ``PolicyArtifact`` (its state policy) -> per-entry ``(k_bits,
+    v_bits)`` in entry order."""
     if spec is None:
         return None
     names = kv_entry_names(cfg)
     if not names:
         raise ValueError(f"family {cfg.family!r} has no quantizable KV state")
+    if isinstance(spec, PolicyArtifact):
+        spec = spec.state_policy
+        if spec is None:
+            return None
     if isinstance(spec, int):
         return [(spec, spec)] * len(names)
     if isinstance(spec, BitPolicy):
@@ -79,3 +95,36 @@ def packed_state_bits(state) -> dict[str, int]:
                 out[f"layer{i:03d}.state.k"] = node.k_bits
                 out[f"layer{i:03d}.state.v"] = node.v_bits
     return out
+
+
+def verify_state_bits(state, artifact: PolicyArtifact, *, surface=None) -> None:
+    """Raise unless a decode state carries exactly the artifact's state bits.
+
+    A cache packed at another width fails, and so does a searched entry left
+    fp.  With the deployment's ``state_layer_infos`` as ``surface``, an
+    artifact searched on another state surface (other KV entries or head
+    geometry) fails too, by ``state_surface_hash``.
+    """
+    packed = packed_state_bits(state)
+    if artifact.state_policy is not None and surface is not None:
+        want = state_surface_hash(artifact.state_policy.layers)
+        got = state_surface_hash(surface)
+        if want != got:
+            raise ValueError(f"policy artifact state-surface mismatch: artifact was "
+                             f"searched on {want}, this deployment exposes {got} "
+                             f"(different KV entries or head geometry)")
+    if artifact.state_policy is None:
+        if packed:
+            raise ValueError(f"decode state is quantized ({len(packed)} entries) but the "
+                             f"policy artifact carries no state policy")
+        return
+    want = artifact.state_policy.bits
+    wrong = {n: (b, want.get(n)) for n, b in packed.items() if want.get(n) != b}
+    if wrong:
+        sample = dict(list(wrong.items())[:4])
+        raise ValueError(f"decode-state bitwidths disagree with the policy artifact on "
+                         f"{len(wrong)} entries (packed, artifact): {sample}")
+    missing = sorted(set(want) - set(packed))
+    if missing:
+        raise ValueError(f"{len(missing)} searched state entries are not quantized in the "
+                         f"decode state (fp cache?): {missing[:4]}")

@@ -175,3 +175,39 @@ def decode_step(params: dict, cfg, caches: list, token: torch.Tensor, pos, *,
         x = h + layers.mlp(lp["mlp"], hn, cfg.mlp, impl=impl)
     hidden = layers.norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     return logits_fn(params, hidden, cfg, impl=impl), caches
+
+
+def decode_verify(params: dict, cfg, caches: list, tokens: torch.Tensor, pos, *,
+                  impl: str = "auto"):
+    """Speculative verify: T burst tokens per slot through ONE weight pass.
+
+    ``tokens`` (B, T): the pending token, then T-1 draft proposals; ``pos``
+    (B,): each slot's write position of burst index 0.  The linears
+    (projections, ``wo``, MLP, LM head) run once over all B*T rows, so the
+    weights are read once; the cache append + attend runs position by
+    position through ``layers.decode_attend_one``, so a quantized cache sees
+    the non-speculative sequence of appends.  Caches are updated in place.
+    Returns ``(logits (B, T, V), caches, burst_kv)`` with ``burst_kv`` the
+    per-layer fp K/V ``[(k, v), ...]``, each (B, T, H, hd), that the commit
+    replays for the accepted prefix.
+    """
+    b, t = tokens.shape
+    x = embed_tokens(params, tokens, cfg)                          # (B, T, d)
+    pos = torch.as_tensor(pos, device=x.device).to(torch.int32).reshape(-1)
+    positions = pos[:, None] + torch.arange(t, dtype=torch.int32, device=x.device)
+    burst_kv = []
+    for lp, cache in zip(params["layers"], caches):
+        xn = layers.norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
+        q, k_new, v_new = layers._qkv(lp["attn"], xn, cfg, positions, impl=impl)
+        burst_kv.append((k_new, v_new))
+        outs = []
+        for j in range(t):
+            att, _ = layers.decode_attend_one(cache, q[:, j:j + 1], k_new[:, j:j + 1],
+                                              v_new[:, j:j + 1], pos + j, cfg, impl=impl)
+            outs.append(att.to(x.dtype))
+        o = torch.cat(outs, dim=1)                                 # (B, T, hq, hd)
+        h = x + layers.qdense(lp["attn"]["wo"], o.reshape(b, t, -1), impl=impl)
+        hn = layers.norm(lp["ln2"], h, cfg.norm, cfg.norm_eps)
+        x = h + layers.mlp(lp["mlp"], hn, cfg.mlp, impl=impl)
+    hidden = layers.norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    return logits_fn(params, hidden, cfg, impl=impl), caches, burst_kv

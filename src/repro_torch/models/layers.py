@@ -190,8 +190,11 @@ def decode_attend_one(cache, q, k_new, v_new, pos, cfg, *, window: int = 0,
         skv = cache["k"].shape[1]
         rows = torch.arange(b, device=q.device)
         posb = posv.expand(b).to(torch.long)
-        cache["k"][rows, posb] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, posb] = v_new[:, 0].to(cache["v"].dtype)
+        # the write clamps into the cache as the JAX package's dynamic update
+        # does (an idle slot's stale position may lie past it)
+        wpos = posb.clamp(0, skv - 1)
+        cache["k"][rows, wpos] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, wpos] = v_new[:, 0].to(cache["v"].dtype)
         kv_valid = torch.arange(skv, device=q.device)[None, :] <= posb[:, None]
         if window:
             kv_valid &= torch.arange(skv, device=q.device)[None, :] > (posb[:, None] - window)

@@ -4,6 +4,7 @@
     params = api.init(cfg, generator, device)
     logits, state = api.prefill(params_serve, cfg, tokens, ...)
     logits, state = api.decode_step(params_serve, cfg, state, token, pos)
+    logits, state, burst_kv = api.decode_verify(params_serve, cfg, state, tokens, pos)
 
 Only the dense family is ported; the others raise and name the ROADMAP
 item that ports them.
@@ -27,6 +28,10 @@ class ModelAPI:
     # (cfg, batch, seq, dtype, *, state_bits, block, paged, pool_blocks, device)
     #   -> decode state
     init_decode_state: Callable
+    # speculative verify: (params, cfg, state, tokens (B, T), pos (B,)) ->
+    # (logits (B, T, V), state, burst_kv); None where the state cannot rewind
+    # a burst
+    decode_verify: Callable | None = None
 
 
 def _decoder_state(cfg, batch, seq, dtype=torch.bfloat16, *, state_bits=None, block=None,
@@ -41,6 +46,7 @@ _DECODER_API = ModelAPI(
     prefill=decoder.prefill,
     decode_step=decoder.decode_step,
     init_decode_state=_decoder_state,
+    decode_verify=decoder.decode_verify,
 )
 
 _NOT_PORTED = {

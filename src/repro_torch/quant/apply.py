@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from typing import Any
 
-from repro_torch.core.policy import BitPolicy, LayerInfo
+from repro_torch.core.policy import BitPolicy, LayerInfo, PolicyArtifact
 from repro_torch.quant.tensor import QuantizedTensor, concat_quantized, quantize_tensor
 
 #: leaf names that are quantizable weights
@@ -70,13 +70,18 @@ def layer_specs(params: dict, cfg) -> tuple[LayerInfo, ...]:
     return tuple(sorted(infos, key=lambda l: l.name))
 
 
-def quantize_for_serve(params: dict, policy: BitPolicy, cfg) -> dict:
+def quantize_for_serve(params: dict, policy: BitPolicy | PolicyArtifact, cfg) -> dict:
     """Unstacked (serve-layout) float params -> packed ``QuantizedTensor`` leaves.
 
+    Packs exactly the bitwidths the policy carries; a ``PolicyArtifact``
+    packs its weight policy (its registry hash is checked by the callers
+    that hold the model's specs: ``launch/serve.py``, ``ServeEngine``).
     The embedding is stored in lm_head layout ``(d, V)`` (see
     ``decoder.embed_tokens``).  Leaves are quantized one at a time, so a
     caller that drops its float tree right after keeps one transient.
     """
+    if isinstance(policy, PolicyArtifact):
+        policy = policy.policy
     def rec(tree, path):
         if isinstance(tree, dict):
             return {k: rec(v, path + (k,)) for k, v in tree.items()}
@@ -143,6 +148,23 @@ def packed_policy_bits(serve_params: dict) -> dict[str, int]:
         for m in FUSED_MEMBERS.get(path[-1], (path[-1],)):
             out[_serve_name(path[:-1] + (m,))] = leaf.bits
     return out
+
+
+def verify_packed_bits(serve_params: dict, artifact: PolicyArtifact) -> None:
+    """Raise unless a packed tree carries exactly the artifact's bitwidths:
+    a layer packed at another width fails, and so does a searched layer that
+    was never packed (a float or partly quantized tree)."""
+    packed = packed_policy_bits(serve_params)
+    wrong = {n: (b, artifact.policy.bits.get(n))
+             for n, b in packed.items() if artifact.policy.bits.get(n) != b}
+    if wrong:
+        sample = dict(list(wrong.items())[:4])
+        raise ValueError(f"packed weights disagree with the policy artifact on "
+                         f"{len(wrong)} layers (packed, artifact): {sample}")
+    missing = sorted(set(artifact.policy.bits) - set(packed))
+    if missing:
+        raise ValueError(f"{len(missing)} searched layers are not packed in the serve tree "
+                         f"(float or partially-quantized params?): {missing[:4]}")
 
 
 def _serve_name(path: tuple[str, ...]) -> str:

@@ -21,10 +21,21 @@ The minimal port of ``repro/serve/engine.py``:
     admission reserves the blocks its decode can still need, and a request
     the pool cannot cover waits at the head of the queue until completions
     free blocks.
+  * ``artifact=`` deploys a ``PolicyArtifact``: the packed weights and the
+    built decode state are verified against it, its state policy builds the
+    quantized cache, its pool geometry the paged one, and a draft policy
+    (v4 and later) turns speculation on at its ``draft_k``.
+  * ``speculate=K`` with a ``draft_policy`` makes each decode round a
+    self-speculative burst: a re-packing of the same weights at the draft
+    bits proposes K tokens, ``decode_verify`` checks all K+1 positions in
+    one weight pass, and ``spec/loop.py`` rewinds the quantized cache to
+    the accepted prefix.  Greedy streams equal the non-speculative ones.
+    The burst K is the configured K throughout (the JAX engine's shed
+    ladder, which lowers it under pool pressure, is not ported), shrunk
+    only near ``max_seq``.
 
-Left for later slices: policy artifacts, speculation, chunked prefill,
-lifecycle / shedding / deadlines, fault injection, tracing and NaN
-quarantine.
+Left for later slices: chunked prefill, lifecycle / shedding / deadlines,
+fault injection, tracing, NaN quarantine and the v5 kernel configs.
 """
 from __future__ import annotations
 
@@ -38,8 +49,11 @@ import torch
 from repro_torch import kernels, kvcache
 from repro_torch.kvcache import paged as kvpaged
 from repro_torch.device import resolve_device
+from repro_torch.core.policy import PolicyArtifact
 from repro_torch.models import registry
 from repro_torch.quant import apply as qapply
+from repro_torch.spec import loop as spec_loop
+from repro_torch.spec.draft import build_draft_params
 from .sampling import sample
 
 
@@ -86,7 +100,9 @@ class ServeEngine:
                  top_k: int = 0, top_p: float = 1.0, seed: int = 0,
                  state_dtype=torch.float32, fuse_projections: bool = True, state_bits=None,
                  kv_block: int | None = None, paged: bool = False, pool_blocks: int | None = None,
-                 share_prefix: bool = True, debug_invariants: bool = False, device=None):
+                 share_prefix: bool = True, speculate: int | None = None, draft_policy=None,
+                 artifact: PolicyArtifact | None = None, debug_invariants: bool = False,
+                 device=None):
         self.device = resolve_device(device)
         leaf = _first_tensor(params)
         if leaf is not None and leaf.device.type != self.device.type:
@@ -94,9 +110,39 @@ class ServeEngine:
                              f"{self.device}")
         self.cfg = cfg
         self.api = registry.get_api(cfg)
+        # the policy this engine claims to serve: refuse packed bits that differ
+        self.artifact = artifact
         self.packed_bits = qapply.packed_policy_bits(params)
+        if artifact is not None:
+            qapply.verify_packed_bits(params, artifact)
         # fuse packed Q/K/V and gate/up groups: one kernel launch per group
         self.params = qapply.fuse_projections(params) if fuse_projections else params
+        # self-speculation: explicit speculate/draft_policy win, else a
+        # draft-carrying artifact turns it on at its searched K
+        explicit_draft = draft_policy is not None
+        if draft_policy is None and artifact is not None and artifact.draft_policy is not None:
+            draft_policy = artifact.draft_policy
+            if speculate is None:
+                speculate = artifact.draft_k
+        if explicit_draft and speculate is None:
+            raise ValueError("draft_policy given without speculate=K (pass speculate, or "
+                             "deploy a v4 artifact that records K)")
+        self.speculate = int(speculate or 0)
+        self.draft_params = None
+        self.draft_bits: dict[str, int] = {}
+        if self.speculate:
+            if draft_policy is None:
+                raise ValueError("speculate=K needs a draft_policy (or a draft-carrying v4 "
+                                 "artifact)")
+            if self.api.decode_verify is None:
+                raise NotImplementedError(f"family {cfg.family!r} cannot self-speculate: its "
+                                          f"decode state has no burst-rewindable KV form")
+            # the draft derives from the UNFUSED tree, so a heterogeneous draft
+            # policy never splits a fused leaf; equal-bit groups fuse after
+            draft, self.draft_bits = build_draft_params(params, draft_policy, cfg)
+            self.draft_params = qapply.fuse_projections(draft) if fuse_projections else draft
+        #: the live burst length: the configured K (no shed ladder yet)
+        self._k_live = self.speculate
         self.max_slots = max_slots
         self.max_seq = max_seq
         self.prefill_pad = prefill_pad
@@ -105,9 +151,18 @@ class ServeEngine:
         self.top_k = top_k
         self.top_p = top_p
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # explicit state_bits win, else the artifact's state policy
+        if state_bits is None and artifact is not None:
+            state_bits = artifact.state_policy
         resolved = kvcache.resolve_state_bits(state_bits, cfg)
+        # an artifact with pool geometry deploys the paged cache
+        if artifact is not None and artifact.pool is not None:
+            paged = True
+            pool_blocks = pool_blocks or int(artifact.pool["num_blocks"])
+            kv_block = kv_block or int(artifact.pool["block"])
         if paged and resolved is None:
-            raise ValueError("paged KV cache requires a quantized state (state_bits)")
+            raise ValueError("paged KV cache requires a quantized state (state_bits or an "
+                             "artifact state policy)")
         self.paged = paged
         self.share_prefix = share_prefix
         self._debug_invariants = debug_invariants
@@ -117,6 +172,11 @@ class ServeEngine:
                                                 device=self.device)
         if paged:
             blk = self.state[0].block
+            if artifact is not None and artifact.pool is not None and (
+                    blk != int(artifact.pool["block"])):
+                raise ValueError(f"artifact pool block {artifact.pool['block']} does not "
+                                 f"divide max_seq={max_seq}; serve with a max_seq multiple "
+                                 f"of the searched block length")
             self.pool = kvcache.BlockPool(self.state[0].num_blocks - 1)
             self._kv_blk = blk
             self._host_tables = np.full((max_slots, max_seq // blk), -1, np.int32)
@@ -129,12 +189,24 @@ class ServeEngine:
             self.pool = None
         #: state-entry name -> packed bits
         self.state_bits = kvcache.packed_state_bits(self.state)
+        if artifact is not None:
+            # slots and max_seq may differ from the search's: the surface
+            # check compares entries and head geometry only
+            surface = (kvcache.state_layer_infos(cfg, max_slots, max_seq)
+                       if artifact.state_policy is not None else None)
+            kvcache.verify_state_bits(self.state, artifact, surface=surface)
+        #: quantized layers need the burst snapshot/replay commit; fp ones do not
+        self._quant_state = any(isinstance(layer, (kvcache.QuantizedKVLayer,
+                                                   kvcache.PagedKVLayer))
+                                for layer in self.state)
         self.slots = [_Slot() for _ in range(max_slots)]
         self._queue: list[Request] = []
         self._pending_token: dict[int, int] = {}
         self._counts = {"decode_steps": 0, "admissions": 0, "prefill_tokens": 0,
-                        "completed": 0}
-        #: host seconds of each decode step, the token transfer included
+                        "completed": 0, "spec_steps": 0, "spec_proposed": 0,
+                        "spec_accepted": 0}
+        #: host seconds of each decode step (a speculative round under
+        #: speculation), the token transfer included
         self._step_s: list[float] = []
 
     # -- paged block bookkeeping -------------------------------------------
@@ -146,12 +218,15 @@ class ServeEngine:
             kvpaged.with_table(layer, self._host_tables)
         self._tables_dirty = False
 
-    def _last_pos(self, req: Request) -> int:
+    def _last_pos(self, req: Request, k: int) -> int:
         """Highest position the request can ever write: at least the replay
         append at ``len - 1`` (the loop decodes once even for
-        ``max_new_tokens <= 0``), at most ``max_seq - 2`` (``run``'s stop)."""
+        ``max_new_tokens <= 0``), at most ``max_seq - 2`` (``run``'s stop),
+        plus burst headroom ``k``: a speculative round writes up to K
+        positions past the committed one (at most ``max_seq - 1``)."""
         length = len(req.prompt)
-        return min(max(length - 1, length - 2 + req.max_new_tokens), self.max_seq - 2)
+        last = min(max(length - 1, length - 2 + req.max_new_tokens), self.max_seq - 2)
+        return min(last + k, self.max_seq - 1)
 
     def _map_slot_blocks(self, slot_id: int, req: Request) -> bool:
         """Map blocks covering positions ``[0, len(prompt) - 1]`` for a slot and
@@ -168,7 +243,7 @@ class ServeEngine:
         prompt = req.prompt
         w_new = len(prompt) - 1                   # head rows written at admission
         tb_first = w_new // blk                   # block the replay append hits
-        tb_last = self._last_pos(req) // blk
+        tb_last = self._last_pos(req, self._k_live) // blk
         donor, common = None, 0
         if self.share_prefix:
             for other, slot in enumerate(self.slots):
@@ -236,25 +311,28 @@ class ServeEngine:
         self._shared_blocks[keeper].discard(col)
         return keeper
 
-    def _ensure_append_blocks(self, active: list[int]) -> None:
-        """Before a decode step, the block each active slot writes must be
-        mapped (allocate at a block boundary) and owned by that slot alone
-        (copy a shared block first: copy-on-write)."""
+    def _ensure_append_blocks(self, active: list[int], span: int = 1) -> None:
+        """Before a decode step, every block an active slot can write this
+        step, positions ``[pos, pos + span - 1]`` (``span = K_eff + 1`` under
+        speculation), must be mapped (allocate at a block boundary) and owned
+        by that slot alone (copy a shared block first: copy-on-write)."""
         cow_src, cow_dst = [], []
         for i in active:
-            tb = self.slots[i].pos // self._kv_blk
-            bid = int(self._host_tables[i, tb])
-            if bid < 0:
-                self._host_tables[i, tb] = self._grow_alloc(i)
-                self._tables_dirty = True
-            elif self.pool.refcount(bid) > 1:
-                fresh = self._grow_alloc(self._cow_payer(i, tb, bid))
-                self.pool.cow_copies += 1
-                self.pool.decref(bid)
-                self._host_tables[i, tb] = fresh
-                cow_src.append(bid)
-                cow_dst.append(fresh)
-                self._tables_dirty = True
+            pos = self.slots[i].pos
+            last = min(pos + span - 1, self.max_seq - 1)
+            for tb in range(pos // self._kv_blk, last // self._kv_blk + 1):
+                bid = int(self._host_tables[i, tb])
+                if bid < 0:
+                    self._host_tables[i, tb] = self._grow_alloc(i)
+                    self._tables_dirty = True
+                elif self.pool.refcount(bid) > 1:
+                    fresh = self._grow_alloc(self._cow_payer(i, tb, bid))
+                    self.pool.cow_copies += 1
+                    self.pool.decref(bid)
+                    self._host_tables[i, tb] = fresh
+                    cow_src.append(bid)
+                    cow_dst.append(fresh)
+                    self._tables_dirty = True
         if cow_src:
             for layer in self.state:
                 kvpaged.copy_blocks(layer, cow_src, cow_dst)
@@ -269,15 +347,16 @@ class ServeEngine:
         self._shared_blocks.pop(slot_id, None)
         self._tables_dirty = True
 
-    def _required_growth(self, slot_id: int) -> int:
-        """Blocks an active slot still needs reserved to finish: unmapped blocks
-        in its remaining write span, plus one split per block there that it
-        maps from a donor and that is still shared."""
+    def _required_growth(self, slot_id: int, k: int) -> int:
+        """Blocks an active slot still needs reserved to finish under burst
+        headroom ``k``: unmapped blocks in its remaining write span, plus one
+        split per block there that it maps from a donor and that is still
+        shared."""
         slot = self.slots[slot_id]
         blk = self._kv_blk
         shared = self._shared_blocks.get(slot_id, set())
         need = 0
-        for tb in range(slot.pos // blk, self._last_pos(slot.req) // blk + 1):
+        for tb in range(slot.pos // blk, self._last_pos(slot.req, k) // blk + 1):
             bid = int(self._host_tables[slot_id, tb])
             if bid < 0 or (tb in shared and self.pool.refcount(bid) > 1):
                 need += 1
@@ -361,13 +440,62 @@ class ServeEngine:
         logits, self.state = self.api.decode_step(
             self.params, self.cfg, self.state, torch.tensor(tokens_h, device=self.device),
             torch.tensor(pos_h, device=self.device), impl=self.impl)
-        last = logits[:, -1]
+        return self._sample(logits[:, -1]).cpu().numpy()
+
+    # -- speculative decode ------------------------------------------------
+    def _burst_len(self, active: list[int]) -> int:
+        """Burst K of this round: the live K, shrunk so no slot's burst writes
+        past ``max_seq - 1`` (active slots sit at ``pos <= max_seq - 2``, so
+        it is >= 1 whenever speculation is on)."""
+        max_pos = max(self.slots[i].pos for i in active)
+        return max(min(self._k_live, self.max_seq - 1 - max_pos), 0)
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         if self.temperature > 0.0:
-            toks = sample(last, self._gen, temperature=self.temperature, top_k=self.top_k,
+            return sample(logits, self._gen, temperature=self.temperature, top_k=self.top_k,
                           top_p=self.top_p)
-        else:
-            toks = sample(last)
-        return toks.cpu().numpy()
+        return sample(logits)
+
+    def _spec_step(self, active: list[int], tokens_h: np.ndarray, pos_h: np.ndarray,
+                   k: int) -> dict[int, list[int]]:
+        """One round: snapshot -> K draft ``decode_step``s -> restore ->
+        ``decode_verify`` -> ``accept_tokens`` -> ``commit_state``.  Every slot
+        steps, idle ones at their last token and position as in the JAX
+        engine.  ONE host transfer: the accepted counts and the (B, K+1)
+        tokens.  Returns each active slot's emitted tokens (1..K+1: the
+        accepted draft prefix and the bonus token)."""
+        tokens = torch.tensor(tokens_h, device=self.device)
+        pos = torch.tensor(pos_h, device=self.device)
+        saved = spec_loop.snapshot_state(self.state, pos, k) if self._quant_state else None
+        tok, d_toks, d_logits = tokens, [], []
+        for j in range(k):
+            logits, self.state = self.api.decode_step(self.draft_params, self.cfg, self.state,
+                                                      tok, pos + j, impl=self.impl)
+            t = self._sample(logits[:, -1])
+            d_toks.append(t)
+            if self.temperature > 0.0:
+                d_logits.append(logits[:, -1])
+            tok = t[:, None]
+        d_toks = torch.stack(d_toks, dim=1)                                  # (B, K)
+        if saved is not None:
+            spec_loop.restore_state(self.state, saved, pos, k)
+        burst = torch.cat([tokens, d_toks], dim=1)                           # (B, K+1)
+        logits, self.state, burst_kv = self.api.decode_verify(self.params, self.cfg, self.state,
+                                                              burst, pos, impl=self.impl)
+        acc, out = spec_loop.accept_tokens(
+            logits, d_toks, torch.stack(d_logits, dim=1) if d_logits else None, self._gen,
+            temperature=self.temperature, top_k=self.top_k, top_p=self.top_p)
+        if saved is not None:
+            spec_loop.commit_state(self.state, saved, pos, acc, burst_kv, k, impl=self.impl)
+        host = torch.cat([acc[:, None], out], dim=1).cpu().numpy()           # the transfer
+        self._counts["spec_steps"] += 1
+        emitted = {}
+        for i in active:
+            a = int(host[i, 0])
+            emitted[i] = [int(t) for t in host[i, 1:a + 2]]
+            self._counts["spec_proposed"] += k
+            self._counts["spec_accepted"] += a
+        return emitted
 
     # -- main loop -----------------------------------------------------------
     def run(self, requests: list[Request] = ()) -> dict[int, list[int]]:
@@ -390,28 +518,37 @@ class ServeEngine:
                         f"request needs more KV blocks than the whole pool holds "
                         f"({self.pool.num_blocks}); raise pool_blocks")
             act = self._active()
+            k_eff = self._burst_len(act) if self._k_live else 0
             if self.paged:
-                self._ensure_append_blocks(act)
+                # map and copy-on-write every block the round can write
+                self._ensure_append_blocks(act, span=k_eff + 1)
             for i in act:
                 s = self.slots[i]
                 tokens_h[i, 0] = self._pending_token.get(
                     i, s.generated[-1] if s.generated else 0)
                 pos_h[i] = s.pos
             t0 = time.perf_counter()
-            toks = self._decode(tokens_h, pos_h)
+            if k_eff > 0:
+                emitted = self._spec_step(act, tokens_h, pos_h, k_eff)
+            else:
+                toks = self._decode(tokens_h, pos_h)
+                emitted = {i: [int(toks[i])] for i in act}
             self._step_s.append(time.perf_counter() - t0)
             self._counts["decode_steps"] += 1
             for i in act:
                 s = self.slots[i]
                 self._pending_token.pop(i, None)
-                tok = int(toks[i])
-                s.generated.append(tok)
-                s.pos += 1
-                if (tok == s.req.eos_id or len(s.generated) >= s.req.max_new_tokens
-                        or s.pos >= self.max_seq - 1):
-                    results[s.req.uid] = list(s.generated)
-                    self._release_slot(i)
-                    self._counts["completed"] += 1
+                for tok in emitted[i]:
+                    s.generated.append(tok)
+                    s.pos += 1
+                    if (tok == s.req.eos_id or len(s.generated) >= s.req.max_new_tokens
+                            or s.pos >= self.max_seq - 1):
+                        # a burst stops at its first terminal token: the rest
+                        # is dropped and the slot frees this very step
+                        results[s.req.uid] = list(s.generated)
+                        self._release_slot(i)
+                        self._counts["completed"] += 1
+                        break
             if self._debug_invariants:
                 self.check_invariants()
         return results
@@ -471,7 +608,7 @@ class ServeEngine:
                     raise AssertionError(f"free slot {i} still holds a growth reservation "
                                          f"({self._reserved[i]} blocks)")
                 continue
-            need = self._required_growth(i)
+            need = self._required_growth(i, self._k_live)
             if self._reserved.get(i, 0) != need:
                 raise AssertionError(f"slot {i} (uid {s.req.uid}): reserved "
                                      f"{self._reserved.get(i, 0)} blocks but needs {need}")
@@ -487,12 +624,15 @@ class ServeEngine:
                                          f"offset {off} (stale bytes would leak)")
 
     def stats(self) -> dict:
-        """Engine counters, the median decode step time, the process-wide
-        kernel launch and plain-call counts and, when paged, the pool's.
-        ``admissions`` counts batched prefill calls."""
+        """Engine counters, the median decode step time (a whole round under
+        speculation), the process-wide kernel launch and plain-call counts,
+        the speculation counters and, when paged, the pool's.  ``admissions``
+        counts batched prefill calls; ``spec_proposed``/``spec_accepted`` sum
+        K and the accepted draft tokens over the active slots of each round."""
         median = statistics.median(self._step_s) if self._step_s else None
         out = {**self._counts, "decode_step_median_s": median,
-               "launches": dict(kernels.LAUNCHES), "plain_calls": dict(kernels.PLAIN_CALLS)}
+               "launches": dict(kernels.LAUNCHES), "plain_calls": dict(kernels.PLAIN_CALLS),
+               "draft_bits": dict(self.draft_bits), "speculate_live_k": self._k_live}
         if self.paged:
             out.update(pool_allocated=self.pool.allocated,
                        pool_peak_allocated=self.pool.peak_allocated,

@@ -5,9 +5,11 @@ Run them on one with ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py``.  They cover the edges that ``chip_smoke.py``'s
 full-width shapes do not reach: ragged N, K padded inside the last byte
 (the GEMV's byte-wise path), M = 9 at the GEMV/GEMM switch, 2-bit lanes,
-and the dense and paged decode kernels at a reduced head width over a
+the dense and paged decode kernels at a reduced head width over a
 shuffled block table with a shared block, an idle slot and an unmapped
-entry inside a valid range.
+entry inside a valid range, the dense append and attention alone with a
+masked row, and at reduced gemma-2b width in f32 the verify pass against
+decode steps and the speculative engine against the non-speculative one.
 """
 import dataclasses
 
@@ -83,6 +85,51 @@ def test_decode_step_kernel_matches_plain_bytes_exactly(cuda, k_bits, v_bits):
         for f in ("k_packed", "k_scale", "v_packed", "v_scale"):
             assert torch.equal(getattr(layers[0], f), getattr(layers[1], f)), (step, f)
         assert _rel(o_k, o_p) <= 1e-5
+
+
+@pytest.mark.parametrize("k_bits,v_bits", [(8, 8), (8, 4), (4, 2), (2, 2), (6, 4)])
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_dense_append_and_attention_kernels_match_plain(cuda, k_bits, v_bits, dtype):
+    """Rows 5 and 4 alone: cache bytes exact against the plain versions with a
+    masked row (pos -1) left untouched, outputs within rel 1e-5, and the fused
+    step equal to the append followed by the attention bit for bit."""
+    b, s, h, hq, hd, block = 3, 64, 2, 4, 32, 8
+    rng = np.random.default_rng(k_bits * 10 + v_bits + 7)
+    lens = torch.tensor([7, 8, 40], device=cuda)
+    k = torch.from_numpy(rng.normal(size=(b, 40, h, hd)).astype(np.float32)).to(cuda)
+    v = torch.from_numpy(rng.normal(size=(b, 40, h, hd)).astype(np.float32)).to(cuda)
+    base = tcache.init_kv_layer(b, s, h, hd, k_bits=k_bits, v_bits=v_bits, block=block,
+                                device=cuda)
+    base = tcache.insert_rows(base, torch.arange(b, device=cuda), k, v, valid_len=lens)
+    pos = lens.to(torch.int32)
+    masked = pos.clone()
+    masked[1] = -1
+    valid = torch.arange(s, device=cuda)[None, :] <= pos[:, None]
+    q, kn, vn = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda).to(dtype)
+                 for shape in ((b, hq, hd), (b, 1, h, hd), (b, 1, h, hd)))
+    fields = ("k_packed", "k_scale", "v_packed", "v_scale")
+    kernels.reset_counts()
+    la, lp = _copy(base), _copy(base)
+    kv_ops.quant_kv_append(la, masked, kn, vn)
+    kv_ops.quant_kv_append(lp, masked, kn, vn, impl="torch")
+    o_a = kv_ops.quant_kv_attention(q, la, valid, out_dtype=torch.float32)
+    o_p = kv_ops.quant_kv_attention(q, la, valid, impl="torch", out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    for f in fields:
+        assert torch.equal(getattr(la, f), getattr(lp, f)), f
+        assert torch.equal(getattr(la, f)[1], getattr(base, f)[1]), f     # the masked row
+    assert _rel(o_a, o_p) <= 1e-5
+    lf, ls = _copy(base), _copy(base)
+    o_f, _ = kv_ops.quant_kv_decode_step(q, lf, pos, kn, vn, valid, out_dtype=torch.float32)
+    kv_ops.quant_kv_append(ls, pos, kn, vn)
+    o_s = kv_ops.quant_kv_attention(q, ls, valid, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    for f in fields:
+        assert torch.equal(getattr(lf, f), getattr(ls, f)), f
+    assert torch.equal(o_f, o_s)                  # fused = append then attend
+    assert kernels.LAUNCHES["quant_kv_append"] == 4
+    assert kernels.LAUNCHES["quant_kv_attention"] == 2
+    assert kernels.LAUNCHES["quant_kv_decode_step"] == 1
 
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -183,10 +230,93 @@ def test_paged_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="hd % 16"):
         kv_ops.quant_kv_attention(torch.zeros((1, 2, 24), device=cuda), odd,
                                   torch.ones((1, 16), dtype=torch.bool, device=cuda))
-    dense = tcache.init_kv_layer(1, 16, 1, 32, k_bits=8, v_bits=8, block=8, device=cuda)
-    with pytest.raises(NotImplementedError, match="row 4"):
-        kv_ops.quant_kv_attention(torch.zeros((1, 2, 32), device=cuda), dense,
+    # the dense attention and append alone have kernels too, with the same limits
+    dense = tcache.init_kv_layer(1, 16, 1, 24, k_bits=8, v_bits=8, block=8, device=cuda)
+    with pytest.raises(ValueError, match="hd % 16"):
+        kv_ops.quant_kv_attention(torch.zeros((1, 2, 24), device=cuda), dense,
                                   torch.ones((1, 16), dtype=torch.bool, device=cuda))
-    with pytest.raises(NotImplementedError, match="row 5"):
-        kv_ops.quant_kv_append(dense, 0, torch.zeros((1, 1, 1, 32), device=cuda),
-                               torch.zeros((1, 1, 1, 32), device=cuda))
+    with pytest.raises(ValueError, match="hd % 16"):
+        kv_ops.quant_kv_append(dense, 0, torch.zeros((1, 1, 1, 24), device=cuda),
+                               torch.zeros((1, 1, 1, 24), device=cuda))
+
+
+def _reduced_model(cuda, seed: int):
+    """Reduced gemma-2b in f32 on the card, packed under the "mixed" policy,
+    with a K 8 / V 4 state policy for 3 slots of 64 positions."""
+    from repro_torch import configs
+    from repro_torch.core.policy import BitPolicy
+    from repro_torch.kvcache import state_layer_infos
+    from repro_torch.launch.dryrun import dryrun_policy
+    from repro_torch.models import decoder
+    from repro_torch.quant import apply as qapply
+
+    cfg = configs.get_config("gemma-2b").reduced()
+    params = decoder.init(cfg, torch.Generator(device=cuda).manual_seed(seed), device=cuda)
+    serve = qapply.quantize_for_serve(decoder.unstack_layers(params, cfg),
+                                      dryrun_policy(qapply.layer_specs(params, cfg), "mixed"),
+                                      cfg)
+    infos = state_layer_infos(cfg, 3, 64)
+    state = BitPolicy.from_bits(infos, {l.name: 8 if l.name.endswith(".k") else 4
+                                        for l in infos})
+    return cfg, serve, state
+
+
+def test_decode_verify_matches_decode_steps_on_the_card(cuda):
+    """The verify pass (its linears through the GEMM, M = 3 x 4) against four
+    decode steps (the GEMV, M = 3) on copies of one cache, in f32: logits
+    within rel 1e-4, as the GEMV and the GEMM are each held to their plain
+    versions, and cache scales within rel 1e-5."""
+    from repro_torch.kvcache import insert_state_rows, resolve_state_bits
+    from repro_torch.models import decoder
+    from repro_torch.quant.apply import fuse_projections
+
+    cfg, serve, state = _reduced_model(cuda, 11)
+    params = fuse_projections(serve)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    toks = torch.randint(1, cfg.vocab_size, (3, 20), generator=g, device=cuda)
+    burst = torch.randint(1, cfg.vocab_size, (3, 4), generator=g, device=cuda)
+    lens = torch.tensor([20, 9, 14], device=cuda)
+    _, kv = decoder.prefill(params, cfg, toks, logits=False)
+    bits = resolve_state_bits(state, cfg)
+    caches = [insert_state_rows(decoder.init_cache(cfg, 3, 64, state_bits=bits, device=cuda),
+                                torch.arange(3, device=cuda), kv, lens) for _ in range(2)]
+    kernels.reset_counts()
+    ver, _, _ = decoder.decode_verify(params, cfg, caches[0], burst, lens.to(torch.int32))
+    assert kernels.LAUNCHES["quant_matmul"] == 4 * cfg.n_layers
+    assert kernels.LAUNCHES["quant_kv_decode_step"] == 4 * cfg.n_layers
+    for j in range(4):
+        step, _ = decoder.decode_step(params, cfg, caches[1], burst[:, j:j + 1],
+                                      (lens + j).to(torch.int32))
+        torch.cuda.synchronize()
+        assert _rel(step[:, 0], ver[:, j]) <= 1e-4, j
+    for a, b in zip(*caches):
+        for f in ("k_scale", "v_scale"):
+            assert _rel(getattr(a, f), getattr(b, f)) <= 1e-5, f
+    assert kernels.LAUNCHES["quant_gemv"] == 4 * 4 * cfg.n_layers
+    assert sum(kernels.PLAIN_CALLS.values()) == 0
+
+
+@pytest.mark.parametrize("paged", (False, True), ids=("dense", "paged"))
+def test_speculative_engine_matches_non_speculative_on_the_card(cuda, paged):
+    """Greedy streams of the speculative engine (K = 3, a 4-bit draft) equal
+    the non-speculative engine's at reduced width in f32, through the
+    kernels only; the commit replays launch the dense or paged append."""
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg, serve, state = _reduced_model(cuda, 13)
+    prompts = [[9] * 19, [5, 6, 7, 8], [9] * 19, [1, 2, 9, 4, 7, 3], [2],
+               list(range(1, 31))]
+    kw = dict(max_slots=3, max_seq=64, state_bits=state)
+    if paged:
+        kw.update(paged=True, pool_blocks=12)
+    base = ServeEngine(cfg, serve, **kw).generate(prompts, max_new_tokens=10)
+    kernels.reset_counts()
+    eng = ServeEngine(cfg, serve, speculate=3, draft_policy=4, debug_invariants=True, **kw)
+    assert eng.generate(prompts, max_new_tokens=10) == base
+    st = eng.stats()
+    append = "quant_kv_append_paged" if paged else "quant_kv_append"
+    assert st["launches"][append] == 2 * cfg.n_layers * 4 * st["spec_steps"] > 0
+    assert sum(st["plain_calls"].values()) == 0
+    assert st["spec_accepted"] > 0
+    if paged:
+        assert eng.pool.allocated == eng.pool.reserved == 0

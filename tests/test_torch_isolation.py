@@ -24,7 +24,8 @@ def _submodules():
 
 def test_every_submodule_imports_without_jax():
     mods = _submodules()
-    assert "repro_torch.serve.engine" in mods and "repro_torch.kernels._build" in mods
+    assert {"repro_torch.serve.engine", "repro_torch.kernels._build", "repro_torch.spec.draft",
+            "repro_torch.spec.loop", "repro_torch.launch.serve"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -63,6 +64,16 @@ def test_engine_without_device_raises_when_no_card(monkeypatch):
     cfg = configs.get_config("gemma-2b").reduced()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(cfg, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, {}, speculate=2, draft_policy=4)
+
+
+def test_serve_cli_without_device_raises_when_no_card(monkeypatch):
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced", "--requests", "1"])
 
 
 def test_kernel_build_is_not_started_by_imports():
@@ -70,5 +81,5 @@ def test_kernel_build_is_not_started_by_imports():
     assert _build._lib is None
     assert all(p.suffix in (".cu", ".cuh") for p in _build.sources())
     assert {p.name for p in _build.sources()} >= {
-        "quant_gemv.cu", "quant_matmul.cu", "quant_kv_decode_step.cu", "quant_kv_paged.cu",
-        "quant_kv.cuh"}
+        "quant_gemv.cu", "quant_matmul.cu", "quant_kv_decode_step.cu", "quant_kv_dense.cu",
+        "quant_kv_paged.cu", "quant_kv.cuh"}
