@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a)
-and runs seven phases; any failure raises, so the exit code is nonzero and
+and runs eight phases; any failure raises, so the exit code is nonzero and
 the last line is not the ``ok`` line:
 
   1. environment: the card's name and power limit, torch/CUDA versions, and
@@ -16,9 +16,12 @@ the last line is not the ``ok`` line:
      kernels on a shuffled block pool (pool bytes exact, the fused paged
      step bitwise equal to append-then-attend and to the dense step on the
      same contents), with CUDA-event medians of the kernel, the plain
-     version and one library call; and the dense append where phase 6's
+     version and one library call; the dense append where phase 6's
      commit runs it (8 slots over 1024 positions, a masked slot, rows at
      and past the cache's end), bytes exact after every burst position;
+     and the fake-quant forward and STE backward at gemma-2b's ``w_gate``
+     and tied embedding (per model dimension for the lookup, per vocabulary
+     entry for the head), bits 2-8 and 32, f32 and bf16, bytes exact;
   3. full-width gemma-2b in f32: prefill + 8 teacher-forced decode steps
      through the kernels and again through the plain versions, and the
      speculative verify pass against K+1 decode steps;
@@ -39,7 +42,19 @@ the last line is not the ``ok`` line:
      and those leave the non-speculative streams only at near-ties: where
      a stream parts, the two engines' logits for the two tokens differ by
      no more than the verify pass and the decode steps part on one cache;
-  7. one ``{"kernels": [...]}`` JSON line, the card's line, and last
+  7. the SigmaQuant policy search of full-width gemma-2b in bf16: (a) one
+     QAT step's loss and gradients through the kernels and through the
+     plain versions, from the same params and batch; (b) the search's main
+     path (``launch.search.run``, size_mib <= 1600, 8 pretraining steps, 3
+     refinement rounds, seq 64 x batch 8) with the controller's trace, the
+     QAT step median, a profiled step's device-busy and fake-quant shares,
+     peak memory and wall time, and fake-quant launches exactly 128 per
+     forward and STE launches 128 per training step; (c) the artifact saved,
+     loaded back, packed with ``quantize_for_serve(artifact)``, checked by
+     ``verify_packed_bits`` and served (8 requests) by
+     ``ServeEngine(artifact=)``; (d) the search once more from the same
+     seed, and whether its bit vectors agree;
+  8. one ``{"kernels": [...]}`` JSON line, the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
 Weights are random, made from a seeded CUDA generator.  Nothing of JAX is
@@ -88,6 +103,12 @@ SPEC_KV = dict(B=8, n_kv=1, g=8, hd=256, S=1024, block=16)
 #: past S, as idle slots at stale positions do
 SPEC_START = (264, 487, 509, 764, 1015, 1021, 1023, 700)
 SPEC_ACC = (3, 0, 2, 1, 3, 3, 3, -1)
+#: phase 2's fake-quant bit-widths (32 is what pretraining passes)
+FQ_BITS = (2, 4, 6, 8, 32)
+#: phase 7: the search command's arguments (8-bit weights are about 2388 MiB,
+#: 4-bit about 1194, so the limit forces mixed bits)
+SEARCH_ARGV = ["--arch", ARCH, "--limit", "size_mib=1600", "--pretrain-steps", "8",
+               "--phase2-iters", "3", "--seq", "64", "--batch", "8", "--seed", str(SEED)]
 REPLACES = {
     "quant_gemv": "src/repro/kernels/quant_gemv/kernel.py:64",
     "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:68",
@@ -97,6 +118,8 @@ REPLACES = {
     "quant_kv_append_paged": "src/repro/kernels/quant_kv/kernel.py:737",
     "quant_kv_attention": "src/repro/kernels/quant_kv/kernel.py:103",
     "quant_kv_append": "src/repro/kernels/quant_kv/kernel.py:165",
+    "fake_quant": "src/repro/kernels/fake_quant/kernel.py:30",
+    "fake_quant_ste_bwd": "src/repro/kernels/fake_quant/ops.py:41",
 }
 SOURCES = {
     "quant_gemv": "src/repro_torch/csrc/quant_gemv.cu",
@@ -107,6 +130,8 @@ SOURCES = {
     "quant_kv_append_paged": "src/repro_torch/csrc/quant_kv_paged.cu",
     "quant_kv_attention": "src/repro_torch/csrc/quant_kv_dense.cu",
     "quant_kv_append": "src/repro_torch/csrc/quant_kv_dense.cu",
+    "fake_quant": "src/repro_torch/csrc/fake_quant.cu",
+    "fake_quant_ste_bwd": "src/repro_torch/csrc/fake_quant.cu",
 }
 
 
@@ -682,6 +707,80 @@ def time_paged(torch, layer, q, kn, vn, pos, valid, k_bits, v_bits, dt, results)
     del kd, vd
 
 
+def same_bytes(torch, a, b) -> bool:
+    view = torch.int16 if a.dtype is torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+
+
+def check_fake_quant(torch, cfg, gen, results: dict) -> None:
+    """Row 10 against its plain versions at gemma-2b's shapes: ``w_gate``
+    (d x d_ff, one scale per output column), the tied embedding as the
+    lookup fake-quantizes it (one scale per model dimension) and as the head
+    does (``emb.T`` from the (V, d) storage, one scale per vocabulary entry):
+    bits 2-8 and 32, f32 and bf16, forward and STE backward bytes exactly
+    equal.  Times at 4 bits in bf16 (the search's dtype); the library time is
+    ``torch.fake_quantize_per_channel_affine`` on the same bf16 weight, which
+    multiplies by the reciprocal scale and is not bit-equal."""
+    from repro_torch.core.quantizer import qmax, weight_scale
+    from repro_torch.kernels.fake_quant.kernel import fake_quant_cuda, fake_quant_ste_bwd_cuda
+    from repro_torch.kernels.fake_quant.ref import fake_quant_ref, fake_quant_ste_bwd_ref
+
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    cases = (("w_gate", (d, f), False, d ** -0.5), ("embed lookup", (v, d), False, 0.02),
+             ("embed head", (v, d), True, 0.02))
+    for name, shape, rowwise, std in cases:
+        w32 = torch.randn(shape, generator=gen, device="cuda") * std
+        g32 = torch.randn(shape, generator=gen, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            w, g = w32.to(dt), g32.to(dt)
+            for bits in FQ_BITS:
+                scale = weight_scale(w, bits, channel_axis=0 if rowwise else -1)
+                got = fake_quant_cuda(w, scale, bits, rowwise=rowwise)
+                ok = same_bytes(torch, got, fake_quant_ref(w, scale, bits))
+                del got
+                dw = fake_quant_ste_bwd_cuda(w, scale, bits, g, rowwise=rowwise)
+                ok = ok and same_bytes(torch, dw, fake_quant_ste_bwd_ref(w, scale, bits, g))
+                del dw
+                torch.cuda.synchronize()
+                if not ok:
+                    raise AssertionError(f"fake_quant {name} {tuple(shape)} bits={bits} {dt}: "
+                                         f"kernel bytes differ from the plain version")
+                if bits != 4 or dt is torch.float32:
+                    continue
+                n, el = w.numel(), w.element_size()
+                zp = torch.zeros(scale.numel(), dtype=torch.int32, device="cuda")
+                q = int(qmax(bits))
+                t_l = time_ms(torch, lambda: torch.fake_quantize_per_channel_affine(
+                    w, scale.reshape(-1), zp, 0 if rowwise else 1, -q, q))
+                results["fake_quant"]["library_ms"] += t_l
+                log(f"  fake_quant {name:12s} {tuple(shape)} bits=4 bf16: "
+                    f"torch.fake_quantize_per_channel_affine {t_l:.4f} ms (not bit-equal)")
+                times = {
+                    "fake_quant": (time_ms(torch, lambda: fake_quant_cuda(w, scale, bits,
+                                                                          rowwise=rowwise)),
+                                   time_ms(torch, lambda: fake_quant_ref(w, scale, bits)),
+                                   2 * n * el + 4 * scale.numel()),
+                    "fake_quant_ste_bwd": (
+                        time_ms(torch, lambda: fake_quant_ste_bwd_cuda(w, scale, bits, g,
+                                                                       rowwise=rowwise)),
+                        time_ms(torch, lambda: fake_quant_ste_bwd_ref(w, scale, bits, g)),
+                        3 * n * el + 4 * scale.numel())}
+                for kern, (t_k, t_p, nbytes) in times.items():
+                    b_ms, b_by = bound(nbytes, 0.0)
+                    log(f"  {kern:18s} {name:12s} {tuple(shape)} bits=4 bf16: kernel {t_k:.4f} ms"
+                        f"  plain {t_p:.4f} ms  bound {b_ms:.4f} ms ({b_by}), "
+                        f"{nbytes / t_k / 1e6:.0f} GB/s")
+                    r = results[kern]
+                    r["ms"] += t_k
+                    r["plain_ms"] += t_p
+                    r["bytes"] += nbytes
+        log(f"  ok fake_quant {name} {tuple(shape)}: forward and STE backward bytes exact, "
+            f"bits {FQ_BITS}, f32 and bf16")
+        del w32, g32, w, g
+        torch.cuda.empty_cache()
+    results["fake_quant_ste_bwd"]["library_ms"] = None
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the main path at full width
 # ---------------------------------------------------------------------------
@@ -1208,6 +1307,283 @@ def profile_steps(torch, eng, reqs) -> None:
         log(f"    {100 * dev / total:5.1f}%  {dev / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the policy search at full width
+# ---------------------------------------------------------------------------
+
+
+def _fq_per_forward(cfg, specs) -> int:
+    """Fake-quant launches one forward pass makes: one per quantizable weight,
+    and the tied embedding twice (the lookup and the head)."""
+    return len(specs) + (1 if cfg.tie_embeddings and "embed" in {l.name for l in specs} else 0)
+
+
+def qat_step_parity(torch, cfg) -> None:
+    """Phase 7 (a): one QAT step's loss and gradients from the same params and
+    batch, through the kernels, through the plain versions, and through the
+    kernels again (to see whether the backward is deterministic)."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import TokenTask, global_batch
+    from repro_torch.launch.dryrun import dryrun_policy
+    from repro_torch.models import decoder, registry
+    from repro_torch.quant import apply as qapply
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_step import value_and_grad
+
+    params = decoder.init(cfg, torch.Generator(device="cuda").manual_seed(SEED + 8),
+                          device="cuda")
+    specs = qapply.layer_specs(params, cfg)
+    policy = dryrun_policy(specs, "mixed")
+    bits = qapply.bits_for_scan(policy, params, cfg)
+    batch = {k: v.to("cuda") for k, v in global_batch(
+        TokenTask(cfg.vocab_size), cfg, ShapeSpec("search", "train", 64, 8), 0).items()}
+    api = registry.get_api(cfg)
+    per_fwd = _fq_per_forward(cfg, specs)
+    runs = {}
+    for key, impl in (("kernels", "auto"), ("plain", "torch"), ("kernels again", "auto")):
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(
+            lambda p, b, bb, impl=impl: api.loss(p, cfg, b, bits=bb, impl=impl), params, batch,
+            bits)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        want = (per_fwd, per_fwd) if impl == "auto" else (0, 0)
+        got = (kernels.LAUNCHES["fake_quant"], kernels.LAUNCHES["fake_quant_ste_bwd"])
+        plain = (kernels.PLAIN_CALLS["fake_quant"], kernels.PLAIN_CALLS["fake_quant_ste_bwd"])
+        if got != want or plain != ((0, 0) if impl == "auto" else (per_fwd, per_fwd)):
+            raise AssertionError(f"phase 7 (a) {key}: launches {got}, plain calls {plain}")
+        if not (torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)):
+            raise AssertionError(f"phase 7 (a) {key}: non-finite loss or gradient")
+        runs[key] = (loss, grads)
+        if key == "kernels again":
+            dt_kernels = dt
+        log(f"  {key}: loss {float(loss):.6f}, loss + gradients in {dt:.3f} s "
+            f"(fake-quant launches {got}, plain calls {plain})")
+    # the backward is deterministic, so loss and every gradient leaf are held
+    # bit for bit: kernels against plain, and run against run
+    for a, b in (("kernels", "plain"), ("kernels", "kernels again")):
+        (la, ga), (lb, gb) = runs[a], runs[b]
+        same = [torch.equal(x, y) for x, y in zip(ga, gb)]
+        if not torch.equal(la, lb) or not all(same):
+            worst = max(rel(x, y) for x, y in zip(ga, gb))
+            raise AssertionError(f"phase 7 (a) {a} vs {b}: loss rel {rel(la, lb):.3g}, "
+                                 f"gradients equal in {sum(same)} of {len(same)} leaves, "
+                                 f"max rel {worst:.3g}")
+        log(f"  ok {a} vs {b}: loss and all {len(same)} gradient leaves bit-equal")
+    # the other half of a QAT step: one AdamW update over these gradients
+    grads = runs.pop("kernels")[1]
+    del runs
+    torch.cuda.empty_cache()
+    ocfg = opt_mod.OptimizerConfig(lr=1e-3, warmup_steps=10)
+    state = opt_mod.init(ocfg, params)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt_mod.apply(ocfg, grads, state, params)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    n = sum(p.numel() for p in opt_mod.leaves(params))
+    log(f"  ({smi_line()}) one AdamW update of {n / 1e9:.3f} G parameters: "
+        f"{statistics.median(times[1:]) * 1e3:.3f} ms (median of 2 after a warm-up); loss and "
+        f"gradients through the kernels {dt_kernels * 1e3:.3f} ms (the second run)")
+    del params, grads, state
+    torch.cuda.empty_cache()
+
+
+def _step_hook(torch, record: dict):
+    """Wrap ``quant.qat.make_lm_qat_step`` so that each training step of the
+    search is timed (host clock, synchronized) and one, ``record["profile_at"]``,
+    runs under ``torch.profiler``."""
+    from repro_torch.quant import qat
+
+    make = qat.make_lm_qat_step
+
+    def wrapped(*a, **kw):
+        step, tcfg = make(*a, **kw)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if len(record["steps"]) == record["profile_at"]:
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    out = step(*args, **kwargs)
+                    torch.cuda.synchronize()
+                record["profile"] = (prof, time.perf_counter() - t0)
+            else:
+                out = step(*args, **kwargs)
+                torch.cuda.synchronize()
+            record["steps"].append(time.perf_counter() - t0)
+            return out
+
+        return timed, tcfg
+
+    return qat, make, wrapped
+
+
+def _device_shares(torch, prof, wall_s: float, step_s: float) -> str:
+    from torch.autograd import DeviceType
+
+    total = fq = 0.0
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        dev = getattr(evt, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(evt, "self_cuda_time_total", 0.0)
+        total += dev
+        if "fake_quant" in evt.key:
+            fq += dev
+        rows.append((dev, evt.key, evt.count))
+    if not total:
+        return "no device time in the trace (not measured)"
+    top = "; ".join(f"{100 * d / total:.1f}% x{c} {k[:60]}" for d, k, c in
+                    sorted(rows, reverse=True)[:6])
+    return (f"device busy {total / 1e3:.3f} ms: {100 * total / (step_s * 1e6):.1f}% of the "
+            f"step median, {100 * total / (wall_s * 1e6):.1f}% of the profiled step's "
+            f"{wall_s * 1e3:.3f} ms; fake-quant forward + STE kernels "
+            f"{fq / 1e3:.3f} ms ({100 * fq / total:.1f}% of device time); top: {top}")
+
+
+def search_run(torch, cfg, *, profile: bool):
+    """Phase 7 (b) (and (d)): ``launch.search.run`` from the search command's
+    arguments, counts set to 0 just before and read just after."""
+    from repro_torch import kernels
+    from repro_torch.launch import search
+
+    args = search.build_parser().parse_args(SEARCH_ARGV)
+    record = {"steps": [], "profile_at": args.pretrain_steps + 1 if profile else -1}
+    qat, make, wrapped = _step_hook(torch, record)
+    qat.make_lm_qat_step = wrapped
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        artifact, result, env = search.run(args, log=lambda m: log("    " + m))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        qat.make_lm_qat_step = make
+    launches, plain = dict(kernels.LAUNCHES), dict(kernels.PLAIN_CALLS)
+    per_fwd = _fq_per_forward(cfg, env.layer_infos())
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(fake_quant=per_fwd * (env.train_steps + env.eval_passes),
+                fake_quant_ste_bwd=per_fwd * env.train_steps)
+    if launches != want or any(plain.values()):
+        raise AssertionError(f"phase 7 search: launches {launches} (the run's {env.train_steps} "
+                             f"training steps and {env.eval_passes} evaluations predict {want}), "
+                             f"plain calls {plain}")
+    if len(record["steps"]) != env.train_steps:
+        raise AssertionError(f"{len(record['steps'])} timed steps for {env.train_steps}")
+    info = dict(wall=wall, peak=torch.cuda.max_memory_allocated(), launches=launches,
+                steps=record["steps"], pretrain=args.pretrain_steps,
+                profile=record.get("profile"))
+    return artifact, result, env, info
+
+
+def search_phase(torch, cfg) -> dict:
+    """Phase 7 (b)-(d).  Returns the main path's (b) launch counts."""
+    from repro_torch import kernels
+    from repro_torch.core.policy import PolicyArtifact
+    from repro_torch.models import decoder
+    from repro_torch.quant import apply as qapply
+    from repro_torch.quant.tensor import QuantizedTensor
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    artifact, result, env, info = search_run(torch, cfg, profile=True)
+    r = result
+    qat = info["steps"][info["pretrain"]:]
+    timed = [t for i, t in enumerate(qat) if i != 1]          # step pretrain + 1 is profiled
+    smi = smi_line()
+    log(f"  ({smi}) search: success={r.success} abandoned={r.abandoned} acc {r.acc:.4f}, "
+        f"{len(r.trace)} controller entries, mean bits {r.policy.mean_bits():.3f}, "
+        f"size_mib {r.costs.get('size_mib', float('nan')):.2f} "
+        f"(limit {r.budget.items[0].limit:g}), wall {info['wall']:.2f} s")
+    log(f"  ({smi}) QAT step median {statistics.median(timed) * 1e3:.3f} ms over "
+        f"{len(timed)} steps after pretraining (pretraining steps median "
+        f"{statistics.median(info['steps'][1:info['pretrain']]) * 1e3:.3f} ms, first step "
+        f"{info['steps'][0] * 1e3:.3f} ms)")
+    if info["profile"] is not None:
+        prof, wall = info["profile"]
+        log(f"  ({smi}) profiled QAT step: "
+            f"{_device_shares(torch, prof, wall, statistics.median(timed))}")
+    log(f"  ({smi}) peak allocated {info['peak'] / 1e9:.3f} GB")
+    per_fwd = _fq_per_forward(cfg, env.layer_infos())
+    log(f"  launches {info['launches']}: {env.train_steps} training steps x {per_fwd} STE, "
+        f"{env.train_steps + env.eval_passes} forwards ({env.eval_passes} evaluations) x "
+        f"{per_fwd} fake-quant, as predicted; plain calls 0")
+    bits_b = [e.bits for e in r.trace]
+
+    # (c) save, load back, pack, verify, serve
+    path = ROOT / "build" / "phase7_policy.json"
+    path.parent.mkdir(exist_ok=True)
+    artifact.save(str(path))
+    art = PolicyArtifact.load(str(path))
+    specs = env.layer_infos()
+    art.verify_layers(specs)
+    if art.version != 6 or art.policy.bits != r.policy.bits or not art.provenance:
+        raise AssertionError(f"reloaded artifact v{art.version} differs from the search's")
+    params = env.params
+    del env
+    torch.cuda.empty_cache()
+    serve = qapply.quantize_for_serve(decoder.unstack_layers(params, cfg), art, cfg)
+    del params
+    torch.cuda.empty_cache()
+    qapply.verify_packed_bits(serve, art)
+    slots, seq, new, n_req = 4, 512, 16, 8
+    # the state phase is not ported: the deployment adds phase 4's K 8 / V 4 state
+    deploy = dataclasses.replace(art, state_policy=state_policy(cfg, slots, seq))
+    eng = ServeEngine(cfg, serve, max_slots=slots, max_seq=seq, artifact=deploy)
+    del serve
+    gen = torch.Generator().manual_seed(SEED + 9)
+    lens = torch.randint(8, 25, (n_req,), generator=gen).tolist()
+    reqs = [Request(uid=i, prompt=torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist(),
+                    max_new_tokens=new) for i, n in enumerate(lens)]
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    out = eng.run(reqs)
+    torch.cuda.synchronize()
+    st = eng.stats()
+    packed = sum(1 for lp in eng.params["layers"] for _, leaf in qapply._walk(lp)
+                 if isinstance(leaf, QuantizedTensor))
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(quant_gemv=packed * st["decode_steps"], quant_matmul=packed * st["admissions"],
+                quant_kv_decode_step=cfg.n_layers * st["decode_steps"])
+    if sorted(out) != list(range(n_req)) or any(len(v) != new for v in out.values()):
+        raise AssertionError(f"phase 7 (c): incomplete streams {[len(v) for v in out.values()]}")
+    if not all(0 <= t < cfg.vocab_size for v in out.values() for t in v):
+        raise AssertionError("phase 7 (c): token id out of range")
+    if st["launches"] != want or any(st["plain_calls"].values()):
+        raise AssertionError(f"phase 7 (c): launches {st['launches']} (want {want}), "
+                             f"plain calls {st['plain_calls']}")
+    log(f"  ok (c) artifact v{art.version} saved to {path.relative_to(ROOT)}, loaded, packed "
+        f"({eng.weight_container_bytes() / 1e9:.3f} GB, mean {art.policy.mean_bits():.3f} bits), "
+        f"verify_packed_bits passed; served {n_req} requests x {new} tokens on {slots} slots: "
+        f"{st['decode_steps']} decode steps, {st['admissions']} admissions, median step "
+        f"{st['decode_step_median_s'] * 1e3:.3f} ms ({packed} packed linears a step)")
+    log(f"    launches {st['launches']}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # (d) the same search again: do its decisions repeat?
+    _, r2, env2, info2 = search_run(torch, cfg, profile=False)
+    del env2
+    torch.cuda.empty_cache()
+    bits_d = [e.bits for e in r2.trace]
+    parted = [i for i, (x, y) in enumerate(zip(bits_b, bits_d)) if x != y]
+    same = bits_d == bits_b and r2.policy.bits == r.policy.bits
+    log(f"  (d) second search from seed {SEED}: {len(bits_d)} controller entries, wall "
+        f"{info2['wall']:.2f} s; bit vectors {'agree at every entry and in the final policy' if same else 'part at entries %s' % parted}; "
+        f"acc {r2.acc:.6f} vs {r.acc:.6f}")
+    return info["launches"]
+
+
 def main() -> int:
     try:
         import torch
@@ -1250,8 +1626,9 @@ def main() -> int:
     check_decode_step(torch, gen, results)
     check_dense_replay(torch, gen, results)
     check_paged(torch, gen, results)
-
     cfg = configs.get_config(ARCH)
+    check_fake_quant(torch, cfg, gen, results)
+
     log(f"== 3. {cfg.name} full width, f32: kernels against plain versions")
     parity_f32(torch, cfg)
 
@@ -1272,7 +1649,15 @@ def main() -> int:
         r["quant_kv_append_paged"] for k, r in runs.items() if k[0] in "cd")
     log(f"  phase 6 took {time.perf_counter() - t_phase:.1f} s")
 
-    log("== 7. summary")
+    log(f"== 7. {cfg.name} full width, {cfg.dtype}: the SigmaQuant policy search")
+    t_phase = time.perf_counter()
+    qat_step_parity(torch, cfg)
+    search_launches = search_phase(torch, cfg)
+    for name in ("fake_quant", "fake_quant_ste_bwd"):
+        launches[name] = search_launches[name]
+    log(f"  phase 7 took {time.perf_counter() - t_phase:.1f} s")
+
+    log("== 8. summary")
     rows = []
     for name in kernels.KERNELS:
         r = results[name]

@@ -39,6 +39,14 @@ def container_bytes(shape: tuple[int, ...], bits: int) -> int:
     return n * -(-k // lanes)
 
 
+def logical_bytes(shape: tuple[int, ...], bits: int) -> float:
+    """Paper-metric bytes: n_params * bits / 8 (Model Size in Tables II/III)."""
+    n = 1
+    for d in shape:
+        n *= d
+    return n * bits / 8.0
+
+
 def pack(levels: torch.Tensor, bits: int) -> torch.Tensor:
     """Pack signed b-bit integer levels into int8 lanes along the last axis.
 

@@ -8,12 +8,13 @@ decode-state policy, paged-pool geometry, a speculative draft policy,
 kernel configs and provenance, pinned to the layer registry they were
 searched on.  Their JSON forms are the JAX package's, so a policy or an
 artifact moves between the two packages unchanged, with an equal
-``registry_hash``.  The search half (``classify_zone``, ``Zone``) is not
-ported yet.
+``registry_hash``.  ``Zone`` and ``classify_zone`` are the search's
+decision zones (paper Fig. 2).
 """
 from __future__ import annotations
 
 import dataclasses
+import enum
 import hashlib
 import json
 from typing import Iterable, Mapping
@@ -66,6 +67,21 @@ class BitPolicy:
             raise KeyError(f"policy missing layers: {missing[:5]}")
         return cls(layers, {l.name: int(bits[l.name]) for l in layers}, act_bits)
 
+    # -- mutation (functional) ----------------------------------------------
+    def with_bits(self, name: str, bits: int) -> "BitPolicy":
+        packing.check_bits(bits)
+        new = dict(self.bits)
+        new[name] = bits
+        return BitPolicy(self.layers, new, self.act_bits)
+
+    def bumped(self, names: Iterable[str], delta: int) -> "BitPolicy":
+        """+/- delta bits on the named layers, clamped to the valid bit-set."""
+        new = dict(self.bits)
+        lo, hi = min(packing.VALID_BITS), max(packing.VALID_BITS)
+        for n in names:
+            new[n] = int(np.clip(new[n] + delta, lo, hi))
+        return BitPolicy(self.layers, new, self.act_bits)
+
     def weight_layers(self) -> tuple[LayerInfo, ...]:
         return tuple(l for l in self.layers if l.kind != "state")
 
@@ -87,6 +103,10 @@ class BitPolicy:
         """Packed container bytes of the decode state (int lanes only, no scales)."""
         return sum(packing.container_bytes(l.shape, self.bits[l.name])
                    for l in self.state_layers())
+
+    def bops(self) -> float:
+        return float(sum(self.bits[l.name] * self.act_bits * l.macs
+                         for l in self.weight_layers()))
 
     def bit_vector(self) -> np.ndarray:
         return np.asarray([self.bits[l.name] for l in self.layers], dtype=np.int64)
@@ -117,8 +137,18 @@ class BitPolicy:
 
 
 # ---------------------------------------------------------------------------
-# budgets
+# decision zones (paper Fig. 2) and budgets
 # ---------------------------------------------------------------------------
+
+
+class Zone(enum.Enum):
+    TARGET = "target"              # both constraints met
+    BIT_INCREASE = "bit_increase"  # accuracy low, size comfortably under budget
+    BIT_DECREASE = "bit_decrease"  # accuracy fine, size over budget
+    ITERATION = "iteration"        # exactly one constraint inside its buffer
+    TRANSITION = "transition"      # between phase-1 zones; keep current trend
+    ABANDON = "abandon"            # both hopeless (far outside buffers)
+
 
 #: cost-metric names a Budget may constrain
 COST_METRICS = ("size_mib", "size_bytes", "container_bytes", "state_bytes",
@@ -243,6 +273,58 @@ class Targets:
     def to_budget(self, metric: str = "resource") -> Budget:
         return Budget(self.acc_t, (BudgetItem(metric, self.res_t, self.res_buffer),),
                       self.acc_buffer, self.abandon_factor)
+
+
+def _as_budget_costs(res, t) -> tuple[Budget, dict[str, float]]:
+    """Normalize (res, targets) to (Budget, cost mapping)."""
+    if isinstance(t, Targets):
+        budget = t.to_budget()
+        if isinstance(res, Mapping):
+            if "resource" not in res:
+                raise KeyError(
+                    "classify_zone with Targets needs a scalar res or a "
+                    f"mapping containing 'resource' (got {sorted(res)})")
+            costs = dict(res)
+        else:
+            costs = {"resource": float(res)}
+        return budget, costs
+    costs = dict(res) if isinstance(res, Mapping) else {t.primary_metric: float(res)}
+    return t, costs
+
+
+def classify_zone(acc: float, res, t: "Targets | Budget") -> Zone:
+    """Fig. 2 decision zones from the (accuracy, cost-vector) point.
+
+    ``res`` is a scalar (single constraint) or a metric -> value mapping; the
+    most-violated constraint stands in for "the" resource axis, so with one
+    constraint this is the paper's 2-D diagram.
+
+    TARGET       accuracy and every constraint strictly hold.
+    ABANDON      accuracy and the worst constraint both far beyond buffers.
+    BIT_INCREASE accuracy clearly low while every cost is strictly in budget.
+    BIT_DECREASE some cost clearly over while accuracy strictly satisfied.
+    ITERATION    exactly one side inside its buffer (phase-2 territory).
+    TRANSITION   everything else (keep the current phase-1 trend).
+    """
+    budget, costs = _as_budget_costs(res, t)
+    acc_strict = budget.acc_ok(acc)
+    acc_buf = budget.acc_ok(acc, buffered=True)
+    res_strict = budget.res_ok(costs)
+    res_buf = budget.res_ok(costs, buffered=True)
+    if acc_strict and res_strict:
+        return Zone.TARGET
+    far_acc = acc < budget.acc_t - budget.abandon_factor * max(budget.acc_buffer, 1e-9)
+    far_res = any(it.violation(costs) > budget.abandon_factor * max(it.buffer, 1e-9)
+                  for it in budget.items)
+    if far_acc and far_res:
+        return Zone.ABANDON
+    if not acc_buf and res_strict:
+        return Zone.BIT_INCREASE
+    if acc_strict and not res_buf:
+        return Zone.BIT_DECREASE
+    if acc_buf != res_buf:
+        return Zone.ITERATION
+    return Zone.TRANSITION
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,7 @@ LIB_NAME = "librepro_torch_kernels.so"
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 #: C entry points -> argument types (every pointer and the stream as c_void_p)
 SIGNATURES = {
     # x, packed, scale, y, M, N, K, kp, bits, dtype, stream
@@ -51,6 +51,10 @@ SIGNATURES = {
     "rq_quant_kv_attention": [_P] * 7 + [_I] * 9 + [_P],
     # pos, new, packed, scale, B, H, S, hd, block, bits, dtype, stream
     "rq_quant_kv_append": [_P] * 4 + [_I] * 7 + [_P],
+    # w, scale, out, rows, cols, bits, rowwise, dtype, stream
+    "rq_fake_quant": [_P] * 3 + [_L, _L, _F, _I, _I, _P],
+    # w, scale, g, dw, rows, cols, bits, rowwise, dtype, stream
+    "rq_fake_quant_ste_bwd": [_P] * 4 + [_L, _L, _F, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

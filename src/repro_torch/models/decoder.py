@@ -2,16 +2,20 @@
 
 Two parameter layouts, as in the JAX package:
   * train: per-layer params stacked ``(L, ...)`` — what ``init`` returns and
-    what ``quant.apply.layer_specs`` enumerates;
+    what ``quant.apply.layer_specs`` enumerates; ``forward`` runs them in a
+    Python loop over per-layer views (QAT bits per layer ride along);
   * serve: a per-layer list (``unstack_layers``) run unrolled, so packed
     per-layer shapes may differ (mixed bitwidths).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import packing
+from repro_torch.core.quantizer import div_exact
 from repro_torch.device import resolve_device
+from repro_torch.kernels.fake_quant.ops import fake_quant_ste
 from repro_torch.kvcache.cache import DEFAULT_BLOCK, QuantizedKVLayer, init_kv_layer, resolve_block
 from repro_torch.kvcache.paged import PagedKVLayer, init_paged_layer
 from repro_torch.quant.tensor import QuantizedTensor
@@ -53,20 +57,32 @@ def init(cfg, generator: torch.Generator | None = None, device=None) -> dict:
     return params
 
 
+def _per_layer(tree, i: int):
+    """Layer ``i``'s slice of a nested dict of stacked tensors or per-layer sequences."""
+    if isinstance(tree, dict):
+        return {k: _per_layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _unbind(tree):
+    """``(L, ...)`` leaves -> tuples of per-layer views; one ``unbind`` per
+    leaf, so the backward writes each stacked gradient once."""
+    if isinstance(tree, dict):
+        return {k: _unbind(v) for k, v in tree.items()}
+    return tree.unbind(0)
+
+
 def unstack_layers(params: dict, cfg) -> dict:
     """(L, ...)-stacked train params -> per-layer list (views) for the serve path."""
-
-    def take(tree, i):
-        if isinstance(tree, dict):
-            return {k: take(v, i) for k, v in tree.items()}
-        return tree[i]
-
     out = dict(params)
-    out["layers"] = [take(params["layers"], i) for i in range(cfg.n_layers)]
+    out["layers"] = [_per_layer(params["layers"], i) for i in range(cfg.n_layers)]
     return out
 
 
-def embed_tokens(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
+def embed_tokens(params: dict, tokens: torch.Tensor, cfg, *, bits=None,
+                 impl: str = "auto") -> torch.Tensor:
+    """Embedding lookup; under QAT (``bits``) the table is fake-quantized
+    whole first, with one scale per model dimension, as in the JAX package."""
     emb = params["embed"]
     if isinstance(emb, QuantizedTensor):
         # stored in lm_head layout (d, V): packed (V, d/lanes), scale (1, V)
@@ -74,18 +90,78 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
         lev = packing.unpack(emb.packed[tokens], emb.bits, emb.k)
         scale = emb.scale[0][tokens][..., None]
         return (lev.to(torch.float32) * scale).to(_dtype(cfg))
-    return emb[tokens.to(torch.long)]
+    if bits is not None:
+        emb = fake_quant_ste(emb, bits, impl)
+    return F.embedding(tokens.to(torch.long), emb)
 
 
-def logits_fn(params: dict, hidden: torch.Tensor, cfg, *, impl: str = "auto") -> torch.Tensor:
+def _layer_body(x, lp: dict, cfg, positions, lb, impl: str):
+    h = x + layers.attention(lp["attn"], layers.norm(lp["ln1"], x, cfg.norm, cfg.norm_eps),
+                             cfg, positions, causal=True,
+                             bits=None if lb is None else lb.get("attn"), impl=impl)
+    hn = layers.norm(lp["ln2"], h, cfg.norm, cfg.norm_eps)
+    return h + layers.mlp(lp["mlp"], hn, cfg.mlp, bits=None if lb is None else lb.get("mlp"),
+                          impl=impl)
+
+
+def forward(params: dict, cfg, tokens: torch.Tensor, *, bits=None,
+            impl: str = "auto") -> torch.Tensor:
+    """Full-sequence forward over the stacked train layout -> final hidden (B, S, d).
+
+    ``bits``: None, or ``{"embed": b, "layers": {... per-layer lists ...}}``
+    as ``quant.apply.bits_for_scan`` builds it (QAT per-layer bitwidths).
+    """
+    x = embed_tokens(params, tokens, cfg, bits=None if bits is None else bits.get("embed"),
+                     impl=impl)
+    b, s = x.shape[:2]
+    positions = layers.position_ids(b, s, device=x.device)
+    stacked = _unbind(params["layers"])
+    for i in range(cfg.n_layers):
+        lb = None if bits is None else _per_layer(bits["layers"], i)
+        x = _layer_body(x, _per_layer(stacked, i), cfg, positions, lb, impl)
+    return layers.norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+
+
+def logits_fn(params: dict, hidden: torch.Tensor, cfg, *, bits=None,
+              impl: str = "auto") -> torch.Tensor:
     """The LM head.  A packed tied embedding dequantizes whole, ``(d, V)`` in
-    the hidden dtype, on every call — as the JAX package does."""
+    the hidden dtype, on every call — as the JAX package does.  Under QAT the
+    tied head fake-quantizes ``emb.T``, one scale per vocabulary entry."""
     if cfg.tie_embeddings and "lm_head" not in params:
         emb = params["embed"]
         if isinstance(emb, QuantizedTensor):
             return layers.qdense(emb.dequantize(hidden.dtype), hidden, impl=impl)
-        return layers.qdense(emb.T, hidden, impl=impl)
-    return layers.qdense(params["lm_head"], hidden, impl=impl)
+        return layers.qdense(emb.T, hidden, bits=None if bits is None else bits.get("embed"),
+                             impl=impl)
+    return layers.qdense(params["lm_head"], hidden,
+                         bits=None if bits is None else bits.get("lm_head"), impl=impl)
+
+
+def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor, *, bits=None,
+            impl: str = "auto", loss_chunk: int = 2048) -> torch.Tensor:
+    """Mean softmax cross-entropy, chunked over the sequence (the JAX package
+    recomputes each chunk's logits in the backward; here autograd keeps them,
+    which at the search's sequence lengths is one chunk)."""
+    hidden = forward(params, cfg, tokens, bits=bits, impl=impl)
+    return lm_loss_from_hidden(params, cfg, hidden, labels, bits=bits, impl=impl,
+                               loss_chunk=loss_chunk)
+
+
+def lm_loss_from_hidden(params: dict, cfg, hidden: torch.Tensor, labels: torch.Tensor, *,
+                        bits=None, impl: str = "auto", loss_chunk: int = 2048) -> torch.Tensor:
+    """Chunked softmax cross-entropy of ``hidden`` against the LM head."""
+    b, s, _ = hidden.shape
+    chunk = min(loss_chunk, s)
+    assert s % chunk == 0, (s, chunk)
+    labels = labels.to(torch.long)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(0, s, chunk):
+        logits = logits_fn(params, hidden[:, c:c + chunk], cfg, bits=bits,
+                           impl=impl).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, c:c + chunk, None])[..., 0]
+        total = total + torch.sum(logz - gold)
+    return div_exact(total, float(b * s))
 
 
 def init_cache(cfg, batch: int, seq: int, dtype=torch.bfloat16, *, state_bits=None,

@@ -1,8 +1,10 @@
 """Shared layer library, dense family (port of ``repro/models/layers.py``).
 
 Conventions: params are nested dicts of tensors; dense kernels are
-``(in, out)``; a ``QuantizedTensor`` weight runs through the packed
-dequant-matmul kernels (serving).  Activations keep the JAX layouts:
+``(in, out)``; a float weight passes through the fake-quant STE when
+``bits`` is given (QAT), and a ``QuantizedTensor`` weight runs through the
+packed dequant-matmul kernels (serving).  Per-layer bits are plain floats
+in a dict mirroring the param dict.  Activations keep the JAX layouts:
 ``(B, S, H, hd)`` for heads.
 """
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.fake_quant.ops import fake_quant_ste
 from repro_torch.kernels.quant_kv.ops import quant_kv_decode_step
 from repro_torch.kernels.quant_matmul.ops import qt_matmul
 from repro_torch.quant.tensor import QuantizedTensor
@@ -40,11 +43,18 @@ def embed_init(generator: torch.Generator, vocab: int, d: int, dtype=torch.float
 # ---------------------------------------------------------------------------
 
 
-def qdense(w: Any, x: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
-    """x @ w for a float weight or a packed ``QuantizedTensor`` (serving)."""
+def qdense(w: Any, x: torch.Tensor, *, bits=None, impl: str = "auto") -> torch.Tensor:
+    """x @ w with optional QAT fake-quant (``bits``) or a packed
+    ``QuantizedTensor`` weight (serving)."""
     if isinstance(w, QuantizedTensor):
         return qt_matmul(x, w, impl=impl, out_dtype=x.dtype)
+    if bits is not None:
+        w = fake_quant_ste(w, bits, impl)
     return torch.matmul(x, w.to(x.dtype))
+
+
+def _b(bits, name):
+    return None if bits is None else bits.get(name)
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -116,15 +126,17 @@ def _split_heads(x: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
     return x.reshape(b, s, n_heads, hd)
 
 
-def _qkv(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor, *, impl: str = "auto"):
+def _qkv(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor, *, bits=None,
+         impl: str = "auto"):
     hd = cfg.resolved_head_dim
     if "wqkv" in p:
         # pack-time fused projection group: one packed buffer, one launch,
         # split on the N-contiguous output
         nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-        qf, kf, vf = torch.split(qdense(p["wqkv"], x, impl=impl), [nq, nkv, nkv], dim=-1)
+        qf, kf, vf = torch.split(qdense(p["wqkv"], x, bits=_b(bits, "wqkv"), impl=impl),
+                                 [nq, nkv, nkv], dim=-1)
     else:
-        qf, kf, vf = (qdense(p[n], x, impl=impl) for n in ("wq", "wk", "wv"))
+        qf, kf, vf = (qdense(p[n], x, bits=_b(bits, n), impl=impl) for n in ("wq", "wk", "wv"))
     q = _split_heads(qf, cfg.n_heads, hd)
     k = _split_heads(kf, cfg.n_kv_heads, hd)
     v = _split_heads(vf, cfg.n_kv_heads, hd)
@@ -175,6 +187,19 @@ def _direct_attention(q, k, v, n_kv: int, *, causal: bool, window: int = 0,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqt,btkh->bqkgh", p.to(v.dtype).to(torch.float32), v.to(torch.float32))
     return o.reshape(b, sq, hq, hd).to(q.dtype)
+
+
+def attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor, *, causal: bool = True,
+              window: int = 0, bits=None, impl: str = "auto") -> torch.Tensor:
+    """Full-sequence self-attention (training and QAT): projections, the
+    direct path, and the output projection."""
+    if x.shape[1] > FLASH_THRESHOLD:
+        raise NotImplementedError("attention above FLASH_THRESHOLD needs the chunked flash "
+                                  "attention, not ported yet")
+    q, k, v = _qkv(p, x, cfg, positions, bits=bits, impl=impl)
+    o = _direct_attention(q, k, v, cfg.n_kv_heads, causal=causal, window=window)
+    b, s, _, _ = o.shape
+    return qdense(p["wo"], o.reshape(b, s, -1), bits=_b(bits, "wo"), impl=impl)
 
 
 def decode_attend_one(cache, q, k_new, v_new, pos, cfg, *, window: int = 0,
@@ -256,14 +281,14 @@ def mlp_init(generator, cfg, dtype=torch.float32, *, lead=(), device) -> dict:
             "w_down": dense_init(generator, f, d, dtype, lead=lead, device=device)}
 
 
-def mlp(p: dict, x: torch.Tensor, kind: str, *, impl: str = "auto") -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, kind: str, *, bits=None, impl: str = "auto") -> torch.Tensor:
     if kind in ("swiglu", "geglu"):
         if "w_gu" in p:  # pack-time fused gate|up group (one launch, halve)
-            g, u = torch.chunk(qdense(p["w_gu"], x, impl=impl), 2, dim=-1)
+            g, u = torch.chunk(qdense(p["w_gu"], x, bits=_b(bits, "w_gu"), impl=impl), 2, dim=-1)
         else:
-            g = qdense(p["w_gate"], x, impl=impl)
-            u = qdense(p["w_up"], x, impl=impl)
+            g = qdense(p["w_gate"], x, bits=_b(bits, "w_gate"), impl=impl)
+            u = qdense(p["w_up"], x, bits=_b(bits, "w_up"), impl=impl)
         act = F.silu(g) if kind == "swiglu" else F.gelu(g, approximate="tanh")
-        return qdense(p["w_down"], act * u, impl=impl)
-    h = F.gelu(qdense(p["w_up"], x, impl=impl), approximate="tanh")
-    return qdense(p["w_down"], h, impl=impl)
+        return qdense(p["w_down"], act * u, bits=_b(bits, "w_down"), impl=impl)
+    h = F.gelu(qdense(p["w_up"], x, bits=_b(bits, "w_up"), impl=impl), approximate="tanh")
+    return qdense(p["w_down"], h, bits=_b(bits, "w_down"), impl=impl)

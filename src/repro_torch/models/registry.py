@@ -2,6 +2,7 @@
 
     api = get_api(cfg)
     params = api.init(cfg, generator, device)
+    loss   = api.loss(params, cfg, batch, bits=...)        # train / QAT
     logits, state = api.prefill(params_serve, cfg, tokens, ...)
     logits, state = api.decode_step(params_serve, cfg, state, token, pos)
     logits, state, burst_kv = api.decode_verify(params_serve, cfg, state, tokens, pos)
@@ -17,6 +18,7 @@ from typing import Callable
 import torch
 
 from . import decoder
+from .decoder import lm_loss_from_hidden  # noqa: F401  (the JAX registry's name)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,12 +34,18 @@ class ModelAPI:
     # (logits (B, T, V), state, burst_kv); None where the state cannot rewind
     # a burst
     decode_verify: Callable | None = None
+    # (params, cfg, batch, *, bits, impl) -> mean cross-entropy (train / QAT)
+    loss: Callable | None = None
 
 
 def _decoder_state(cfg, batch, seq, dtype=torch.bfloat16, *, state_bits=None, block=None,
                    paged=False, pool_blocks=None, device=None):
     return decoder.init_cache(cfg, batch, seq, dtype, state_bits=state_bits, block=block,
                               paged=paged, pool_blocks=pool_blocks, device=device)
+
+
+def _decoder_loss(params, cfg, batch, *, bits=None, impl="auto"):
+    return decoder.lm_loss(params, cfg, batch["tokens"], batch["labels"], bits=bits, impl=impl)
 
 
 _DECODER_API = ModelAPI(
@@ -47,6 +55,7 @@ _DECODER_API = ModelAPI(
     decode_step=decoder.decode_step,
     init_decode_state=_decoder_state,
     decode_verify=decoder.decode_verify,
+    loss=_decoder_loss,
 )
 
 _NOT_PORTED = {

@@ -1,4 +1,9 @@
-"""Glue between bit policies and parameter trees (the serve half of ``repro/quant/apply.py``).
+"""Glue between bit policies and parameter trees (port of ``repro/quant/apply.py``).
+
+* ``layer_specs``        — enumerate quantizable layers (LayerInfo) from params
+* ``get_weight``         — fetch one layer's float weight by policy name
+* ``bits_for_scan``      — policy -> per-layer bit lists in the stacked layout (QAT)
+* ``quantize_for_serve`` — float params -> packed QuantizedTensor leaves
 
 Naming convention: stacked per-layer leaves expand to ``layer{i:03d}.<path>``;
 top-level leaves keep their dotted path (``embed``, ``lm_head``).  The
@@ -8,6 +13,8 @@ JAX package's.
 from __future__ import annotations
 
 from typing import Any
+
+import numpy as np
 
 from repro_torch.core.policy import BitPolicy, LayerInfo, PolicyArtifact
 from repro_torch.quant.tensor import QuantizedTensor, concat_quantized, quantize_tensor
@@ -68,6 +75,66 @@ def layer_specs(params: dict, cfg) -> tuple[LayerInfo, ...]:
             infos.append(LayerInfo(".".join(path), tuple(leaf.shape),
                                    macs=_macs_for(path, tuple(leaf.shape), cfg), kind=kind))
     return tuple(sorted(infos, key=lambda l: l.name))
+
+
+def get_weight(params: dict, name: str):
+    """Fetch a (possibly stacked-sliced) weight by policy name."""
+    parts = name.split(".")
+    tree: Any = params
+    if parts[0].startswith("layer") and parts[0][5:].isdigit():
+        tree = params["layers"]
+        for p in parts[1:]:
+            tree = tree[p]
+        return tree[int(parts[0][5:])]
+    if len(parts) >= 2 and parts[1].startswith("layer") and parts[1][5:].isdigit():
+        tree = params[parts[0]]
+        for p in parts[2:]:
+            tree = tree[p]
+        return tree[int(parts[1][5:])]
+    for p in parts:
+        tree = tree[int(p)] if isinstance(tree, (list, tuple)) else tree[p]
+    return tree
+
+
+def _bits_subtree(policy: BitPolicy, subtree: dict, n_layers: int, prefix: str) -> Any:
+    """Mirror a stacked param subtree with per-layer bit lists."""
+
+    def rec(tree, path):
+        if isinstance(tree, dict):
+            out = {}
+            for k, v in tree.items():
+                sub = rec(v, path + (k,))
+                if sub is not None:
+                    out[k] = sub
+            return out or None
+        if path[-1] in QUANT_KEYS and len(getattr(tree, "shape", ())) >= 3:
+            return [float(policy.bits[f"{prefix}layer{i:03d}." + ".".join(path)])
+                    for i in range(n_layers)]
+        return None
+
+    return rec(subtree, ())
+
+
+def bits_for_scan(policy: BitPolicy, params: dict, cfg) -> dict:
+    """Policy -> QAT ``bits`` tree: a float for each top-level weight and a
+    per-layer list (mirroring the stacked layout) for each stacked one.  The
+    JAX package carries (L,) arrays through ``lax.scan``; the port's forward
+    loops the layers in Python and reads one float per layer."""
+    out: dict[str, Any] = {}
+    for key in STACKED_KEYS:
+        if key in params:
+            prefix = "" if key == "layers" else key + "."
+            n_layers = next(leaf for _, leaf in _walk(params[key])).shape[0]
+            sub = _bits_subtree(policy, params[key], n_layers, prefix)
+            if sub:
+                out[key] = sub
+    for path, leaf in _walk({k: v for k, v in params.items() if k not in STACKED_KEYS}):
+        if _is_quant_leaf(path, leaf):
+            node = out
+            for p in path[:-1]:
+                node = node.setdefault(p, {})
+            node[path[-1]] = float(policy.bits[".".join(path)])
+    return out
 
 
 def quantize_for_serve(params: dict, policy: BitPolicy | PolicyArtifact, cfg) -> dict:
@@ -175,3 +242,20 @@ def _serve_name(path: tuple[str, ...]) -> str:
             prefix = "" if skey == "layers" else skey + "."
             return f"{prefix}layer{int(parts[1]):03d}." + ".".join(parts[2:])
     return ".".join(parts)
+
+
+def sigma_vector(params: dict, specs: tuple[LayerInfo, ...]) -> np.ndarray:
+    """Per-layer weight std-devs in spec order (phase-1 clustering features)."""
+    from repro_torch.core import stats
+
+    return stats.sigma_vector(get_weight(params, s.name) for s in specs)
+
+
+def kl_vector(params: dict, specs: tuple[LayerInfo, ...], policy: BitPolicy,
+              *, bins: int = 256) -> np.ndarray:
+    """Per-layer normalized KL at the policy's bits (phase-2 sensitivity)."""
+    from repro_torch.core import stats
+
+    return np.asarray([float(stats.normalized_kl(get_weight(params, s.name),
+                                                 policy.bits[s.name], bins=bins))
+                       for s in specs])

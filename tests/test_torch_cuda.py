@@ -8,8 +8,10 @@ full-width shapes do not reach: ragged N, K padded inside the last byte
 the dense and paged decode kernels at a reduced head width over a
 shuffled block table with a shared block, an idle slot and an unmapped
 entry inside a valid range, the dense append and attention alone with a
-masked row, and at reduced gemma-2b width in f32 the verify pass against
-decode steps and the speculative engine against the non-speculative one.
+masked row, at reduced gemma-2b width in f32 the verify pass against
+decode steps and the speculative engine against the non-speculative one,
+and the fake-quant forward and STE backward bit for bit at odd shapes, with
+row-wise scales, a zero column and infinite upstream gradients.
 """
 import dataclasses
 
@@ -320,3 +322,69 @@ def test_speculative_engine_matches_non_speculative_on_the_card(cuda, paged):
     assert st["spec_accepted"] > 0
     if paged:
         assert eng.pool.allocated == eng.pool.reserved == 0
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, NaN positions compared as NaN (CUDA's and PyTorch's NaN
+    payloads differ)."""
+    a, b = a.contiguous(), b.contiguous()
+    na, nb = torch.isnan(a.float()), torch.isnan(b.float())
+    view = torch.int16 if a.dtype is torch.bfloat16 else torch.int32
+    return bool(torch.equal(na, nb) and torch.equal(a.view(view)[~na], b.view(view)[~nb]))
+
+
+@pytest.mark.parametrize("bits", (2, 4, 6, 8, 32))
+@pytest.mark.parametrize("k,n", [(37, 53), (5, 129), (64, 96), (3, 8)])
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_fake_quant_kernels_match_plain_bit_for_bit(cuda, bits, k, n, dtype):
+    """Forward and STE backward, column- and row-wise scales (the head's
+    route), odd shapes (the one-element path) and 16-byte rows (the vector
+    path), a zero column, and +-inf in the upstream gradient."""
+    from repro_torch.core.quantizer import weight_scale
+    from repro_torch.kernels.fake_quant import ops as fq_ops
+    from repro_torch.kernels.fake_quant.kernel import fake_quant_cuda, fake_quant_ste_bwd_cuda
+    from repro_torch.kernels.fake_quant.ref import fake_quant_ref, fake_quant_ste_bwd_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(k * n + bits)
+    w = (torch.randn((k, n), generator=gen, device=cuda) * 0.05).to(dtype)
+    w[:, 1] = 0
+    g = torch.randn((k, n), generator=gen, device=cuda).to(dtype)
+    g[0, :] = float("inf")
+    g[-1, :] = -float("inf")
+    for rowwise in (False, True):
+        scale = weight_scale(w, bits, channel_axis=0 if rowwise else -1)
+        kernels.reset_counts()
+        got = fake_quant_cuda(w, scale, bits, rowwise=rowwise)
+        assert _bits_equal(got, fake_quant_ref(w, scale, bits))
+        for s in (scale, scale * 0.5):          # half the scale: half the weights masked
+            dw = fake_quant_ste_bwd_cuda(w, s, bits, g, rowwise=rowwise)
+            assert _bits_equal(dw, fake_quant_ste_bwd_ref(w, s, bits, g))
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["fake_quant"] == 1 and kernels.LAUNCHES["fake_quant_ste_bwd"] == 2
+    # the autograd route, as QAT runs it: plain layout and the tied head's
+    for transposed in (False, True):
+        outs, grads = [], []
+        for impl in ("torch", "auto"):
+            leaf = (w.T.contiguous() if transposed else w).detach().clone().requires_grad_()
+            out = fq_ops.fake_quant_ste(leaf.T if transposed else leaf, bits, impl)
+            out.backward(g)
+            outs.append(out.detach())
+            grads.append(leaf.grad)
+        torch.cuda.synchronize()
+        assert _bits_equal(*outs) and _bits_equal(*grads)
+
+
+def test_fake_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from repro_torch.core.quantizer import weight_scale
+    from repro_torch.kernels.fake_quant.kernel import fake_quant_cuda, fake_quant_ste_bwd_cuda
+
+    w = torch.randn((8, 16), device=cuda)
+    scale = weight_scale(w, 4)
+    with pytest.raises(TypeError):
+        fake_quant_cuda(w.half(), scale, 4)
+    with pytest.raises(ValueError, match="scales"):
+        fake_quant_cuda(w, scale, 4, rowwise=True)
+    with pytest.raises(ValueError, match="2-D"):
+        fake_quant_cuda(w[0], scale, 4)
+    with pytest.raises(TypeError):
+        fake_quant_ste_bwd_cuda(w, scale, 4, w.to(torch.bfloat16))
