@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a)
-and runs eight phases; any failure raises, so the exit code is nonzero and
+and runs nine phases; any failure raises, so the exit code is nonzero and
 the last line is not the ``ok`` line:
 
   1. environment: the card's name and power limit, torch/CUDA versions, and
@@ -19,9 +19,13 @@ the last line is not the ``ok`` line:
      version and one library call; the dense append where phase 6's
      commit runs it (8 slots over 1024 positions, a masked slot, rows at
      and past the cache's end), bytes exact after every burst position;
-     and the fake-quant forward and STE backward at gemma-2b's ``w_gate``
+     the fake-quant forward and STE backward at gemma-2b's ``w_gate``
      and tied embedding (per model dimension for the lookup, per vocabulary
-     entry for the head), bits 2-8 and 32, f32 and bf16, bytes exact;
+     entry for the head), bits 2-8 and 32, f32 and bf16, bytes exact; and
+     row 8, the projection-fused step, at gemma-2b's head geometry with d
+     512 (B 4 and 8, a position at S), weights 2-8 bits against every state
+     width: bit for bit equal to the launches it replaces (the GEMV, the
+     torch rotary, the dense step), within tolerance of its plain version;
   3. full-width gemma-2b in f32: prefill + 8 teacher-forced decode steps
      through the kernels and again through the plain versions, and the
      speculative verify pass against K+1 decode steps;
@@ -54,7 +58,21 @@ the last line is not the ``ok`` line:
      ``verify_packed_bits`` and served (8 requests) by
      ``ServeEngine(artifact=)``; (d) the search once more from the same
      seed, and whether its bit vectors agree;
-  8. one ``{"kernels": [...]}`` JSON line, the card's line, and last
+  8. (a) the f32 serving path through row 8: gemma-2b with d_model cut to
+     512 (the widest its gate takes), 8 requests of 8-200 prompt tokens on
+     4 slots, 32 new each: row 8 launched 18 times per decode step, no
+     dense step and no ``wqkv`` GEMV, no plain call, and streams and final
+     cache bytes equal to the same engine with ``fuse_projections=False``;
+     (b) chunked prefill at full width in bf16: 2 prompts of 1536 tokens and
+     6 of 16-48 submitted at once on 4 slots, through whole-prompt and
+     256-token chunked admission, dense and paged, with short- and
+     long-request TTFT, the step median, tok/s, the largest turn's tokens
+     against the budget and peak memory; the paged streams equal the dense
+     ones, and chunked ones leave whole-prompt ones only at near-ties (phase
+     6's criterion, against the logit gap the two admission paths leave on
+     one cache); (c) the dense chunked engine streams through ``on_token``
+     callbacks and ``poll()``, in the order of the returned streams;
+  9. one ``{"kernels": [...]}`` JSON line, the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
 Weights are random, made from a seeded CUDA generator.  Nothing of JAX is
@@ -63,6 +81,7 @@ imported.  Exits 2 without a CUDA device or without the package beside it.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -73,9 +92,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and bf16 tensor-core FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 tensor-core FLOP/s and
+# f32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
+F32_FLOP_S = 67e12
 
 ARCH = "gemma-2b"
 SEED = 0
@@ -103,6 +124,11 @@ SPEC_KV = dict(B=8, n_kv=1, g=8, hd=256, S=1024, block=16)
 #: past S, as idle slots at stale positions do
 SPEC_START = (264, 487, 509, 764, 1015, 1021, 1023, 700)
 SPEC_ACC = (3, 0, 2, 1, 3, 3, 3, -1)
+#: row 8 (the projection-fused step): gemma-2b's head geometry with d cut to 512,
+#: the widest the kernel's gate admits; write positions on block edges and at S
+PROJ = dict(d=512, n_kv=1, g=8, hd=256, S=512, block=16)
+PROJ_POS = {4: (15, 256, 511, 512), 8: (0, 15, 16, 255, 256, 496, 511, 512)}
+PROJ_WBITS = (2, 4, 6, 8)
 #: phase 2's fake-quant bit-widths (32 is what pretraining passes)
 FQ_BITS = (2, 4, 6, 8, 32)
 #: phase 7: the search command's arguments (8-bit weights are about 2388 MiB,
@@ -120,6 +146,7 @@ REPLACES = {
     "quant_kv_append": "src/repro/kernels/quant_kv/kernel.py:165",
     "fake_quant": "src/repro/kernels/fake_quant/kernel.py:30",
     "fake_quant_ste_bwd": "src/repro/kernels/fake_quant/ops.py:41",
+    "quant_kv_decode_step_proj": "src/repro/kernels/quant_kv/kernel.py:640",
 }
 SOURCES = {
     "quant_gemv": "src/repro_torch/csrc/quant_gemv.cu",
@@ -132,6 +159,7 @@ SOURCES = {
     "quant_kv_append": "src/repro_torch/csrc/quant_kv_dense.cu",
     "fake_quant": "src/repro_torch/csrc/fake_quant.cu",
     "fake_quant_ste_bwd": "src/repro_torch/csrc/fake_quant.cu",
+    "quant_kv_decode_step_proj": "src/repro_torch/csrc/quant_kv_proj.cu",
 }
 
 
@@ -159,9 +187,10 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """Least time (ms) the card needs: bytes over HBM rate vs ops over bf16 peak."""
-    tb, to = nbytes / HBM_BYTES_S * 1e3, flops / BF16_FLOP_S * 1e3
+def bound(nbytes: float, flops: float, rate: float = BF16_FLOP_S) -> tuple[float, str]:
+    """Least time (ms) the card needs: bytes over HBM rate vs ops over the
+    peak ``rate`` of their type (bf16 unless said)."""
+    tb, to = nbytes / HBM_BYTES_S * 1e3, flops / rate * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -325,6 +354,155 @@ def check_decode_step(torch, gen, results: dict) -> None:
             log(f"  ok decode step k{k_bits}/v{v_bits} {dt}: cache bytes and scales exact, "
                 f"rel {err:.2e}")
             check_dense_halves(torch, base, q, kn, vn, pos, valid, k_bits, v_bits, dt, results)
+
+
+def _proj_layer(torch, gen, b: int, k_bits: int, v_bits: int):
+    """A dense K/V cache of ``b`` slots whose rows below each slot's write
+    position hold quantized random rows."""
+    from repro_torch.kvcache.cache import init_kv_layer, insert_rows
+
+    c = PROJ
+    layer = init_kv_layer(b, c["S"], c["n_kv"], c["hd"], k_bits=k_bits, v_bits=v_bits,
+                          block=c["block"], device="cuda")
+    k = torch.randn((b, c["S"], c["n_kv"], c["hd"]), generator=gen, device="cuda")
+    v = torch.randn((b, c["S"], c["n_kv"], c["hd"]), generator=gen, device="cuda")
+    lens = torch.tensor(PROJ_POS[b], device="cuda").clamp(max=c["S"])
+    return insert_rows(layer, torch.arange(b, device="cuda"), k, v, valid_len=lens)
+
+
+def proj_composition(torch, x, wq, layer, pos, valid, *, n_heads: int, step: str):
+    """What row 8 replaces, one launch after another: the fused ``wqkv`` GEMV
+    (kernel 1), the rotation in torch as the unfused layer runs it, then the
+    dense decode step (kernel 3 for ``step="cuda"``, its plain version for
+    ``"torch"``).  Returns the step's output (B, hq, hd) f32."""
+    from repro_torch.kernels.quant_gemv.kernel import quant_gemv_cuda
+    from repro_torch.kernels.quant_kv import ops as kv_ops
+    from repro_torch.models.layers import apply_rope
+
+    b, d = x.shape
+    _, _, n_kv, hd = layer.shape
+    y = quant_gemv_cuda(x, wq.packed, wq.scale, bits=wq.bits, k=d)[:, None]
+    nq = n_heads * hd
+    q = y[..., :nq].reshape(b, 1, n_heads, hd)
+    k = y[..., nq:nq + n_kv * hd].reshape(b, 1, n_kv, hd)
+    v = y[..., nq + n_kv * hd:].reshape(b, 1, n_kv, hd)
+    q, k = apply_rope(q, pos[:, None]), apply_rope(k, pos[:, None])
+    return kv_ops.quant_kv_decode_step(q, layer, pos, k, v, valid, impl=step,
+                                       out_dtype=torch.float32)[0][:, 0]
+
+
+def check_decode_step_proj(torch, gen, results: dict) -> None:
+    """Row 8 at gemma-2b's head geometry with d 512 (B 4 and 8, f32 x), every
+    weight width against every state width: against the composition it
+    replaces (kernel 1, the torch rotation, kernel 3) cache bytes, scales and
+    output bit for bit; against its plain version scales within rel 1e-6 and
+    the output within rel 1e-5 (at slots that attend), the cache bytes that
+    differ counted, and those bytes must equal the plain decode step's run on
+    kernel 1's projection: a byte may differ only where kernel 1's sum and
+    its plain version's already do.  CUDA-event medians at B 4, w 4, K 8 / V 4."""
+    from repro_torch.core.packing import LANES
+    from repro_torch.kernels.quant_kv import ops as kv_ops
+    from repro_torch.kernels.quant_kv.kernel import quant_kv_decode_step_proj_cuda
+    from repro_torch.kernels.quant_kv.ref import quant_kv_decode_step_proj_ref
+    from repro_torch.models.layers import rope_freqs
+    from repro_torch.quant.tensor import quantize_tensor
+
+    c = PROJ
+    d, hd, n_kv, g = c["d"], c["hd"], c["n_kv"], c["g"]
+    hq = n_kv * g
+    n = (hq + 2 * n_kv) * hd
+    fields = ("k_packed", "k_scale", "v_packed", "v_scale")
+    r = results["quant_kv_decode_step_proj"]
+    worst = {"scale": 0.0, "out": 0.0, "bytes": 0}
+    for w_bits in PROJ_WBITS:
+        wq = quantize_tensor(torch.randn((d, n), generator=gen, device="cuda") / d ** 0.5,
+                             w_bits)
+        for b, plist in PROJ_POS.items():
+            pos = torch.tensor(plist, dtype=torch.int32, device="cuda")
+            valid = torch.arange(c["S"], device="cuda")[None, :] <= pos[:, None].long()
+            attends = pos < c["S"]
+            x = torch.randn((b, d), generator=gen, device="cuda")
+            ang = pos[:, None].float() * rope_freqs(hd, 10_000.0, device="cuda")
+            cos, sin = torch.cos(ang), torch.sin(ang)
+            for k_bits, v_bits in KV_BITS:
+                tag = f"proj w{w_bits} k{k_bits}/v{v_bits} B={b}"
+                base = _proj_layer(torch, gen, b, k_bits, v_bits)
+                lk, lc, lp, lq = (_clone(base) for _ in range(4))
+                o_k, _ = kv_ops.quant_kv_decode_step_proj(
+                    x, wq.packed, wq.scale, cos, sin, lk, pos, valid, w_bits=w_bits,
+                    n_heads=hq, impl="cuda", out_dtype=torch.float32)
+                o_c = proj_composition(torch, x, wq, lc, pos, valid, n_heads=hq, step="cuda")
+                o_p, _ = kv_ops.quant_kv_decode_step_proj(
+                    x, wq.packed, wq.scale, cos, sin, lp, pos, valid, w_bits=w_bits,
+                    n_heads=hq, impl="torch", out_dtype=torch.float32)
+                proj_composition(torch, x, wq, lq, pos, valid, n_heads=hq, step="torch")
+                torch.cuda.synchronize()
+                for f in fields:
+                    if not torch.equal(getattr(lk, f), getattr(lc, f)):
+                        raise AssertionError(f"{tag}: {f} differs from the composition in "
+                                             f"{int((getattr(lk, f) != getattr(lc, f)).sum())} "
+                                             f"entries")
+                    if not torch.equal(getattr(lk, f), getattr(lq, f)):
+                        raise AssertionError(f"{tag}: {f} differs from the plain step on "
+                                             f"kernel 1's projection")
+                if not torch.equal(o_k, o_c):
+                    raise AssertionError(f"{tag}: output differs from the composition by "
+                                         f"{float((o_k - o_c).abs().max()):.3g}")
+                nbytes_diff = sum(int((getattr(lk, f) != getattr(lp, f)).sum())
+                                  for f in ("k_packed", "v_packed"))
+                err_s = max(rel(getattr(lk, f), getattr(lp, f)) for f in ("k_scale", "v_scale"))
+                err_o = rel(o_k[attends], o_p[attends])
+                if not (torch.isfinite(o_k).all() and err_s <= 1e-6 and err_o <= 1e-5):
+                    raise AssertionError(f"{tag}: against the plain version scales rel "
+                                         f"{err_s:.3g} (limit 1e-6), output rel {err_o:.3g} "
+                                         f"(limit 1e-5)")
+                if not torch.equal(o_k[~attends], torch.zeros_like(o_k[~attends])):
+                    raise AssertionError(f"{tag}: the slot at S attended")
+                r["max_abs_err"] = max(r["max_abs_err"],
+                                       float((o_k[attends] - o_p[attends]).abs().max()))
+                worst.update(scale=max(worst["scale"], err_s), out=max(worst["out"], err_o),
+                             bytes=max(worst["bytes"], nbytes_diff))
+                if (w_bits, b, k_bits, v_bits) != (4, 4, 8, 4):
+                    continue
+                from repro_torch.kernels.quant_gemv.kernel import quant_gemv_cuda
+
+                mask = torch.where(valid, 0.0, -1e30).float()
+                scale2 = wq.scale.reshape(1, -1)
+                kw = dict(w_bits=w_bits, k_bits=k_bits, v_bits=v_bits, n_heads=hq, hd=hd,
+                          block=c["block"])
+                t_k = time_ms(torch, lambda: quant_kv_decode_step_proj_cuda(
+                    pos, x, wq.packed, scale2, cos, sin, lk.k_packed, lk.k_scale,
+                    lk.v_packed, lk.v_scale, mask, **kw))
+                t_p = time_ms(torch, lambda: quant_kv_decode_step_proj_ref(
+                    x, wq.packed, scale2, cos, sin, lp, pos, valid, w_bits=w_bits,
+                    n_heads=hq))
+                t_c = time_ms(torch, lambda: proj_composition(
+                    torch, x, wq, lc, pos, valid, n_heads=hq, step="cuda"))
+                t_g = time_ms(torch, lambda: quant_gemv_cuda(x, wq.packed, wq.scale,
+                                                             bits=w_bits, k=d))
+                hdp = {bb: -(-hd // LANES[bb]) for bb in (k_bits, v_bits)}
+                live = [int(p) for p in plist if p < c["S"]]
+                npos = sum(p + 1 for p in live)
+                nblk = sum(p // c["block"] + 1 for p in live)
+                nbytes = (wq.packed.numel() + 4 * n + 4 * b * d + 2 * 4 * b * (hd // 2)
+                          + n_kv * (npos * (hdp[k_bits] + hdp[v_bits]) + 8 * nblk
+                                    + len(live) * c["block"] * (hdp[k_bits] + hdp[v_bits]))
+                          + 4 * b * hq * hd + b * c["S"])
+                flops = 2.0 * len(live) * (hq + 2 * n_kv) * hd * d + 4.0 * hq * hd * npos
+                b_ms, b_by = bound(nbytes, flops, F32_FLOP_S)
+                log(f"  quant_kv_decode_step_proj {tag} d={d} S={c['S']} hd={hd} g={g} f32: "
+                    f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  composition (GEMV, rotary, "
+                    f"kernel 3) {t_c:.4f} ms, of it the GEMV {t_g:.4f} ms  bound {b_ms:.5f} ms "
+                    f"({b_by})")
+                r.update(ms=t_k, plain_ms=t_p, library_ms=None, composition_ms=t_c,
+                         bytes=nbytes, flops=flops, rate=F32_FLOP_S)
+        del wq
+    log(f"  ok row 8 at w {PROJ_WBITS} x k/v {KV_BITS} x B {tuple(PROJ_POS)}: cache bytes, "
+        f"scales and output equal to the composition (kernel 1, torch rotary, kernel 3) bit "
+        f"for bit; against the plain version scales rel <= {worst['scale']:.2e} (limit 1e-6), "
+        f"output rel <= {worst['out']:.2e} (limit 1e-5), at most {worst['bytes']} cache bytes "
+        f"differ, each where kernel 1's projection differs from its plain version's (the "
+        f"plain step on kernel 1's projection writes the kernel's bytes)")
 
 
 def _dense_bytes(torch, layer, pos, hq: int, act: int) -> tuple[float, float, float]:
@@ -1257,7 +1435,7 @@ def record_logits(torch, eng):
         decode = eng._decode
 
         def note_step(tokens_h, pos_h):
-            at = where(eng._active())
+            at = where(eng._decode_active())
             out = decode(tokens_h, pos_h)
             rounds.append({i: (uid, start, 1) for i, (uid, start) in at.items()})
             return out
@@ -1584,6 +1762,251 @@ def search_phase(torch, cfg) -> dict:
     return info["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 8: row 8 on the f32 serving path, chunked prefill and streaming
+# ---------------------------------------------------------------------------
+
+#: phase 8 (a): gemma-2b with d_model cut to 512, the widest row 8's gate takes
+PROJ_D = 512
+#: phase 8 (b): the long x short burst (prompt lengths in submission order)
+BURST_LENS = (1536, 24, 40, 1536, 16, 48, 32, 20)
+BURST_CHUNK = 256
+
+
+def serve_row8(torch, cfg) -> dict:
+    """Phase 8 (a): the f32 engine through row 8, against the same engine
+    with ``fuse_projections=False`` (the GEMV -> rotary -> dense step path)."""
+    from repro_torch import kernels
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg512 = dataclasses.replace(cfg, d_model=PROJ_D, dtype="float32")
+    slots, seq, new, n_req = 4, 512, 32, 8
+    log(f"  {cfg.name} cut to d_model {PROJ_D} (from {cfg.d_model}), float32; the rest "
+        f"published: {cfg512.n_layers} layers, {cfg512.n_heads} heads over "
+        f"{cfg512.n_kv_heads} KV head of {cfg512.resolved_head_dim}, d_ff {cfg512.d_ff}, "
+        f"vocab {cfg512.vocab_size}")
+    serve, policy = packed_model(torch, cfg512, SEED + 9)
+    gen = torch.Generator().manual_seed(SEED + 10)
+    lens = torch.randint(8, 201, (n_req,), generator=gen).tolist()
+    reqs = [Request(uid=i, prompt=torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist(),
+                    max_new_tokens=new) for i, n in enumerate(lens)]
+    runs = {}
+    for fuse in (True, False):
+        eng = ServeEngine(cfg512, serve, max_slots=slots, max_seq=seq,
+                          state_bits=state_policy(cfg512, slots, seq), fuse_projections=fuse)
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        out = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        launches, plain, steps = st["launches"], st["plain_calls"], st["decode_steps"]
+        n = cfg512.n_layers
+        want = dict.fromkeys(kernels.KERNELS, 0)
+        if fuse:     # row 8 per layer; wo, w_gu, w_down through the GEMV
+            want.update(quant_kv_decode_step_proj=n * steps, quant_gemv=3 * n * steps,
+                        quant_matmul=4 * n * st["admissions"])
+        else:        # wq, wk, wv, wo, w_gate, w_up, w_down and the dense step
+            want.update(quant_kv_decode_step=n * steps, quant_gemv=7 * n * steps,
+                        quant_matmul=7 * n * st["admissions"])
+        if sorted(out) != list(range(n_req)) or any(len(v) != new for v in out.values()):
+            raise AssertionError(f"row 8 engine: incomplete streams "
+                                 f"{[len(v) for v in out.values()]}")
+        if launches != want or any(plain.values()):
+            raise AssertionError(f"row 8 engine (fuse {fuse}): launches {launches}, want {want}; "
+                                 f"plain calls {plain}")
+        tag = "fused wqkv, row 8" if fuse else "unfused, GEMV + rotary + row 3"
+        log(f"  ok ({tag}): {n_req} requests of {min(lens)}-{max(lens)} prompt tokens, {new} new "
+            f"each, {slots} slots: {steps} decode steps, {st['admissions']} admissions, median "
+            f"step {st['decode_step_median_s'] * 1e3:.3f} ms, {n_req * new / wall:.2f} tok/s over "
+            f"{wall:.3f} s; launches per decode step: row 8 "
+            f"{launches['quant_kv_decode_step_proj'] / steps:g}, row 3 "
+            f"{launches['quant_kv_decode_step'] / steps:g}, GEMV "
+            f"{launches['quant_gemv'] / steps:g}")
+        runs[fuse] = (out, eng, launches)
+    (fo, fused, fl), (uo, unfused, _) = runs[True], runs[False]
+    fs, us = fused.state, unfused.state
+    if fo != uo:
+        raise AssertionError(f"row 8 engine streams differ from the unfused engine's for uids "
+                             f"{[u for u in fo if fo[u] != uo[u]]}")
+    for i, (a, b) in enumerate(zip(fs, us)):
+        for f in ("k_packed", "k_scale", "v_packed", "v_scale"):
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"row 8 engine: layer {i} cache {f} differs from the "
+                                     f"unfused engine's")
+    log(f"  ok streams and final cache bytes of the row-8 engine equal the unfused engine's "
+        f"(mean {policy.mean_bits():.3f} weight bits, K 8 / V 4 state)")
+    profile_steps(torch, fused, reqs[:slots])
+    del serve, runs, fused, unfused, fs, us
+    torch.cuda.empty_cache()
+    return fl
+
+
+def burst_requests(torch, cfg, new: int) -> list:
+    from repro_torch.serve.engine import Request
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    return [Request(uid=i, prompt=torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist(),
+                    max_new_tokens=new) for i, n in enumerate(BURST_LENS)]
+
+
+def prefill_gap(torch, cfg, serve, reqs, slots: int, seq: int, state) -> float:
+    """Largest |logit| difference between the two admission paths on one
+    request set: the first ``slots`` requests' heads prefilled together,
+    padded to the longest (the GEMM over every padded row), against each
+    prefilled alone in ``BURST_CHUNK``-token chunks; then one decode step
+    from each cache on the last prompt tokens.  How far chunking may move a
+    logit, for the near-tie criterion of phase 6."""
+    from repro_torch.kvcache import insert_state_rows, resolve_state_bits
+    from repro_torch.models import decoder
+    from repro_torch.quant.apply import fuse_projections
+
+    params = fuse_projections(serve)
+    heads = [r.prompt[:-1] for r in reqs[:slots]]
+    pad = max(map(len, heads))
+    pad += -pad % 32
+    toks = torch.zeros((slots, pad), dtype=torch.int32, device="cuda")
+    for i, h in enumerate(heads):
+        toks[i, : len(h)] = torch.tensor(h, device="cuda")
+    lens = torch.tensor([len(h) for h in heads], dtype=torch.int32, device="cuda")
+    bits = resolve_state_bits(state, cfg)
+    _, kv = decoder.prefill(params, cfg, toks, logits=False)
+    whole = insert_state_rows(decoder.init_cache(cfg, slots, seq, state_bits=bits,
+                                                 device="cuda"),
+                              torch.arange(slots, device="cuda"), kv, lens)
+    del kv
+    chunked = decoder.init_cache(cfg, slots, seq, state_bits=bits, device="cuda")
+    for i, h in enumerate(heads):
+        scr = decoder.init_prefill_scratch(cfg, len(h) + (-len(h) % 32), device="cuda")
+        for off in range(0, len(h), BURST_CHUNK):
+            c = torch.zeros((1, BURST_CHUNK), dtype=torch.int32, device="cuda")
+            piece = h[off:off + BURST_CHUNK]
+            c[0, : len(piece)] = torch.tensor(piece, device="cuda")
+            scr = decoder.prefill_chunk(params, cfg, scr, c, off)
+        chunked = insert_state_rows(chunked, [i], scr, lens[i:i + 1])
+    last = torch.tensor([[r.prompt[-1]] for r in reqs[:slots]], device="cuda")
+    a, _ = decoder.decode_step(params, cfg, whole, last, lens)
+    b, _ = decoder.decode_step(params, cfg, chunked, last, lens)
+    gap = float((a.float() - b.float()).abs().max())
+    worst = rel(b, a)
+    if not worst <= 5e-2:
+        raise AssertionError(f"chunked against whole-prompt prefill: first-token logits rel "
+                             f"{worst:.3g}")
+    log(f"  admission paths on the first {slots} requests, one decode step after: whole-prompt "
+        f"(GEMM over {slots} x {pad} rows) vs {BURST_CHUNK}-token chunks, logits rel "
+        f"{worst:.3g} (limit 5e-2), max |logit difference| {gap:.4g}")
+    del params, whole, chunked
+    torch.cuda.empty_cache()
+    return gap
+
+
+def serve_chunked(torch, cfg) -> dict:
+    """Phase 8 (b) and (c): the long x short burst through whole-prompt and
+    chunked admission, dense and paged; engine (c) streams its tokens."""
+    from repro_torch import kernels
+    from repro_torch.serve.engine import ServeEngine
+
+    slots, seq, new = 4, 2048, 16
+    serve, _ = packed_model(torch, cfg, SEED + 12)
+    reqs = burst_requests(torch, cfg, new)
+    state = state_policy(cfg, slots, seq)
+    log(f"  {len(reqs)} requests submitted at once, prompts {list(BURST_LENS)} tokens, {new} new "
+        f"each, {slots} slots, max_seq {seq}, K 8 / V 4 state")
+    engines = {"a dense, whole-prompt": {},
+               "b paged 512, whole-prompt": dict(paged=True, pool_blocks=512),
+               "c dense, chunked": dict(prefill_chunk=BURST_CHUNK),
+               "d paged 512, chunked": dict(paged=True, pool_blocks=512,
+                                            prefill_chunk=BURST_CHUNK)}
+    long_ids = [r.uid for r in reqs if len(r.prompt) > 1000]
+    outs, rows, streamed = {}, {}, {}
+    for key, kw in engines.items():
+        gc.collect()         # record_logits ties an engine into a cycle: free the last one
+        torch.cuda.empty_cache()
+        eng = ServeEngine(cfg, serve, max_slots=slots, max_seq=seq, state_bits=state, **kw)
+        collect = record_logits(torch, eng) if key[0] in "ac" else None
+        polled = []
+        if key[0] == "c":
+            for r in reqs:
+                eng.submit(r, on_token=lambda uid, tok: streamed.setdefault(uid, []).append(tok))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        if key[0] == "c":
+            out = eng.run(step_hook=lambda e, step: polled.extend(e.poll()))
+        else:
+            out = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        polled.extend(eng.poll())
+        st = eng.stats()
+        if sorted(out) != list(range(len(reqs))) or any(len(v) != new for v in out.values()):
+            raise AssertionError(f"{key}: incomplete streams {[len(v) for v in out.values()]}")
+        if any(st["plain_calls"].values()):
+            raise AssertionError(f"{key}: plain calls {st['plain_calls']}")
+        if eng.paged and (eng.pool.allocated or eng.pool.reserved):
+            raise AssertionError(f"{key}: the pool ends with {eng.pool.allocated} blocks "
+                                 f"allocated, {eng.pool.reserved} reserved")
+        ttft = {u: eng.lifecycles[u].ttft() for u in out}
+        short = torch.tensor([ttft[u] for u in out if u not in long_ids], dtype=torch.float64)
+        line = (f"  ok ({key}): {st['decode_steps']} decode steps, {st['admissions']} "
+                f"admissions, {st['prefill_chunks']} chunks; TTFT short p50 "
+                f"{float(short.quantile(0.5)) * 1e3:.1f} ms p99 "
+                f"{float(short.quantile(0.99)) * 1e3:.1f} ms, long "
+                f"{', '.join(f'{ttft[u] * 1e3:.1f}' for u in long_ids)} ms; median step "
+                f"{st['decode_step_median_s'] * 1e3:.3f} ms, "
+                f"{len(reqs) * new / wall:.2f} tok/s over {wall:.3f} s, peak allocated "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        if "scheduler" in st:
+            sc = st["scheduler"]
+            if sc["max_step_tokens"] > sc["step_token_budget"]:
+                raise AssertionError(f"{key}: a turn spent {sc['max_step_tokens']} tokens of "
+                                     f"a {sc['step_token_budget']} budget")
+            line += (f"; budget {sc['step_token_budget']}, most tokens in a turn "
+                     f"{sc['max_step_tokens']}, {sc['planned_turns']} planned turns")
+        log(line)
+        if key[0] == "c":
+            stream_order = {}
+            for uid, tok in polled:
+                stream_order.setdefault(uid, []).append(tok)
+            if streamed != out or stream_order != out:
+                raise AssertionError("(c) streaming: the callbacks or the poll() ring differ "
+                                     "from the returned streams")
+            log(f"  ok (c) streaming: {sum(map(len, streamed.values()))} on_token callbacks and "
+                f"{len(polled)} polled events, in the order of the returned streams")
+        if collect is not None:
+            rows[key[0]] = collect()
+        outs[key] = out
+        del eng
+        torch.cuda.empty_cache()
+    a, b, c, d = (outs[k] for k in engines)
+    if b != a or d != c:
+        raise AssertionError("paged streams differ from the dense engine's with the same "
+                             "admission")
+    gap = prefill_gap(torch, cfg, serve, reqs, slots, seq, state)
+    parted = 0
+    for uid in sorted(a):
+        t = next((i for i, (x, y) in enumerate(zip(a[uid], c[uid])) if x != y), None)
+        if t is None:
+            continue
+        parted += 1
+        xa, xc = a[uid][t], c[uid][t]
+        la, lc = rows["a"][(uid, t)].float(), rows["c"][(uid, t)].float()
+        m_a, m_c = float(la[xa] - la[xc]), float(lc[xc] - lc[xa])
+        log(f"    stream {uid}: chunked leaves whole-prompt at token {t} ({xa} -> {xc}): "
+            f"whole prefers {xa} by {m_a:.4g}, chunked prefers {xc} by {m_c:.4g}, pair moved "
+            f"{m_a + m_c:.4g}")
+        if m_a < 0 or m_c < 0 or not m_a + m_c <= 2 * gap:
+            raise AssertionError(f"stream {uid} parts at token {t}: the pair moved "
+                                 f"{m_a + m_c:.4g} > 2 x {gap:.4g}, not a near-tie")
+    log(f"  ok streams (b) = (a), (d) = (c); chunked = whole-prompt in {len(a) - parted} of "
+        f"{len(a)} streams ({parted} parted, each at a near-tie)")
+    del serve
+    torch.cuda.empty_cache()
+    return {"parted": parted}
+
+
 def main() -> int:
     try:
         import torch
@@ -1626,6 +2049,7 @@ def main() -> int:
     check_decode_step(torch, gen, results)
     check_dense_replay(torch, gen, results)
     check_paged(torch, gen, results)
+    check_decode_step_proj(torch, gen, results)
     cfg = configs.get_config(ARCH)
     check_fake_quant(torch, cfg, gen, results)
 
@@ -1657,11 +2081,18 @@ def main() -> int:
         launches[name] = search_launches[name]
     log(f"  phase 7 took {time.perf_counter() - t_phase:.1f} s")
 
-    log("== 8. summary")
+    log(f"== 8. {cfg.name}: row 8 on the f32 serving path; chunked prefill and streaming")
+    t_phase = time.perf_counter()
+    row8 = serve_row8(torch, cfg)
+    launches["quant_kv_decode_step_proj"] = row8["quant_kv_decode_step_proj"]
+    serve_chunked(torch, cfg)
+    log(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s")
+
+    log("== 9. summary")
     rows = []
     for name in kernels.KERNELS:
         r = results[name]
-        b_ms, b_by = bound(r["bytes"], r["flops"])
+        b_ms, b_by = bound(r["bytes"], r["flops"], r.get("rate", BF16_FLOP_S))
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name], "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],

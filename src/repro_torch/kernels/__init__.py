@@ -12,7 +12,7 @@ from __future__ import annotations
 
 KERNELS = ("quant_gemv", "quant_matmul", "quant_kv_decode_step", "quant_kv_attention_paged",
            "quant_kv_decode_step_paged", "quant_kv_append_paged", "quant_kv_attention",
-           "quant_kv_append", "fake_quant", "fake_quant_ste_bwd")
+           "quant_kv_append", "fake_quant", "fake_quant_ste_bwd", "quant_kv_decode_step_proj")
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS: dict[str, int] = dict.fromkeys(KERNELS, 0)

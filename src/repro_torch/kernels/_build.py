@@ -51,6 +51,9 @@ SIGNATURES = {
     "rq_quant_kv_attention": [_P] * 7 + [_I] * 9 + [_P],
     # pos, new, packed, scale, B, H, S, hd, block, bits, dtype, stream
     "rq_quant_kv_append": [_P] * 4 + [_I] * 7 + [_P],
+    # pos, x, w_packed, w_scale, cos, sin, k_packed, k_scale, v_packed, v_scale, mask,
+    # out, B, d, n_heads, n_kv, S, hd, block, w_bits, k_bits, v_bits, dtype, stream
+    "rq_quant_kv_decode_step_proj": [_P] * 12 + [_I] * 11 + [_P],
     # w, scale, out, rows, cols, bits, rowwise, dtype, stream
     "rq_fake_quant": [_P] * 3 + [_L, _L, _F, _I, _I, _P],
     # w, scale, g, dw, rows, cols, bits, rowwise, dtype, stream

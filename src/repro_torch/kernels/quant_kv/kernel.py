@@ -1,5 +1,5 @@
 """ctypes bindings of the CUDA quantized-KV kernels (``csrc/quant_kv_decode_step.cu``,
-``csrc/quant_kv_dense.cu``, ``csrc/quant_kv_paged.cu``)."""
+``csrc/quant_kv_dense.cu``, ``csrc/quant_kv_paged.cu``, ``csrc/quant_kv_proj.cu``)."""
 from __future__ import annotations
 
 import torch
@@ -56,6 +56,58 @@ def quant_kv_decode_step_cuda(pos, q, k_new, v_new, k_packed, k_scale, v_packed,
         _build.stream_of(q))
     LAUNCHES["quant_kv_decode_step"] += 1
     _build.check(rc, "quant_kv_decode_step")
+    return out
+
+
+#: the projection-fused step's batch limit (the GEMV regime, as the JAX gate's B <= 8)
+PROJ_MAX_B = 8
+
+
+def quant_kv_decode_step_proj_cuda(pos, x, w_packed, w_scale, cos, sin, k_packed, k_scale,
+                                   v_packed, v_scale, mask, *, w_bits: int, k_bits: int,
+                                   v_bits: int, n_heads: int, hd: int,
+                                   block: int) -> torch.Tensor:
+    """One kernel per (slot, kv head): project the query group and the K/V
+    rows from the fused ``wqkv``, rotate, requantize the touched block, attend.
+
+    ``pos`` (B,) int32, B <= 8; ``x`` (B, d) f32; ``w_packed``
+    ((n_heads + 2 n_kv) hd, d/lanes) int8 and ``w_scale`` (1, that) f32;
+    ``cos``/``sin`` (B, hd/2) f32 at ``pos``; packed ``(B, n_kv, S, hd/lanes)``
+    int8 and scales ``(B, n_kv, S/block, 1)`` f32, WRITTEN IN PLACE (the
+    touched block and its scale); ``mask`` (B, S) f32 additive.  Returns
+    (B, n_kv, g, hd) f32.
+    """
+    b, d = x.shape
+    n_kv, s = k_packed.shape[1], k_packed.shape[2]
+    dev = x.device
+    _check_hd("quant_kv_decode_step_proj", hd, s, block)
+    if x.dtype != torch.float32:
+        raise TypeError(f"quant_kv_decode_step_proj: the CUDA kernel takes float32 x, "
+                        f"got {x.dtype}")
+    if not 1 <= b <= PROJ_MAX_B or n_heads % n_kv or d % LANES[w_bits]:
+        raise ValueError(f"quant_kv_decode_step_proj: needs 1 <= B <= {PROJ_MAX_B}, n_heads % "
+                         f"n_kv == 0 and d % lanes == 0, got B={b}, n_heads={n_heads}, "
+                         f"n_kv={n_kv}, d={d}, w_bits={w_bits}")
+    n = (n_heads + 2 * n_kv) * hd
+    _build.require(x, "x", shape=(b, d))
+    _build.require(pos, "pos", dtype=torch.int32, shape=(b,), device=dev)
+    _build.require(w_packed, "w_packed", dtype=torch.int8, shape=(n, d // LANES[w_bits]),
+                   device=dev)
+    _build.require(w_scale, "w_scale", dtype=torch.float32, shape=(1, n), device=dev)
+    for name, t in (("cos", cos), ("sin", sin)):
+        _build.require(t, name, dtype=torch.float32, shape=(b, hd // 2), device=dev)
+    _require_dense("k_", k_packed, k_scale, k_bits, b=b, h=n_kv, s=s, hd=hd, block=block, dev=dev)
+    _require_dense("v_", v_packed, v_scale, v_bits, b=b, h=n_kv, s=s, hd=hd, block=block, dev=dev)
+    _build.require(mask, "mask", dtype=torch.float32, shape=(b, s), device=dev)
+    out = torch.empty((b, n_kv, n_heads // n_kv, hd), dtype=torch.float32, device=dev)
+    rc = _build.lib().rq_quant_kv_decode_step_proj(
+        pos.data_ptr(), x.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(), cos.data_ptr(),
+        sin.data_ptr(), k_packed.data_ptr(), k_scale.data_ptr(), v_packed.data_ptr(),
+        v_scale.data_ptr(), mask.data_ptr(), out.data_ptr(), b, d, n_heads, n_kv, s, hd, block,
+        w_bits, k_bits, v_bits, _build.dtype_code(x, "quant_kv_decode_step_proj"),
+        _build.stream_of(x))
+    LAUNCHES["quant_kv_decode_step_proj"] += 1
+    _build.check(rc, "quant_kv_decode_step_proj")
     return out
 
 

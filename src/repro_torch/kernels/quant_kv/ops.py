@@ -13,15 +13,17 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, PLAIN_CALLS, resolve_impl  # noqa: F401
+from repro_torch.core.packing import LANES
+from repro_torch.kernels import IMPLS, LAUNCHES, PLAIN_CALLS, resolve_impl  # noqa: F401
 from repro_torch.kvcache.cache import QuantizedKVLayer
 from repro_torch.kvcache.paged import PagedKVLayer, place_paged_block  # noqa: F401
 from .kernel import (quant_kv_append_cuda, quant_kv_append_paged_cuda,
                      quant_kv_attention_cuda, quant_kv_attention_paged_cuda,
-                     quant_kv_decode_step_cuda, quant_kv_decode_step_paged_cuda)
+                     quant_kv_decode_step_cuda, quant_kv_decode_step_paged_cuda,
+                     quant_kv_decode_step_proj_cuda)
 from .ref import (quant_kv_append_paged_ref, quant_kv_append_ref, quant_kv_attention_paged_ref,
                   quant_kv_attention_ref, quant_kv_decode_step_paged_ref,
-                  quant_kv_decode_step_ref)
+                  quant_kv_decode_step_proj_ref, quant_kv_decode_step_ref)
 
 
 def _container(layer) -> bool:
@@ -139,3 +141,50 @@ def quant_kv_decode_step(q: torch.Tensor, layer, pos, k_new, v_new, kv_valid: to
             o = quant_kv_decode_step_cuda(pos, *args, **kw)
         o = o.reshape(b, n_kv * g, hd).to(out_dtype or q.dtype)
     return (o[:, None] if lead4 else o), layer
+
+
+def can_fuse_qkv(layer, d_model: int, w_bits: int, impl: str) -> bool:
+    """Geometry gate for pulling the Q/K/V projection into the fused step.
+
+    The CUDA kernel on a dense cache only (a ``PagedKVLayer`` is refused),
+    and the projection must be one GEMV pass (``d <= 512``) over whole
+    packed bytes, as the JAX package's gate (``"cuda"`` in the place of its
+    ``"pallas"``/``"interpret"``; ``"auto"`` resolves by the cache's device).
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; choose from {IMPLS}")
+    if impl == "auto":
+        impl = resolve_impl(impl, getattr(layer, "k_packed", torch.empty(0)).device)
+    return (impl == "cuda" and isinstance(layer, QuantizedKVLayer)
+            and d_model <= 512 and d_model % LANES[w_bits] == 0)
+
+
+def quant_kv_decode_step_proj(x: torch.Tensor, w_packed: torch.Tensor, w_scale: torch.Tensor,
+                              cos: torch.Tensor, sin: torch.Tensor, layer, pos,
+                              kv_valid: torch.Tensor, *, w_bits: int, n_heads: int,
+                              impl: str = "auto", out_dtype=None):
+    """The decode step with the skinny-M Q/K/V projection in the same launch.
+
+    ``x`` (B, d) post-norm hidden, one token per slot; ``w_packed``/``w_scale``
+    the fused ``wqkv``; ``cos``/``sin`` (B, hd/2) f32 at ``pos``; ``kv_valid``
+    (B, S) bool.  "cuda" launches the kernel (callers pass
+    :func:`can_fuse_qkv` first), "torch" runs the plain composition, the
+    kernel's oracle.  The dense layer is updated in place.  Returns
+    ``(o (B, hq, hd), layer)``.
+    """
+    if _container(layer):
+        raise TypeError("the projection-fused step takes a dense QuantizedKVLayer, not a "
+                        "PagedKVLayer")
+    impl = resolve_impl(impl, x.device)
+    if impl == "torch":
+        return quant_kv_decode_step_proj_ref(x, w_packed, w_scale, cos, sin, layer, pos,
+                                             kv_valid, w_bits=w_bits, n_heads=n_heads,
+                                             out_dtype=out_dtype)
+    b, s, n_kv, hd = layer.shape
+    o = quant_kv_decode_step_proj_cuda(
+        _positions(pos, b, x.device), x.contiguous(), w_packed, w_scale.reshape(1, -1),
+        cos.to(torch.float32).contiguous(), sin.to(torch.float32).contiguous(),
+        layer.k_packed, layer.k_scale, layer.v_packed, layer.v_scale, _mask(kv_valid),
+        w_bits=w_bits, k_bits=layer.k_bits, v_bits=layer.v_bits, n_heads=n_heads, hd=hd,
+        block=layer.block)
+    return o.reshape(b, n_heads, hd).to(out_dtype or x.dtype), layer

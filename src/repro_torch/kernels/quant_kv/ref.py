@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.kernels import PLAIN_CALLS
+from repro_torch.kernels.quant_matmul.ref import dequant_matmul
 from repro_torch.kvcache.cache import QuantizedKVLayer, append_side, append_token
 from repro_torch.kvcache.paged import append_token_paged, to_dense
 
@@ -77,13 +78,52 @@ def quant_kv_decode_step_ref(q: torch.Tensor, layer: QuantizedKVLayer, pos, k_ne
     Returns ``(out (B, hq, hd), layer)`` with the layer updated in place.
     """
     PLAIN_CALLS["quant_kv_decode_step"] += 1
+    return _decode_step_dense(q, layer, pos, k_new, v_new, kv_valid, out_dtype), layer
+
+
+def _decode_step_dense(q, layer: QuantizedKVLayer, pos, k_new, v_new, kv_valid,
+                       out_dtype) -> torch.Tensor:
     b, s, n_kv, hd = layer.shape
     pos = torch.as_tensor(pos, device=q.device).reshape(-1).expand(b)
     append_side(layer.k_packed, layer.k_scale, k_new.transpose(1, 2)[:, :, 0], pos,
                 layer.k_bits, hd, layer.block)
     append_side(layer.v_packed, layer.v_scale, v_new.transpose(1, 2)[:, :, 0], pos,
                 layer.v_bits, hd, layer.block)
-    return _attend_dense(q, layer, kv_valid, out_dtype), layer
+    return _attend_dense(q, layer, kv_valid, out_dtype)
+
+
+def _rope_rows(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Half-split rotation of ``x`` (B, rows, hd) by (B, 1, hd/2) ``cos``/``sin``:
+    ``models.layers.apply_rope``'s arithmetic at one position per slot."""
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def quant_kv_decode_step_proj_ref(x: torch.Tensor, w_packed: torch.Tensor,
+                                  w_scale: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                                  layer: QuantizedKVLayer, pos, kv_valid: torch.Tensor, *,
+                                  w_bits: int, n_heads: int, out_dtype=None):
+    """The projection-fused step as its composition: the plain GEMV on ``x``
+    (B, d) against the fused ``wqkv``, the split into the query heads and the
+    K and V rows (q group ``j`` is rows ``j*g*hd``, K head ``j`` rows
+    ``(n_heads + j)*hd``, V head ``j`` rows ``(n_heads + n_kv + j)*hd``), the
+    rotation of q and k by ``cos``/``sin`` (B, hd/2), then the plain decode
+    step.  Returns ``(out (B, hq, hd), layer)`` with the layer updated in place.
+    """
+    PLAIN_CALLS["quant_kv_decode_step_proj"] += 1
+    b, d = x.shape
+    _, s, n_kv, hd = layer.shape
+    y = dequant_matmul(x.to(torch.float32), w_packed, w_scale, w_bits, d,
+                       out_dtype=torch.float32)                     # (B, N)
+    nq = n_heads * hd
+    q = y[:, :nq].reshape(b, n_heads, hd)
+    k = y[:, nq:nq + n_kv * hd].reshape(b, n_kv, hd)
+    v = y[:, nq + n_kv * hd:].reshape(b, n_kv, hd)
+    cs, sn = cos[:, None, :], sin[:, None, :]
+    q, k = _rope_rows(q, cs, sn), _rope_rows(k, cs, sn)
+    o = _decode_step_dense(q, layer, pos, k[:, None], v[:, None], kv_valid,
+                           out_dtype or x.dtype)
+    return o, layer
 
 
 # ---------------------------------------------------------------------------

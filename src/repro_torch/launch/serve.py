@@ -4,6 +4,11 @@ under a bit policy and run batched requests through ``ServeEngine``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --reduced \
         --requests 8 --wbits mixed --device cpu
 
+    # chunked prefill: prompts prefill in C-token pieces interleaved with
+    # decode turns under a per-step token budget (same tokens)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --reduced \
+        --requests 8 --wbits mixed --prefill-chunk 4 --token-budget 12 --device cpu
+
     # deploy a PolicyArtifact: pack exactly its per-layer bitwidths (refusing
     # a foreign layer registry), build its quantized or paged cache, and
     # speculate with its draft policy when it carries one
@@ -46,6 +51,12 @@ def main(argv=None) -> int:
                     help="PolicyArtifact JSON; overrides --wbits")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--prefill-chunk", type=int, default=None, metavar="C",
+                    help="chunked-prefill continuous batching: prefill prompts in C-token "
+                         "pieces interleaved with decode turns")
+    ap.add_argument("--token-budget", type=int, default=None, metavar="N",
+                    help="per-step token budget shared by decode slots and prefill chunks "
+                         "(default: slots + prefill-chunk); requires --prefill-chunk")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: cuda, which must exist)")
     args = ap.parse_args(argv)
@@ -98,6 +109,7 @@ def main(argv=None) -> int:
             for i in range(args.requests)]
     eng = ServeEngine(cfg, sp, max_slots=args.slots, max_seq=args.max_seq,
                       temperature=args.temperature, seed=args.seed, artifact=artifact,
+                      prefill_chunk=args.prefill_chunk, step_token_budget=args.token_budget,
                       device=device)
     t0 = time.perf_counter()
     results = eng.run(reqs)

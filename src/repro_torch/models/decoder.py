@@ -232,6 +232,60 @@ def prefill(params: dict, cfg, tokens: torch.Tensor, *, impl: str = "auto", leng
     return logits_fn(params, hidden[:, -1:], cfg, impl=impl), caches
 
 
+def init_prefill_scratch(cfg, seq: int, dtype=None, *, device=None) -> list[dict]:
+    """Per-layer fp K/V scratch carried across prefill chunks (one slot).
+
+    The chunked prefill never reads the (possibly quantized) decode state:
+    each chunk writes its fp K/V rows here and attends over the scratch, so
+    the rows that finally insert into the cache are computed from the same
+    fp values a whole-prompt prefill produces, which keeps chunked admission
+    token-identical across fp / quantized / paged caches (the quantizer runs
+    once, at insert, on full fp rows).
+    """
+    device = resolve_device(device)
+    hd = cfg.resolved_head_dim
+    dt = _dtype(cfg) if dtype is None else dtype
+    shape = (1, seq, cfg.n_kv_heads, hd)
+    return [{"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)} for _ in range(cfg.n_layers)]
+
+
+def prefill_chunk(params: dict, cfg, scratch: list, tokens: torch.Tensor, offset: int, *,
+                  impl: str = "auto") -> list[dict]:
+    """One prefill chunk: ``tokens`` (1, C) at absolute positions ``offset ..
+    offset + C - 1`` -> the updated scratch (see :func:`init_prefill_scratch`).
+
+    Per layer the chunk's K/V rows land in the scratch at ``offset`` and its
+    queries attend causally over the whole scratch with ``q_offset=offset``:
+    rows below ``offset`` hold earlier chunks' K/V, rows at and after
+    ``offset + C`` are causally masked, so chunk boundaries never change what
+    a valid query position sees.  No logits: the engine samples the first
+    token from the decode step that replays the last prompt token.
+    """
+    x = embed_tokens(params, tokens, cfg)
+    b, c = x.shape[:2]
+    positions = layers.position_ids(b, c, device=x.device) + offset
+    seq = scratch[0]["k"].shape[1]
+    # a masked row write, not a slice: the last (short) chunk of a prompt
+    # near the scratch's end keeps the rows past it instead of being
+    # clamped onto earlier rows (rows past the head zero at the insert)
+    src = torch.arange(seq, device=x.device) - offset
+    take = ((src >= 0) & (src < c))[None, :, None, None]
+    src = src.clamp(0, c - 1)
+    out = []
+    for lp, buf in zip(params["layers"], scratch):
+        xn = layers.norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
+        q, k, v = layers._qkv(lp["attn"], xn, cfg, positions, impl=impl)
+        sk = torch.where(take, k.to(buf["k"].dtype)[:, src], buf["k"])
+        sv = torch.where(take, v.to(buf["v"].dtype)[:, src], buf["v"])
+        out.append({"k": sk, "v": sv})
+        o = layers._direct_attention(q, sk, sv, cfg.n_kv_heads, causal=True, q_offset=offset)
+        h = x + layers.qdense(lp["attn"]["wo"], o.reshape(b, c, -1), impl=impl)
+        hn = layers.norm(lp["ln2"], h, cfg.norm, cfg.norm_eps)
+        x = h + layers.mlp(lp["mlp"], hn, cfg.mlp, impl=impl)
+    return out
+
+
 def decode_step(params: dict, cfg, caches: list, token: torch.Tensor, pos, *,
                 impl: str = "auto"):
     """One token per slot through the unrolled layers, cache update at ``pos``.

@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.fake_quant.ops import fake_quant_ste
-from repro_torch.kernels.quant_kv.ops import quant_kv_decode_step
+from repro_torch.kernels.quant_kv.ops import (can_fuse_qkv, quant_kv_decode_step,
+                                               quant_kv_decode_step_proj)
 from repro_torch.kernels.quant_matmul.ops import qt_matmul
 from repro_torch.quant.tensor import QuantizedTensor
 
@@ -254,14 +255,57 @@ def attention_decode_quant(p: dict, x: torch.Tensor, cache, pos, cfg, *, window:
     """One decode step over a packed ``QuantizedKVLayer`` or ``PagedKVLayer``
     (updated in place).
 
-    The JAX package's projection-fused branch is gated off at full width
-    (f32 activations and d <= 512 only), so this is always the unfused one.
+    Where :func:`_can_fuse_step_proj` admits it (the CUDA kernels, a dense
+    cache, a fused ``wqkv``, f32 activations, ``d <= 512``), the projection
+    and the rotary embedding run inside the fused step's launch; otherwise
+    the projections, the rotation and the step run one after another.
     """
     b = x.shape[0]
-    q, k_new, v_new = _qkv(p, x, cfg, _decode_positions(pos, b, x.device), impl=impl)
-    o, cache = decode_attend_one(cache, q, k_new, v_new, pos, cfg, window=window, impl=impl)
+    positions = _decode_positions(pos, b, x.device)
+    if _can_fuse_step_proj(p, cfg, cache, None, impl, x):
+        o, cache = _decode_step_proj_fused(p, x, cache, positions, cfg, window=window, impl=impl)
+    else:
+        q, k_new, v_new = _qkv(p, x, cfg, positions, impl=impl)
+        o, cache = decode_attend_one(cache, q, k_new, v_new, pos, cfg, window=window, impl=impl)
     o = o.to(x.dtype)
     return qdense(p["wo"], o.reshape(b, 1, -1), impl=impl), cache
+
+
+def _can_fuse_step_proj(p: dict, cfg, cache, bits, impl: str, x: torch.Tensor) -> bool:
+    """Gate for pulling the fused-``wqkv`` GEMV into the fused decode step.
+
+    The CUDA kernel on a dense quantized cache, a fused ``wqkv``
+    ``QuantizedTensor``, default rope, no qk-norm, f32 activations in the
+    GEMV's batch regime, and no per-call bits override: every condition the
+    in-kernel projection needs to reproduce the composition bit for bit
+    (``csrc/quant_kv_proj.cu``).  On CPU tensors ``"auto"`` resolves to
+    ``"torch"``, so the unfused path runs there, as in the JAX package.
+    """
+    w = p.get("wqkv")
+    return (isinstance(w, QuantizedTensor)
+            and cfg.rope == "default" and not cfg.qk_norm
+            and _b(bits, "wqkv") is None
+            and x.dtype == torch.float32 and x.shape[0] <= 8
+            and can_fuse_qkv(cache, cfg.d_model, w.bits, impl))
+
+
+def _decode_step_proj_fused(p: dict, x: torch.Tensor, cache, positions: torch.Tensor, cfg, *,
+                            window: int, impl: str):
+    """Projection + rotary + append + attend in the fused step's launch."""
+    pos = positions[:, 0]                                      # (B,)
+    skv = cache.seq
+    ar = torch.arange(skv, device=x.device)[None, :]
+    kv_valid = ar <= pos[:, None]
+    if window:
+        kv_valid &= ar > (pos[:, None] - window)
+    hd = cfg.resolved_head_dim
+    # the angle formula of apply_rope, at the one decode position
+    ang = pos[:, None].to(torch.float32) * rope_freqs(hd, cfg.rope_theta, device=x.device)
+    w = p["wqkv"]
+    o, cache = quant_kv_decode_step_proj(x[:, 0], w.packed, w.scale, torch.cos(ang),
+                                         torch.sin(ang), cache, pos, kv_valid, w_bits=w.bits,
+                                         n_heads=cfg.n_heads, impl=impl, out_dtype=x.dtype)
+    return o[:, None], cache
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,8 @@
     logits, state = api.prefill(params_serve, cfg, tokens, ...)
     logits, state = api.decode_step(params_serve, cfg, state, token, pos)
     logits, state, burst_kv = api.decode_verify(params_serve, cfg, state, tokens, pos)
+    scratch = api.init_prefill_scratch(cfg, seq, device=device)     # chunked prefill
+    scratch = api.prefill_chunk(params_serve, cfg, scratch, tokens, offset)
 
 Only the dense family is ported; the others raise and name the ROADMAP
 item that ports them.
@@ -36,6 +38,11 @@ class ModelAPI:
     decode_verify: Callable | None = None
     # (params, cfg, batch, *, bits, impl) -> mean cross-entropy (train / QAT)
     loss: Callable | None = None
+    # chunked prefill: (cfg, seq, dtype=None, *, device) -> per-layer fp K/V
+    # scratch, and (params, cfg, scratch, tokens (1, C), offset, *, impl) ->
+    # scratch; None where a family has no KV scratch
+    init_prefill_scratch: Callable | None = None
+    prefill_chunk: Callable | None = None
 
 
 def _decoder_state(cfg, batch, seq, dtype=torch.bfloat16, *, state_bits=None, block=None,
@@ -56,6 +63,8 @@ _DECODER_API = ModelAPI(
     init_decode_state=_decoder_state,
     decode_verify=decoder.decode_verify,
     loss=_decoder_loss,
+    init_prefill_scratch=decoder.init_prefill_scratch,
+    prefill_chunk=decoder.prefill_chunk,
 )
 
 _NOT_PORTED = {

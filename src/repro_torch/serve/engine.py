@@ -33,12 +33,25 @@ The minimal port of ``repro/serve/engine.py``:
     The burst K is the configured K throughout (the JAX engine's shed
     ladder, which lowers it under pool pressure, is not ported), shrunk
     only near ``max_seq``.
+  * ``prefill_chunk=C`` admits a prompt in the PREFILLING state and
+    prefills its head in ``C``-token chunks interleaved with decode turns
+    under a per-step token budget (``serve/scheduler.py``): decode slots are
+    charged first, so a long prompt no longer stalls them for a whole
+    prefill.  The chunks carry fp K/V scratch; the live cache is written
+    once, at the final insert, so the tokens equal the whole-prompt ones.
+  * Every request runs a lifecycle (``serve/lifecycle.py``): QUEUED ->
+    PREFILL -> DECODE -> DONE, CANCELLED (``cancel``) or TIMED_OUT
+    (``Request.deadline_s`` / ``ttft_budget_s``), finalized exactly once.
+    ``submit(req, on_token=)`` streams each committed token to a callback
+    and to the ``poll()`` ring; ``metrics`` holds the TTFT (first committed
+    token) and inter-token histograms.
 
-Left for later slices: chunked prefill, lifecycle / shedding / deadlines,
-fault injection, tracing, NaN quarantine and the v5 kernel configs.
+Left for later slices: the shed ladder, preemption, fault injection, the
+engine's spans, NaN quarantine and the v5 kernel configs.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import statistics
 import time
@@ -51,10 +64,14 @@ from repro_torch.kvcache import paged as kvpaged
 from repro_torch.device import resolve_device
 from repro_torch.core.policy import PolicyArtifact
 from repro_torch.models import registry
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.quant import apply as qapply
 from repro_torch.spec import loop as spec_loop
 from repro_torch.spec.draft import build_draft_params
+from .lifecycle import TERMINAL_STATES, LifecycleError, RequestLifecycle, RequestState
 from .sampling import sample
+from .scheduler import ChunkScheduler, SchedulerConfig
 
 
 @dataclasses.dataclass
@@ -63,13 +80,21 @@ class Request:
     prompt: list[int]
     max_new_tokens: int = 16
     eos_id: int = -1              # -1: never stop early
+    deadline_s: float | None = None      # end-to-end budget from submission
+    ttft_budget_s: float | None = None   # first-token budget from submission
 
 
 @dataclasses.dataclass
 class _Slot:
     req: Request | None = None
-    pos: int = 0                  # next write position
+    pos: int = 0                  # next write position (chunked prefill:
+                                  # head tokens prefilled so far)
     generated: list[int] = dataclasses.field(default_factory=list)
+    #: monotonic time of the last committed token (inter-token latency)
+    last_token_t: float | None = None
+    #: mid-chunked-prefill: excluded from the decode dispatch, and (paged)
+    #: its device table row is masked to -1 until the final insert
+    prefilling: bool = False
 
     @property
     def free(self) -> bool:
@@ -102,6 +127,7 @@ class ServeEngine:
                  kv_block: int | None = None, paged: bool = False, pool_blocks: int | None = None,
                  share_prefix: bool = True, speculate: int | None = None, draft_policy=None,
                  artifact: PolicyArtifact | None = None, debug_invariants: bool = False,
+                 prefill_chunk: int | None = None, step_token_budget: int | None = None,
                  device=None):
         self.device = resolve_device(device)
         leaf = _first_tensor(params)
@@ -151,6 +177,28 @@ class ServeEngine:
         self.top_k = top_k
         self.top_p = top_p
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # chunked prefill: prompts admit in the PREFILLING state and prefill in
+        # <= prefill_chunk pieces interleaved with decode turns under a
+        # per-step token budget
+        self.prefill_chunk = prefill_chunk
+        if prefill_chunk is not None:
+            if step_token_budget is None:
+                # tightest legal budget: a full decode house plus one chunk
+                step_token_budget = max_slots + prefill_chunk
+            self._scheduler = ChunkScheduler(SchedulerConfig(prefill_chunk, step_token_budget),
+                                             max_slots)
+        else:
+            if step_token_budget is not None:
+                raise ValueError("step_token_budget has no meaning without prefill_chunk "
+                                 "(chunked prefill disabled)")
+            self._scheduler = None
+        #: slot -> per-layer fp K/V scratch (1, S_scr, H, hd) carried across
+        #: chunks; the live cache is written once, at the final insert
+        self._scratch: dict[int, list] = {}
+        #: streaming: uid -> on_token callback, and the poll() ring of
+        #: (uid, token) committed since the last drain
+        self._on_token: dict[int, object] = {}
+        self._token_events: collections.deque = collections.deque(maxlen=65536)
         # explicit state_bits win, else the artifact's state policy
         if state_bits is None and artifact is not None:
             state_bits = artifact.state_policy
@@ -202,20 +250,41 @@ class ServeEngine:
         self.slots = [_Slot() for _ in range(max_slots)]
         self._queue: list[Request] = []
         self._pending_token: dict[int, int] = {}
+        self.lifecycles: dict[int, RequestLifecycle] = {}
+        self._cancel_requested: set[int] = set()
         self._counts = {"decode_steps": 0, "admissions": 0, "prefill_tokens": 0,
-                        "completed": 0, "spec_steps": 0, "spec_proposed": 0,
+                        "prefill_chunks": 0, "completed": 0, "cancelled": 0, "timed_out": 0, "spec_steps": 0, "spec_proposed": 0,
                         "spec_accepted": 0}
+        #: time to the first committed token and between committed tokens
+        self.metrics = obs_metrics.MetricsRegistry()
+        self.metrics.histogram("ttft_s")
+        self.metrics.histogram("itl_s")
+        self._tracer = obs_trace.get_tracer()
+        #: uid -> perf_counter start of the request's current lifecycle
+        #: segment (while the tracer is enabled)
+        self._lc_marks: dict[int, float] = {}
         #: host seconds of each decode step (a speculative round under
         #: speculation), the token transfer included
         self._step_s: list[float] = []
 
     # -- paged block bookkeeping -------------------------------------------
     def _push_tables(self) -> None:
-        """Copy the host block tables into the device table (shared by the layers)."""
+        """Copy the host block tables into the device table (shared by the layers).
+
+        Rows of slots still mid-chunked-prefill push as -1: their mapped
+        blocks hold no bytes until the final insert, and the lockstep decode
+        must keep sending those slots' idle writes to the trash block.  The
+        real row pushes once the prefill completes (``_finish_prefill``).
+        """
         if not self._tables_dirty:
             return
+        tbl = self._host_tables
+        masked = [i for i, s in enumerate(self.slots) if s.prefilling]
+        if masked:
+            tbl = tbl.copy()
+            tbl[masked] = -1
         for layer in {id(layer.block_table): layer for layer in self.state}.values():
-            kvpaged.with_table(layer, self._host_tables)
+            kvpaged.with_table(layer, tbl)
         self._tables_dirty = False
 
     def _last_pos(self, req: Request, k: int) -> int:
@@ -247,7 +316,9 @@ class ServeEngine:
         donor, common = None, 0
         if self.share_prefix:
             for other, slot in enumerate(self.slots):
-                if other == slot_id or slot.free:
+                # a prefilling slot cannot donate: its blocks hold no bytes
+                # until the final insert
+                if other == slot_id or slot.free or slot.prefilling:
                     continue
                 lcp = 0
                 for a, b in zip(prompt, slot.req.prompt):
@@ -284,6 +355,25 @@ class ServeEngine:
         self._reserved[slot_id] = growth
         self._shared_blocks[slot_id] = shared
         self._tables_dirty = True
+        return True
+
+    def _map_chunked_blocks(self, slot_id: int, req: Request) -> bool:
+        """Reserve a chunked admission's whole block need upfront; map nothing yet.
+
+        A chunked slot takes no shared-prefix donor (its bytes land only at
+        the final insert), so its whole span, head blocks plus decode growth
+        plus burst headroom (``_last_pos``), is a plain reservation.  Each
+        chunk then maps the blocks it filled through ``_grow_alloc``, which
+        keeps ``_reserved[slot] == _required_growth(slot, k)`` at every
+        progress point.  Returns False, touching nothing, when the pool
+        cannot cover the span.
+        """
+        total = self._last_pos(req, self._k_live) // self._kv_blk + 1
+        if self.pool.available < total:
+            return False
+        self.pool.reserve(total)
+        self._reserved[slot_id] = total
+        self._shared_blocks[slot_id] = set()
         return True
 
     def _grow_alloc(self, slot_id: int) -> int:
@@ -382,57 +472,276 @@ class ServeEngine:
             kvpaged.insert_prefill_rows(layer, row_tables, new["k"], new["v"],
                                         valid_len=lengths)
 
+    # -- lifecycle bookkeeping (serve/lifecycle.py) --------------------------
+    def _observe_transition(self, lc: RequestLifecycle, old: RequestState,
+                            new: RequestState, now: float, diagnostic: str) -> None:
+        """Lifecycle observer: with the tracer enabled, close the span of the
+        segment that just ended on the request's own track and mark terminal
+        states with an instant; keyed off the same validated transitions the
+        resource accounting uses."""
+        tr = self._tracer
+        if not tr.enabled:
+            self._lc_marks.pop(lc.uid, None)
+            return
+        t = time.perf_counter()
+        track = f"req/{lc.uid}"
+        t0 = self._lc_marks.pop(lc.uid, None)
+        if t0 is not None:
+            tr.complete(old.value, ts=t0, dur=t - t0, cat="request", track=track,
+                        args={"uid": lc.uid})
+        if new in TERMINAL_STATES:
+            tr.instant(new.value, cat="request", track=track,
+                       args={"uid": lc.uid, "diagnostic": diagnostic or lc.diagnostic})
+        else:
+            if new is RequestState.QUEUED:   # admission rollback
+                tr.instant("requeued", cat="request", track=track,
+                           args={"uid": lc.uid, "diagnostic": diagnostic})
+            self._lc_marks[lc.uid] = t
+
+    def submit(self, req: Request, on_token=None) -> RequestLifecycle:
+        """Enqueue a request (usable mid-``run`` from a step hook) and create
+        its lifecycle record; admission is FIFO.
+
+        ``on_token(uid, token)``: an optional streaming callback, fired for
+        every token the moment it commits (a speculative burst's tokens one
+        by one, in order).  Tokens also land in the ``poll()`` ring.
+        """
+        existing = self.lifecycles.get(req.uid)
+        if existing is not None and not existing.terminal:
+            raise LifecycleError(f"request uid {req.uid} is already live "
+                                 f"({existing.state.value})")
+        lc = RequestLifecycle(uid=req.uid, deadline_s=req.deadline_s,
+                              ttft_budget_s=req.ttft_budget_s, enqueued_t=time.monotonic())
+        lc.observer = self._observe_transition
+        tr = self._tracer
+        if tr.enabled:
+            self._lc_marks[req.uid] = time.perf_counter()
+            tr.instant("submit", cat="request", track=f"req/{req.uid}",
+                       args={"uid": req.uid, "prompt_tokens": len(req.prompt),
+                             "max_new_tokens": req.max_new_tokens})
+        self.lifecycles[req.uid] = lc
+        if on_token is not None:
+            self._on_token[req.uid] = on_token
+        self._queue.append(req)
+        return lc
+
+    def poll(self):
+        """Drain committed-but-unread tokens: yields ``(uid, token)`` in commit
+        order.  Call between ``run()`` calls or from a step hook; the ring
+        keeps the most recent 65536 events."""
+        while self._token_events:
+            yield self._token_events.popleft()
+
+    def cancel(self, uid: int) -> None:
+        """Request cancellation; it takes effect at the next loop turn (the
+        request may complete first: cancelling a terminal request is a no-op)."""
+        self._cancel_requested.add(uid)
+
     def _release_slot(self, slot_id: int) -> None:
+        """Free a slot's compute and paged resources (no lifecycle change)."""
         if self.paged:
             self._free_slot_blocks(slot_id)
         self.slots[slot_id] = _Slot()
         self._pending_token.pop(slot_id, None)
+        self._scratch.pop(slot_id, None)
+
+    def _finalize(self, slot_id: int | None, req: Request, state: RequestState,
+                  results: dict[int, list[int]], diagnostic: str = "") -> None:
+        """Move a request to a terminal state and free its resources.
+
+        The lifecycle transition is the free-exactly-once guard: a second
+        finalization raises ``LifecycleError`` before any slot, block or
+        reservation is touched twice.
+        """
+        lc = self.lifecycles.get(req.uid)
+        gen = list(self.slots[slot_id].generated) if slot_id is not None else []
+        if lc is not None:
+            lc.transition(state, time.monotonic(), diagnostic)
+            lc.tokens = lc.resume_tokens + gen
+            results[req.uid] = lc.tokens
+        else:
+            results[req.uid] = gen
+        if slot_id is not None:
+            self._release_slot(slot_id)
+        self._on_token.pop(req.uid, None)
+        self._counts[{RequestState.DONE: "completed", RequestState.CANCELLED: "cancelled",
+                      RequestState.TIMED_OUT: "timed_out"}[state]] += 1
+
+    def _reap(self, now: float, results: dict[int, list[int]]) -> None:
+        """Apply pending cancellations and deadline / TTFT expiries, queued and
+        resident alike, before this turn's admission."""
+        for uid in sorted(self._cancel_requested):
+            lc = self.lifecycles.get(uid)
+            if lc is None or lc.terminal:
+                self._cancel_requested.discard(uid)
+                continue
+            qi = next((j for j, r in enumerate(self._queue) if r.uid == uid), None)
+            if qi is not None:
+                self._finalize(None, self._queue.pop(qi), RequestState.CANCELLED, results,
+                               diagnostic="cancelled while queued")
+            else:
+                si = next((i for i, s in enumerate(self.slots)
+                           if not s.free and s.req.uid == uid), None)
+                if si is not None:
+                    self._finalize(si, self.slots[si].req, RequestState.CANCELLED, results,
+                                   diagnostic="cancelled mid-decode")
+            self._cancel_requested.discard(uid)
+        for j in range(len(self._queue) - 1, -1, -1):
+            req = self._queue[j]
+            lc = self.lifecycles.get(req.uid)
+            why = lc.expired(now) if lc is not None else None
+            if why is not None:
+                self._finalize(None, self._queue.pop(j), RequestState.TIMED_OUT, results,
+                               diagnostic=f"{why} budget exceeded while queued")
+        for i, s in enumerate(self.slots):
+            if s.free:
+                continue
+            lc = self.lifecycles.get(s.req.uid)
+            why = lc.expired(now) if lc is not None else None
+            if why is not None:
+                self._finalize(i, s.req, RequestState.TIMED_OUT, results,
+                               diagnostic=f"{why} budget exceeded mid-decode")
 
     # -- admission ---------------------------------------------------------
     def _admit(self, assignments: list[tuple[int, Request]]) -> list[Request]:
         """Admit requests into free slots; one padded prefill for the batch.
 
+        Under chunked prefill a request with a head enters the PREFILLING
+        state instead and prefills over later turns (``_run_chunks``).
         Returns the requests the paged pool could not cover, for the caller
-        to requeue.
+        to requeue (their lifecycles go back to QUEUED).
         """
         with_head: list[tuple[int, list[int]]] = []
         rejected: list[Request] = []
+        admitted: list[Request] = []
+        now = time.monotonic()
         for slot_id, req in assignments:
             if not 1 <= len(req.prompt) < self.max_seq:
                 raise ValueError(f"request {req.uid}: prompt length {len(req.prompt)} "
                                  f"must be in [1, {self.max_seq})")
+            lc = self.lifecycles.get(req.uid)
+            if lc is not None:
+                lc.transition(RequestState.PREFILL, now)
             slot = self.slots[slot_id]
             slot.req, slot.generated = req, []
-            slot.pos = len(req.prompt) - 1
+            w = len(req.prompt) - 1
+            if self._scheduler is not None and w >= 1:
+                # chunked admission: zero progress, no pending replay token
+                # (that keeps the slot out of the decode dispatch); the
+                # request stays in PREFILL until its final chunk inserts
+                slot.pos = 0
+                slot.prefilling = True
+                if self.paged and not self._map_chunked_blocks(slot_id, req):
+                    self.slots[slot_id] = _Slot()
+                    if lc is not None:
+                        lc.transition(RequestState.QUEUED, now)
+                    rejected.append(req)
+                    continue
+                pad = min(_round_up(w, self.prefill_pad), self.max_seq)
+                self._scratch[slot_id] = self.api.init_prefill_scratch(self.cfg, pad,
+                                                                       device=self.device)
+                continue
+            slot.pos = w
             if self.paged and not self._map_slot_blocks(slot_id, req):
                 self.slots[slot_id] = _Slot()
+                if lc is not None:                  # pool too full: back to the queue
+                    lc.transition(RequestState.QUEUED, now)
                 rejected.append(req)
                 continue
+            admitted.append(req)
             self._pending_token[slot_id] = req.prompt[-1]   # replayed next step
             if len(req.prompt) > 1:
                 with_head.append((slot_id, req.prompt[:-1]))
         if self.paged:
             self._push_tables()
-        if not with_head:
-            return rejected
-        pad = min(_round_up(max(len(h) for _, h in with_head), self.prefill_pad),
-                  self.max_seq)
-        toks = np.zeros((len(with_head), pad), np.int32)
-        for row, (_, head) in enumerate(with_head):
-            toks[row, : len(head)] = head
-        lengths = torch.tensor([len(h) for _, h in with_head], dtype=torch.int32,
-                               device=self.device)
-        _, st = self.api.prefill(self.params, self.cfg,
-                                 torch.tensor(toks, device=self.device), impl=self.impl,
-                                 lengths=lengths, logits=False)
-        if self.paged:
-            self._insert_rows_paged(with_head, st, lengths, pad)
-        else:
-            self.state = kvcache.insert_state_rows(self.state, [s for s, _ in with_head], st,
-                                                   lengths)
-        self._counts["admissions"] += 1
-        self._counts["prefill_tokens"] += sum(len(h) for _, h in with_head)
+        if with_head:
+            pad = min(_round_up(max(len(h) for _, h in with_head), self.prefill_pad),
+                      self.max_seq)
+            toks = np.zeros((len(with_head), pad), np.int32)
+            for row, (_, head) in enumerate(with_head):
+                toks[row, : len(head)] = head
+            lengths = torch.tensor([len(h) for _, h in with_head], dtype=torch.int32,
+                                   device=self.device)
+            _, st = self.api.prefill(self.params, self.cfg,
+                                     torch.tensor(toks, device=self.device), impl=self.impl,
+                                     lengths=lengths, logits=False)
+            if self.paged:
+                self._insert_rows_paged(with_head, st, lengths, pad)
+            else:
+                self.state = kvcache.insert_state_rows(self.state, [s for s, _ in with_head],
+                                                       st, lengths)
+            self._counts["admissions"] += 1
+            self._counts["prefill_tokens"] += sum(len(h) for _, h in with_head)
+        now = time.monotonic()
+        for req in admitted:
+            lc = self.lifecycles.get(req.uid)
+            if lc is not None:
+                lc.transition(RequestState.DECODE, now)
         return rejected
+
+    # -- chunked prefill -----------------------------------------------------
+    def _run_chunks(self, n_decode: int) -> None:
+        """Run this turn's budgeted prefill chunks (planned by the scheduler).
+
+        Each chunk is one ``prefill_chunk`` call of ``C`` tokens (the last
+        one padded) that carries the slot's fp K/V scratch; the live cache
+        is written only at the final insert, through the same insert path
+        and valid-length masking as a whole-prompt admission.
+        """
+        prefilling = [(i, len(s.req.prompt) - 1 - s.pos) for i, s in enumerate(self.slots)
+                      if not s.free and s.prefilling]
+        plan = self._scheduler.plan(self._counts["decode_steps"], n_decode, prefilling)
+        blk = self._kv_blk if self.paged else 0
+        for slot_id, n in plan:
+            s = self.slots[slot_id]
+            req = s.req
+            w = len(req.prompt) - 1
+            p = s.pos
+            toks = np.zeros((1, self.prefill_chunk), np.int32)
+            toks[0, :n] = req.prompt[p:p + n]
+            self._scratch[slot_id] = self.api.prefill_chunk(
+                self.params, self.cfg, self._scratch[slot_id],
+                torch.tensor(toks, device=self.device), p, impl=self.impl)
+            s.pos = p + n
+            self._counts["prefill_tokens"] += n
+            self._counts["prefill_chunks"] += 1
+            lc = self.lifecycles.get(req.uid)
+            if lc is not None:
+                lc.prefill_progress = s.pos
+            if self.paged:
+                # map the blocks this chunk filled against the admission's
+                # reservation; the partial block stays unmapped, so the ledger
+                # keeps matching _required_growth
+                for tb in range(p // blk, s.pos // blk):
+                    self._host_tables[slot_id, tb] = self._grow_alloc(slot_id)
+            if s.pos >= w:
+                self._finish_prefill(slot_id, self._scratch[slot_id])
+
+    def _finish_prefill(self, slot_id: int, st) -> None:
+        """The final chunk landed: insert the carried K/V into the live cache
+        and hand the slot to this turn's decode (the plan already charged its
+        first decode token)."""
+        s = self.slots[slot_id]
+        prompt = s.req.prompt
+        w = len(prompt) - 1
+        lengths = torch.tensor([w], dtype=torch.int32, device=self.device)
+        if self.paged:
+            blk = self._kv_blk
+            for tb in range((w - 1) // blk + 1):
+                if self._host_tables[slot_id, tb] < 0:
+                    self._host_tables[slot_id, tb] = self._grow_alloc(slot_id)
+            pad = st[0]["k"].shape[1]            # the scratch's padded head length
+            self._insert_rows_paged([(slot_id, prompt[:-1])], st, lengths, pad)
+            self._tables_dirty = True      # the real row replaces the -1 mask
+        else:
+            self.state = kvcache.insert_state_rows(self.state, [slot_id], st, lengths)
+        s.prefilling = False
+        s.pos = w
+        self._pending_token[slot_id] = prompt[-1]   # replayed next step
+        self._scratch.pop(slot_id, None)
+        lc = self.lifecycles.get(s.req.uid)
+        if lc is not None:
+            lc.transition(RequestState.DECODE, time.monotonic())
 
     # -- decode ------------------------------------------------------------
     def _decode(self, tokens_h: np.ndarray, pos_h: np.ndarray) -> np.ndarray:
@@ -498,63 +807,115 @@ class ServeEngine:
         return emitted
 
     # -- main loop -----------------------------------------------------------
-    def run(self, requests: list[Request] = ()) -> dict[int, list[int]]:
-        """Continuous-batching loop until every request completes -> ``{uid: tokens}``."""
-        self._queue.extend(requests)
+    def run(self, requests: list[Request] = (), *, step_hook=None) -> dict[int, list[int]]:
+        """Continuous-batching loop until every submitted request reaches a
+        terminal lifecycle state -> ``{uid: tokens}`` for every request that
+        ended during this call (partial streams for CANCELLED / TIMED_OUT;
+        ``lifecycles[uid]`` has the state and its diagnostic).
+
+        ``step_hook(engine, step)`` fires once per loop turn before the reap
+        and the admission (mid-run ``submit``, ``cancel`` or ``poll``).
+        """
+        for req in requests:
+            self.submit(req)
         results: dict[int, list[int]] = {}
         self._pending_token = {}
         tokens_h = np.zeros((self.max_slots, 1), np.int32)
         pos_h = np.zeros((self.max_slots,), np.int32)
         while self._queue or self._active():
-            free = [i for i, s in enumerate(self.slots) if s.free]
-            if free and self._queue:
-                rejected = self._admit([(i, self._queue.pop(0))
-                                        for i in free[: len(self._queue)]])
-                # paged backpressure: what the pool could not cover waits at
-                # the head of the queue for completions to free blocks
-                self._queue[:0] = rejected
-                if rejected and not self._active():
-                    raise RuntimeError(
-                        f"request needs more KV blocks than the whole pool holds "
-                        f"({self.pool.num_blocks}); raise pool_blocks")
-            act = self._active()
-            k_eff = self._burst_len(act) if self._k_live else 0
-            if self.paged:
-                # map and copy-on-write every block the round can write
-                self._ensure_append_blocks(act, span=k_eff + 1)
-            for i in act:
-                s = self.slots[i]
-                tokens_h[i, 0] = self._pending_token.get(
-                    i, s.generated[-1] if s.generated else 0)
-                pos_h[i] = s.pos
-            t0 = time.perf_counter()
-            if k_eff > 0:
-                emitted = self._spec_step(act, tokens_h, pos_h, k_eff)
-            else:
-                toks = self._decode(tokens_h, pos_h)
-                emitted = {i: [int(toks[i])] for i in act}
-            self._step_s.append(time.perf_counter() - t0)
-            self._counts["decode_steps"] += 1
-            for i in act:
-                s = self.slots[i]
-                self._pending_token.pop(i, None)
-                for tok in emitted[i]:
-                    s.generated.append(tok)
-                    s.pos += 1
-                    if (tok == s.req.eos_id or len(s.generated) >= s.req.max_new_tokens
-                            or s.pos >= self.max_seq - 1):
-                        # a burst stops at its first terminal token: the rest
-                        # is dropped and the slot frees this very step
-                        results[s.req.uid] = list(s.generated)
-                        self._release_slot(i)
-                        self._counts["completed"] += 1
-                        break
-            if self._debug_invariants:
-                self.check_invariants()
+            self._turn(results, tokens_h, pos_h, step_hook)
         return results
 
     def _active(self) -> list[int]:
         return [i for i, s in enumerate(self.slots) if not s.free]
+
+    def _decode_active(self) -> list[int]:
+        """Slots the decode steps this turn: active and not mid-chunked-prefill."""
+        return [i for i, s in enumerate(self.slots) if not s.free and not s.prefilling]
+
+    def _turn(self, results: dict[int, list[int]], tokens_h: np.ndarray, pos_h: np.ndarray,
+              step_hook) -> None:
+        """One loop turn: hook -> reap -> admission -> prefill chunks -> decode
+        (or a speculative round) -> commit."""
+        if step_hook is not None:
+            step_hook(self, self._counts["decode_steps"])
+        self._reap(time.monotonic(), results)
+        free = [i for i, s in enumerate(self.slots) if s.free]
+        if free and self._queue:
+            rejected = self._admit([(i, self._queue.pop(0)) for i in free[: len(self._queue)]])
+            # paged backpressure: what the pool could not cover waits at the
+            # head of the queue for completions to free blocks
+            self._queue[:0] = rejected
+            if rejected and not self._active():
+                raise RuntimeError(
+                    f"request needs more KV blocks than the whole pool holds "
+                    f"({self.pool.num_blocks}); raise pool_blocks")
+        act = self._decode_active()
+        if self._scheduler is not None:
+            # decode slots are charged first; chunks fill the rest of the
+            # per-step budget, and a slot whose final chunk lands joins this
+            # very turn's decode (its first decode token was charged with it)
+            self._run_chunks(len(act))
+            act = self._decode_active()
+        if not act:
+            if self._debug_invariants:
+                self.check_invariants()        # pure-prefill turns are checked too
+            return
+        k_eff = self._burst_len(act) if self._k_live else 0
+        if self.paged:
+            # map and copy-on-write every block the round can write
+            self._ensure_append_blocks(act, span=k_eff + 1)
+        for i in act:
+            s = self.slots[i]
+            tokens_h[i, 0] = self._pending_token.get(i, s.generated[-1] if s.generated else 0)
+            pos_h[i] = s.pos
+        t0 = time.perf_counter()
+        if k_eff > 0:
+            emitted = self._spec_step(act, tokens_h, pos_h, k_eff)
+        else:
+            toks = self._decode(tokens_h, pos_h)
+            emitted = {i: [int(toks[i])] for i in act}
+        self._step_s.append(time.perf_counter() - t0)
+        self._counts["decode_steps"] += 1
+        self._commit(act, emitted, results)
+        if self._debug_invariants:
+            self.check_invariants()
+
+    def _commit(self, act: list[int], emitted: dict[int, list[int]],
+                results: dict[int, list[int]]) -> None:
+        """Apply one step's (or round's) tokens: record TTFT and inter-token
+        gaps, stream each token, finalize completed requests."""
+        now = time.monotonic()
+        ttft_hist = self.metrics.histogram("ttft_s")
+        itl_hist = self.metrics.histogram("itl_s")
+        for i in act:
+            s = self.slots[i]
+            self._pending_token.pop(i, None)
+            lc = self.lifecycles.get(s.req.uid)
+            first_of_turn = True
+            for tok in emitted[i]:
+                if lc is not None and lc.first_token_t is None:
+                    # TTFT is the first COMMITTED token, not a chunk landing
+                    lc.first_token_t = now
+                    ttft_hist.observe(now - lc.enqueued_t)
+                if s.last_token_t is not None:
+                    # a burst's tokens land together: only the first gap of
+                    # the turn is a real inter-token wait
+                    itl_hist.observe((now - s.last_token_t) if first_of_turn else 0.0)
+                s.last_token_t = now
+                first_of_turn = False
+                s.generated.append(tok)
+                s.pos += 1
+                self._token_events.append((s.req.uid, tok))
+                cb = self._on_token.get(s.req.uid)
+                if cb is not None:
+                    cb(s.req.uid, tok)
+                if (tok == s.req.eos_id or len(s.generated) >= s.req.max_new_tokens
+                        or s.pos >= self.max_seq - 1):
+                    # a burst stops at its first terminal token: the rest is
+                    # dropped and the slot frees this very step
+                    self._finalize(i, s.req, RequestState.DONE, results)
+                    break
 
     def generate(self, prompts: list[list[int]], max_new_tokens: int = 16) -> list[list[int]]:
         reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new_tokens)
@@ -628,11 +989,27 @@ class ServeEngine:
         speculation), the process-wide kernel launch and plain-call counts,
         the speculation counters and, when paged, the pool's.  ``admissions``
         counts batched prefill calls; ``spec_proposed``/``spec_accepted`` sum
-        K and the accepted draft tokens over the active slots of each round."""
+        K and the accepted draft tokens over the active slots of each round.
+        Under chunked prefill ``scheduler`` sums the planner's records;
+        ``latency`` summarizes the TTFT and inter-token histograms."""
         median = statistics.median(self._step_s) if self._step_s else None
         out = {**self._counts, "decode_step_median_s": median,
                "launches": dict(kernels.LAUNCHES), "plain_calls": dict(kernels.PLAIN_CALLS),
                "draft_bits": dict(self.draft_bits), "speculate_live_k": self._k_live}
+        if self._scheduler is not None:
+            recs = self._scheduler.records
+            out["scheduler"] = {
+                "prefill_chunk": self.prefill_chunk,
+                "step_token_budget": self._scheduler.cfg.step_token_budget,
+                "planned_turns": len(recs),
+                "chunk_tokens": sum(r.chunk_tokens for r in recs),
+                "max_step_tokens": max((r.decode_tokens + r.chunk_tokens + r.finish_tokens
+                                        for r in recs), default=0),
+            }
+        for name in ("ttft_s", "itl_s"):
+            hist = self.metrics.histogram(name)
+            if hist.count:
+                out.setdefault("latency", {})[name] = hist.summary()
         if self.paged:
             out.update(pool_allocated=self.pool.allocated,
                        pool_peak_allocated=self.pool.peak_allocated,

@@ -10,8 +10,10 @@ shuffled block table with a shared block, an idle slot and an unmapped
 entry inside a valid range, the dense append and attention alone with a
 masked row, at reduced gemma-2b width in f32 the verify pass against
 decode steps and the speculative engine against the non-speculative one,
-and the fake-quant forward and STE backward bit for bit at odd shapes, with
-row-wise scales, a zero column and infinite upstream gradients.
+the fake-quant forward and STE backward bit for bit at odd shapes, with
+row-wise scales, a zero column and infinite upstream gradients, and row 8
+(the projection-fused step) bit for bit against the launches it replaces,
+at chip_smoke.py's geometry and at an odd one, and in a reduced f32 engine.
 """
 import dataclasses
 
@@ -265,9 +267,11 @@ def _reduced_model(cuda, seed: int):
 
 def test_decode_verify_matches_decode_steps_on_the_card(cuda):
     """The verify pass (its linears through the GEMM, M = 3 x 4) against four
-    decode steps (the GEMV, M = 3) on copies of one cache, in f32: logits
-    within rel 1e-4, as the GEMV and the GEMM are each held to their plain
-    versions, and cache scales within rel 1e-5."""
+    decode steps on copies of one cache, in f32: logits within rel 1e-4, as
+    the GEMV and the GEMM are each held to their plain versions, and cache
+    scales within rel 1e-5.  In f32 at this width a decode step projects
+    q, k and v inside row 8 (the fused wqkv's GEMV sum, bit for bit) and
+    runs the other linears through the GEMV (M = 3)."""
     from repro_torch.kvcache import insert_state_rows, resolve_state_bits
     from repro_torch.models import decoder
     from repro_torch.quant.apply import fuse_projections
@@ -294,7 +298,9 @@ def test_decode_verify_matches_decode_steps_on_the_card(cuda):
     for a, b in zip(*caches):
         for f in ("k_scale", "v_scale"):
             assert _rel(getattr(a, f), getattr(b, f)) <= 1e-5, f
-    assert kernels.LAUNCHES["quant_gemv"] == 4 * 4 * cfg.n_layers
+    assert kernels.LAUNCHES["quant_kv_decode_step_proj"] == 4 * cfg.n_layers
+    assert kernels.LAUNCHES["quant_gemv"] == 4 * 3 * cfg.n_layers
+    assert kernels.LAUNCHES["quant_kv_decode_step"] == 4 * cfg.n_layers   # the verify's
     assert sum(kernels.PLAIN_CALLS.values()) == 0
 
 
@@ -388,3 +394,131 @@ def test_fake_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fake_quant_cuda(w[0], scale, 4)
     with pytest.raises(TypeError):
         fake_quant_ste_bwd_cuda(w, scale, 4, w.to(torch.bfloat16))
+
+
+# -- row 8: the projection-fused decode step ------------------------------------
+
+#: (d, n_kv, g, hd, S, block, positions): chip_smoke.py's phase-2 geometry
+#: (gemma-2b's heads, d 512, a position at S), and an odd one whose packed
+#: rows are not whole words at 4, 6 and 8 bits (the GEMV's byte-wise path)
+PROJ_CASES = {"phase2": (512, 1, 8, 256, 512, 16, (15, 256, 511, 512)),
+              "odd": (36, 2, 2, 32, 64, 8, (7, 8, 63))}
+
+
+def _proj_case(cuda, name, w_bits, k_bits, v_bits):
+    d, n_kv, g, hd, s, block, plist = PROJ_CASES[name]
+    if name == "odd" and w_bits != 2:
+        d = 34                     # 2-bit rows need d % 4 == 0
+    b = len(plist)
+    gen = torch.Generator(device=cuda).manual_seed(w_bits * 100 + k_bits * 10 + v_bits)
+    wq = quantize_tensor(torch.randn((d, (n_kv * g + 2 * n_kv) * hd), generator=gen,
+                                     device=cuda) / d ** 0.5, w_bits)
+    layer = tcache.init_kv_layer(b, s, n_kv, hd, k_bits=k_bits, v_bits=v_bits, block=block,
+                                 device=cuda)
+    rows = torch.randn((b, s, n_kv, hd), generator=gen, device=cuda)
+    pos = torch.tensor(plist, dtype=torch.int32, device=cuda)
+    layer = tcache.insert_rows(layer, torch.arange(b, device=cuda), rows, rows.flip(1),
+                               valid_len=pos.clamp(max=s))
+    x = torch.randn((b, d), generator=gen, device=cuda)
+    return wq, layer, pos, x
+
+
+@pytest.mark.parametrize("name", sorted(PROJ_CASES))
+@pytest.mark.parametrize("k_bits,v_bits", [(8, 8), (8, 4), (4, 2), (6, 6)])
+@pytest.mark.parametrize("w_bits", (2, 4, 6, 8))
+def test_proj_kernel_equals_composition_and_matches_plain(cuda, name, w_bits, k_bits, v_bits):
+    """Row 8 against the launches it replaces (the GEMV, the torch rotary,
+    the dense step): cache and output bit for bit; against its plain version:
+    scales rel 1e-6, output rel 1e-5 at the slots that attend."""
+    from repro_torch.models.layers import _qkv, decode_attend_one, rope_freqs
+
+    wq, base, pos, x = _proj_case(cuda, name, w_bits, k_bits, v_bits)
+    b, s, n_kv, hd = base.shape
+    hq = (wq.shape[1] // hd) - 2 * n_kv
+    valid = torch.arange(s, device=cuda)[None, :] <= pos[:, None]
+    ang = pos[:, None].float() * rope_freqs(hd, 10_000.0, device=cuda)
+    lk, lc, lp = _copy(base), _copy(base), _copy(base)
+    kernels.reset_counts()
+    o_k, _ = kv_ops.quant_kv_decode_step_proj(x, wq.packed, wq.scale, torch.cos(ang),
+                                              torch.sin(ang), lk, pos, valid, w_bits=w_bits,
+                                              n_heads=hq)
+    assert kernels.LAUNCHES["quant_kv_decode_step_proj"] == 1
+    cfg = type("Cfg", (), dict(n_heads=hq, n_kv_heads=n_kv, resolved_head_dim=hd,
+                               rope="default", rope_theta=10_000.0, qk_norm=False))
+    q, kn, vn = _qkv({"wqkv": wq}, x[:, None], cfg, pos[:, None])
+    o_c, _ = decode_attend_one(lc, q, kn, vn, pos, cfg)
+    o_p, _ = kv_ops.quant_kv_decode_step_proj(x, wq.packed, wq.scale, torch.cos(ang),
+                                              torch.sin(ang), lp, pos, valid, w_bits=w_bits,
+                                              n_heads=hq, impl="torch")
+    torch.cuda.synchronize()
+    for f in ("k_packed", "k_scale", "v_packed", "v_scale"):
+        assert torch.equal(getattr(lk, f), getattr(lc, f)), f
+    assert torch.equal(o_k, o_c[:, 0])
+    attends = pos < s
+    for f in ("k_scale", "v_scale"):
+        assert _rel(getattr(lk, f), getattr(lp, f)) <= 1e-6, f
+    assert _rel(o_k[attends], o_p[attends]) <= 1e-5
+    assert torch.equal(o_k[~attends], torch.zeros_like(o_k[~attends]))
+
+
+def test_proj_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    wq, layer, pos, x = _proj_case(cuda, "odd", 8, 8, 8)
+    hd = layer.head_dim
+    ang = torch.zeros((len(pos), hd // 2), device=cuda)
+    valid = torch.ones((len(pos), layer.seq), dtype=torch.bool, device=cuda)
+    args = (wq.packed, wq.scale, ang.cos(), ang.sin())
+    with pytest.raises(TypeError, match="float32 x"):
+        kv_ops.quant_kv_decode_step_proj(x.bfloat16(), *args, layer, pos, valid, w_bits=8,
+                                         n_heads=4)
+    nine = tcache.init_kv_layer(9, layer.seq, 2, hd, k_bits=8, v_bits=8, block=8, device=cuda)
+    ang9 = torch.zeros((9, hd // 2), device=cuda)
+    with pytest.raises(ValueError, match="B <= 8"):
+        kv_ops.quant_kv_decode_step_proj(torch.zeros((9, x.shape[1]), device=cuda), wq.packed,
+                                         wq.scale, ang9.cos(), ang9.sin(), nine,
+                                         torch.zeros(9, dtype=torch.int32, device=cuda),
+                                         torch.ones((9, layer.seq), dtype=torch.bool,
+                                                    device=cuda), w_bits=8, n_heads=4)
+    pl = tpaged.init_paged_layer(8, len(pos), layer.seq, 2, hd, k_bits=8, v_bits=8, block=8,
+                                 device=cuda)
+    with pytest.raises(TypeError, match="PagedKVLayer"):
+        kv_ops.quant_kv_decode_step_proj(x, *args, pl, pos, valid, w_bits=8, n_heads=4)
+
+
+def test_f32_engine_takes_row8_and_matches_the_unfused_engine(cuda):
+    """Reduced gemma-2b in f32 under the mixed policy (wqkv fused in every
+    layer): the engine launches row 8 once per layer and decode step and no
+    dense step, and its streams and final cache bytes equal the same engine's
+    with fuse_projections=False (the unfused GEMV -> rotary -> step path)."""
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import dryrun_policy
+    from repro_torch.models import decoder
+    from repro_torch.quant import apply as qapply
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = configs.get_config("gemma-2b").reduced()
+    params = decoder.init(cfg, torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    sp = qapply.quantize_for_serve(decoder.unstack_layers(params, cfg),
+                                   dryrun_policy(qapply.layer_specs(params, cfg), "mixed"), cfg)
+    rng = np.random.default_rng(4)
+    reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab_size, n).tolist(),
+                    max_new_tokens=8) for i, n in enumerate((3, 19, 8, 30, 12))]
+    outs, states = [], []
+    for fuse in (True, False):
+        eng = ServeEngine(cfg, sp, max_slots=3, max_seq=64, state_bits=8,
+                          fuse_projections=fuse)
+        kernels.reset_counts()
+        outs.append(eng.run(reqs))
+        st = eng.stats()
+        steps = st["decode_steps"]
+        if fuse:
+            assert st["launches"]["quant_kv_decode_step_proj"] == cfg.n_layers * steps
+            assert st["launches"]["quant_kv_decode_step"] == 0
+        else:
+            assert st["launches"]["quant_kv_decode_step_proj"] == 0
+            assert st["launches"]["quant_kv_decode_step"] == cfg.n_layers * steps
+        assert not any(st["plain_calls"].values())
+        states.append(eng.state)
+    assert outs[0] == outs[1]
+    for a, b in zip(*states):
+        for f in ("k_packed", "k_scale", "v_packed", "v_scale"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f

@@ -27,7 +27,8 @@ def test_every_submodule_imports_without_jax():
     assert {"repro_torch.serve.engine", "repro_torch.kernels._build", "repro_torch.spec.draft",
             "repro_torch.spec.loop", "repro_torch.launch.serve", "repro_torch.launch.search",
             "repro_torch.core.controller", "repro_torch.kernels.fake_quant.ops",
-            "repro_torch.train.optimizer"} <= set(mods)
+            "repro_torch.train.optimizer", "repro_torch.obs.metrics",
+            "repro_torch.serve.scheduler", "repro_torch.serve.lifecycle"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -84,4 +85,5 @@ def test_kernel_build_is_not_started_by_imports():
     assert all(p.suffix in (".cu", ".cuh") for p in _build.sources())
     assert {p.name for p in _build.sources()} >= {
         "quant_gemv.cu", "quant_matmul.cu", "quant_kv_decode_step.cu", "quant_kv_dense.cu",
-        "quant_kv_paged.cu", "quant_kv.cuh", "fake_quant.cu"}
+        "quant_kv_paged.cu", "quant_kv.cuh", "fake_quant.cu", "quant_gemv.cuh",
+        "quant_kv_proj.cu"}
