@@ -19,6 +19,11 @@ the last line is not the ``ok`` line:
      version and one library call; the dense append where phase 6's
      commit runs it (8 slots over 1024 positions, a masked slot, rows at
      and past the cache's end), bytes exact after every burst position;
+     the tensor-core GEMM swept over M 32, 128, 256 and 2560 at 4, 6 and 8
+     bits (warm and L2-cold, against torch.matmul on the dequantized
+     weights, with its ptxas registers and shared memory, and the host's
+     time a call at M 128), and where the plan has one CTA walk the K
+     ranges, that plan against a cluster of CTAs (bit-equal, both timed);
      the fake-quant forward and STE backward at gemma-2b's ``w_gate``
      and tied embedding (per model dimension for the lookup, per vocabulary
      entry for the head), bits 2-8 and 32, f32 and bf16, bytes exact; and
@@ -105,6 +110,13 @@ LINEARS = {"wqkv": (2560, 2048), "wo": (2048, 2048), "w_gu": (32768, 2048),
            "w_down": (2048, 16384)}
 GEMV_MS = (1, 4, 8)
 GEMM_M = 128                      # one admission of 4 prompts padded to 32
+#: phase 2's GEMM sweep: verify (32), an admission (128), a chunk (256) and the
+#: paged fleet's admission (2560), at the policy's widths; a flush beyond the 50 MB L2
+SWEEP_M = (32, 128, 256, 2560)
+SWEEP_BITS = (4, 6, 8)
+FLUSH_BYTES = 128 << 20
+HOST_M = 128                      # where the sweep also times the host's share of a call
+SPLIT_MODE_M = (256, 2560, 6144)  # a chunk, the fleet's and the burst's admissions
 SERVE_M = 4                       # the serving engine's decode batch (max_slots)
 SERVE_SLOTS = 8                   # phases 5 and 6: the chat fleet's slots
 SPEC_K = 3                        # phase 6: the draft's burst length
@@ -265,6 +277,186 @@ def check_linears(torch, gen, results: dict) -> None:
                     f"GEMV {t_d:.4f} ms")
             log(f"  ok {name} bits={bits}: GEMV M={GEMV_MS} and GEMM M={GEMM_M}, f32 and bf16")
             del qt, packed, scale
+
+
+def time_batch(torch, fn, reps: int = 10, warmup: int = 2) -> float:
+    """Mean CUDA-event time (ms) of ``reps`` back-to-back calls of ``fn``, L2
+    as the last call left it (warm).  A spin on the device ahead of them lets
+    the host queue every launch first, so the device runs them without the
+    gaps of the host's launch time."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e5) * reps)      # about 0.1 ms a launch at 1.8 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_cold(torch, fn, flush, reps: int = 10) -> float:
+    """Median CUDA-event time (ms) of ``fn`` with the L2 flushed before each
+    call (``flush`` is larger than the 50 MB L2), as a decode or verify caller
+    finds the weights; the flush runs before the start event."""
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_host(torch, fn, reps: int = 50) -> float:
+    """Host time (ms) one call of ``fn`` takes to return: ``reps`` calls
+    queued behind a spin on the device, so that none waits for it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(4e5) * reps)      # about 0.2 ms a call at 1.8 GHz
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return 1e3 * t
+
+
+def gemm_build_lines() -> list[str]:
+    """The GEMM kernels' ptxas registers, shared memory and spills, one line
+    per kernel, from this run's build log (token tile NT, container bits CB,
+    f32 or bf16 x).  ptxas sees only static shared memory; the ring is
+    dynamic, ``Layout<XF32, NT>::kBytes`` in ``csrc/quant_matmul.cu``."""
+    import re
+
+    from repro_torch.kernels import _build
+    out, name = [], None
+    text = _build.BUILD_INFO.get("log") or (Path(_build.BUILD_INFO["path"]).parent
+                                            / "build.log").read_text()
+    block = text.split("== quant_matmul.cu")
+    for line in (block[1].split("\n== ")[0].splitlines() if len(block) > 1 else []):
+        m = re.search(r"quant_matmul_kernelILi(\d+)ELb(\d)ELi(\d+)E", line)
+        if m and "Compiling entry" in line:
+            name = f"CB={m[1]} {'f32' if m[2] == '1' else 'bf16'} NT={m[3]}"
+        elif name and ("registers" in line or "spill" in line or "smem" in line):
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def sweep_gemm(torch, gen, aside) -> None:
+    """The tensor-core GEMM at the row counts the serving paths give it (M 32:
+    the verify pass; 128: an admission; 256: a chunk; 2560: the paged fleet's
+    admission) x 4, 6 and 8 bits, bf16 x, summed over one layer's four fused
+    linears: the kernel warm (back-to-back launches) and cold (L2 flushed),
+    its plain version, and torch.matmul on the dequantized bf16 weights, warm
+    and cold, against the bound; at M 128 the host's time a call (its extra
+    rows from ``aside``)."""
+    from repro_torch.kernels.quant_matmul.kernel import plan, quant_matmul_cuda
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+    from repro_torch.quant.tensor import quantize_tensor
+
+    for line in gemm_build_lines():
+        log(f"  ptxas {line}")
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for bits in SWEEP_BITS:
+        qts = {}
+        for name, (n, k) in LINEARS.items():
+            qt = quantize_tensor(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5,
+                                 bits)
+            qts[name] = (qt.packed, qt.scale, qt.dequantize(torch.bfloat16).T.contiguous())
+            del qt
+        for m in SWEEP_M:
+            tot = dict(kernel=0.0, cold=0.0, plain=0.0, lib=0.0, lib_cold=0.0, bytes=0.0,
+                       flops=0.0, host=0.0, host_lib=0.0, host_new=0.0)
+            for name, (n, k) in LINEARS.items():
+                packed, scale, wd = qts[name]
+                x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+                run = lambda: quant_matmul_cuda(x, packed, scale, bits=bits, k=k)  # noqa: E731
+                lib_mm = lambda: torch.matmul(x, wd.T)                              # noqa: E731
+                err = rel(run(), quant_matmul_ref(x, packed, scale, bits, k))
+                if not err <= 2e-2:
+                    raise AssertionError(f"GEMM sweep {name} bits={bits} M={m}: rel {err:.3g}")
+                t = dict(kernel=time_batch(torch, run), cold=time_cold(torch, run, flush),
+                         plain=time_batch(torch, lambda: quant_matmul_ref(x, packed, scale,
+                                                                          bits, k), reps=3),
+                         lib=time_batch(torch, lib_mm), lib_cold=time_cold(torch, lib_mm, flush))
+                if m == HOST_M:
+                    # host time a call: the tensor maps come from the wrapper's cache
+                    # when x's buffer repeats, and are encoded anew when it moves
+                    rows = torch.randn((m + 64, k), generator=aside, device="cuda").to(x.dtype)
+                    moved = iter(range(10 ** 9))
+                    t.update(host=time_host(torch, run), host_lib=time_host(torch, lib_mm),
+                             host_new=time_host(torch, lambda: quant_matmul_cuda(
+                                 rows[next(moved) % 64:][:m], packed, scale, bits=bits, k=k)))
+                    del rows
+                nbytes = packed.numel() + 4 * n + 2 * m * k + 2 * m * n
+                for key, val in (*t.items(), ("bytes", nbytes), ("flops", 2.0 * m * n * k)):
+                    tot[key] += val
+                p = plan(m, n, k, torch.bfloat16)
+                log(f"    {name:6s} bits={bits} M={m:4d}: kernel {t['kernel']:.4f} ms "
+                    f"(cold {t['cold']:.4f})  torch.matmul {t['lib']:.4f} (cold "
+                    f"{t['lib_cold']:.4f})  plain {t['plain']:.4f}  nt={p.nt} splits={p.splits} "
+                    f"cluster={p.cluster} grid={p.grid}")
+                del x
+            b_ms, b_by = bound(tot["bytes"], tot["flops"])
+            verdict = "no slower" if tot["kernel"] <= tot["lib"] else "SLOWER"
+            log(f"  GEMM four linears bits={bits} M={m:4d} bf16: kernel {tot['kernel']:.4f} ms "
+                f"warm, {tot['cold']:.4f} cold; torch.matmul {tot['lib']:.4f} warm, "
+                f"{tot['lib_cold']:.4f} cold; plain {tot['plain']:.4f}; bound {b_ms:.4f} ms "
+                f"({b_by}), {100 * b_ms / tot['kernel']:.1f} % of it warm; kernel {verdict} "
+                f"than torch.matmul warm")
+            if m == HOST_M:
+                log(f"  GEMM four linears bits={bits} M={m:4d}: host time a call, summed: "
+                    f"kernel {tot['host']:.4f} ms (x at a new address each call "
+                    f"{tot['host_new']:.4f}), torch.matmul {tot['host_lib']:.4f}")
+        del qts
+    del flush
+
+
+def compare_split_modes(torch, gen) -> None:
+    """Where the plan has each CTA walk its K ranges (many output tiles, short
+    ranges: wqkv and wo from a few hundred rows up), the same launch with the
+    ranges on a cluster instead, at its natural token tile: the same bits,
+    and the two times, interleaved over five rounds (median, min-max).  4-bit
+    weights, bf16 and f32 x."""
+    import dataclasses as dc
+
+    from repro_torch.kernels.quant_matmul.kernel import TOKEN_TILES, plan, quant_matmul_cuda
+    from repro_torch.quant.tensor import quantize_tensor
+
+    for name in ("wqkv", "wo"):
+        n, k = LINEARS[name]
+        qt = quantize_tensor(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5, 4)
+        for dt in (torch.bfloat16, torch.float32):
+            for m in SPLIT_MODE_M:
+                p = plan(m, n, k, dt)
+                if p.cluster != 1 or p.splits == 1:
+                    continue
+                tiles = TOKEN_TILES[dt]
+                q = dc.replace(p, nt=next((t for t in tiles if t >= m), tiles[-1]),
+                               cluster=p.splits)
+                x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+                runs = {mode: (lambda lp=lp: quant_matmul_cuda(x, qt.packed, qt.scale, bits=4,
+                                                               k=k, launch=lp))
+                        for mode, lp in (("one CTA", p), ("cluster", q))}
+                if not torch.equal(runs["one CTA"](), runs["cluster"]()):
+                    raise AssertionError(f"GEMM split modes differ: {name} M={m} {dt}")
+                times = {mode: [] for mode in runs}
+                for _ in range(5):
+                    for mode, run in runs.items():
+                        times[mode].append(time_batch(torch, run))
+                log(f"  GEMM split modes {name} bits=4 M={m} {str(dt)[6:]}, splits {p.splits}: "
+                    + "; ".join(f"{mode} (nt={lp.nt}) {statistics.median(t):.4f} ms "
+                                f"[{min(t):.4f}, {max(t):.4f}]"
+                                for (mode, t), lp in zip(times.items(), (p, q)))
+                    + "; bit-equal")
+                del x
+        del qt
 
 
 def _kv_layer(torch, gen, k_bits, v_bits, dt):
@@ -2044,8 +2236,15 @@ def main() -> int:
                           max_abs_err=0.0) for name in kernels.KERNELS}
     results["gemv_gemm_gap"] = {}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # the sweep's host-time rows and the split-mode comparison draw from their
+    # own stream, so every check after them keeps the inputs it had before
+    # they were added (with those inputs moved, row 8's check against its
+    # plain version failed: PERF.md section 7)
+    aside = torch.Generator(device="cuda").manual_seed(SEED + 1)
     log("== 2. kernels against their plain versions")
     check_linears(torch, gen, results)
+    sweep_gemm(torch, gen, aside)
+    compare_split_modes(torch, aside)
     check_decode_step(torch, gen, results)
     check_dense_replay(torch, gen, results)
     check_paged(torch, gen, results)

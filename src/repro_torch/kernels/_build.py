@@ -33,8 +33,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     # x, packed, scale, y, M, N, K, kp, bits, dtype, stream
     "rq_quant_gemv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, packed, scale, y, M, N, K, kp, bits, dtype, stream
-    "rq_quant_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, packed, scale, y, M, N, K, kp, bits, dtype, nt, wgs, splits, cluster, stream
+    "rq_quant_matmul": [_P, _P, _P, _P] + [_I] * 10 + [_P],
     # pos, q, k_new, v_new, k_packed, k_scale, v_packed, v_scale, mask, out,
     # B, n_kv, g, S, hd, block, k_bits, v_bits, dtype, stream
     "rq_quant_kv_decode_step": [_P] * 10 + [_I] * 9 + [_P],

@@ -5,6 +5,9 @@ Run them on one with ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py``.  They cover the edges that ``chip_smoke.py``'s
 full-width shapes do not reach: ragged N, K padded inside the last byte
 (the GEMV's byte-wise path), M = 9 at the GEMV/GEMM switch, 2-bit lanes,
+the tensor-core GEMM's two load paths, four token tiles and two split
+modes (bit for bit alike), its sums against the CPU mirror of its
+arithmetic, and its launches bit for bit repeatable and independent of M,
 the dense and paged decode kernels at a reduced head width over a
 shuffled block table with a shared block, an idle slot and an unmapped
 entry inside a valid range, the dense append and attention alone with a
@@ -24,8 +27,9 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.quant_gemv.ref import quant_gemv_ref
 from repro_torch.kernels.quant_kv import ops as kv_ops
+from repro_torch.kernels.quant_matmul import kernel as qk
 from repro_torch.kernels.quant_matmul.ops import quant_matmul
-from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+from repro_torch.kernels.quant_matmul.ref import quant_matmul_mirror, quant_matmul_ref
 from repro_torch.kvcache import cache as tcache
 from repro_torch.kvcache import paged as tpaged
 from repro_torch.quant.tensor import quantize_tensor
@@ -46,9 +50,17 @@ def _rel(out, ref):
     return float((out - ref).abs().max() / (ref.abs().max() + 1e-12))
 
 
+#: the GEMM's two load paths (TMA where rows are 16-byte aligned: K 2048 and
+#: 16384; predicated loads at K 37 and 130), its token tiles (M 9, 32, 33,
+#: 257, 2560: widths 32, 64, 128, 256), its split modes (a cluster at few
+#: output tiles, a CTA walking the K ranges at many) and ragged N
+GEMM_CASES = [(m, k, n) for m in (9, 32, 33, 257, 2560) for k in (37, 130, 2048, 16384)
+              for n in (17, 192, 2048)]
+
+
 @pytest.mark.parametrize("bits", (2, 4, 6, 8))
 @pytest.mark.parametrize("m,k,n", [(1, 64, 48), (3, 33, 17), (8, 130, 75), (9, 64, 40),
-                                   (40, 37, 70)])
+                                   (40, 37, 70), *GEMM_CASES])
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
 def test_linear_kernels_match_plain(cuda, bits, m, k, n, dtype):
     g = torch.Generator(device=cuda).manual_seed(bits * 100 + m + k)
@@ -62,6 +74,85 @@ def test_linear_kernels_match_plain(cuda, bits, m, k, n, dtype):
     assert got.shape == (m, n) and got.dtype == dtype
     assert _rel(got, ref) <= (1e-5 if dtype is torch.float32 else 2e-2)
     assert kernels.LAUNCHES["quant_gemv" if m <= 8 else "quant_matmul"] == 1
+
+
+def test_gemm_launches_are_bitwise_repeatable_and_row_independent(cuda):
+    """The split-K shape (w_down at the verify pass's M = 32: a cluster of 8
+    CTAs whose partials meet in a fixed order) gives the same bits on every
+    launch, and its rows give them too inside M = 2560 (256-token tiles) and
+    M = 9; at wo's shape the rows of M = 32 (a cluster of 4) equal those of
+    M = 2560 (one CTA walking the 4 ranges): the sum order depends on N and K
+    alone."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    kernels.reset_counts()
+    for (k, n), mode in (((16384, 2048), "cluster"), ((2048, 2048), "fold")):
+        qt = quantize_tensor(torch.randn((k, n), generator=g, device=cuda) / k ** 0.5, 4)
+        x = torch.randn((2560, k), generator=g, device=cuda).to(torch.bfloat16)
+        a = quant_matmul(x[:32], qt.packed, qt.scale, 4, k)
+        b = quant_matmul(x[:32], qt.packed, qt.scale, 4, k)
+        wide = quant_matmul(x, qt.packed, qt.scale, 4, k)
+        narrow = quant_matmul(x[:9], qt.packed, qt.scale, 4, k)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), mode
+        assert torch.equal(wide[:32], a) and torch.equal(narrow, a[:9]), mode
+    assert kernels.LAUNCHES["quant_matmul"] == 8
+
+
+#: the mirror's shapes: clusters of 8 and 4 (TMA), one CTA walking 4 K ranges
+#: (f32 x at M 257, bf16 x at M 2560), one range on the predicated path
+MIRROR_CASES = [(32, 16384, 2048), (33, 2048, 192), (257, 2048, 2048), (2560, 2048, 2048),
+                (9, 130, 17), (32, 37, 75), (2560, 16384, 2048)]
+
+
+@pytest.mark.parametrize("bits", (2, 4, 6, 8))
+@pytest.mark.parametrize("m,k,n", MIRROR_CASES)
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_gemm_sums_as_its_mirror(cuda, bits, m, k, n, dtype):
+    """The kernel against ``ref.quant_matmul_mirror`` at the plan's split,
+    far inside the plain version's tolerance.  Not bit for bit: within a K
+    step the tensor cores add in their own order.  f32 x within rel 1e-6
+    (the plain version's gate is 1e-5; a range summed wholly on the tensor
+    cores drifts further); bf16 y at most one bf16 step from the mirror
+    (plus 4e-6 of the largest output, where a sum cancels), and at most
+    0.1 % of the outputs apart at all."""
+    g = torch.Generator(device=cuda).manual_seed(bits * 7 + m + k + n)
+    qt = quantize_tensor(torch.randn((k, n), generator=g, device=cuda) / k ** 0.5, bits)
+    x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+    got = quant_matmul(x, qt.packed, qt.scale, bits, k)
+    mirror = quant_matmul_mirror(x, qt.packed, qt.scale, bits, k,
+                                 splits=qk.plan(m, n, k, dtype).splits)
+    torch.cuda.synchronize()
+    assert got.dtype == mirror.dtype == dtype
+    if dtype is torch.float32:
+        assert _rel(got, mirror) <= 1e-6
+    else:
+        got, mirror = got.float(), mirror.float()
+        diff = (got - mirror).abs()
+        step = torch.exp2(torch.floor(torch.log2(mirror.abs().clamp_min(1e-30))) - 7)
+        assert (diff <= step + 4e-6 * mirror.abs().max()).all()
+        assert (diff > 0).float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_gemm_split_modes_give_the_same_bits(cuda, dtype):
+    """wo's shape at M 2560: the plan has each CTA walk the 4 K ranges; a
+    cluster of 4 CTAs summing one range each gives the same bits.  A plan
+    made for another shape is refused."""
+    k, n, m = 2048, 2048, 2560
+    g = torch.Generator(device=cuda).manual_seed(17)
+    qt = quantize_tensor(torch.randn((k, n), generator=g, device=cuda) / k ** 0.5, 4)
+    x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+    p = qk.plan(m, n, k, dtype)
+    assert p.cluster == 1 and p.splits == 4
+    q = dataclasses.replace(p, nt=qk.TOKEN_TILES[dtype][-1], cluster=p.splits)
+    kernels.reset_counts()
+    one = qk.quant_matmul_cuda(x, qt.packed, qt.scale, bits=4, k=k, launch=p)
+    many = qk.quant_matmul_cuda(x, qt.packed, qt.scale, bits=4, k=k, launch=q)
+    torch.cuda.synchronize()
+    assert torch.equal(one, many)
+    assert kernels.LAUNCHES["quant_matmul"] == 2
+    with pytest.raises(ValueError, match="plan for"):
+        qk.quant_matmul_cuda(x[:32], qt.packed, qt.scale, bits=4, k=k, launch=p)
 
 
 @pytest.mark.parametrize("k_bits,v_bits", [(8, 8), (8, 4), (4, 2), (2, 2), (6, 4)])

@@ -86,4 +86,4 @@ def test_kernel_build_is_not_started_by_imports():
     assert {p.name for p in _build.sources()} >= {
         "quant_gemv.cu", "quant_matmul.cu", "quant_kv_decode_step.cu", "quant_kv_dense.cu",
         "quant_kv_paged.cu", "quant_kv.cuh", "fake_quant.cu", "quant_gemv.cuh",
-        "quant_kv_proj.cu"}
+        "quant_kv_proj.cu", "wgmma.cuh"}
