@@ -19,12 +19,12 @@
 //    nothing: that is how the speculative commit's masked rows are expressed
 //    on the card (spec/loop.py passes pos -1), and it matches the reference's
 //    append, whose block select matches no block there.
-//  * quant_kv_attention runs quant_kv.cuh's attend over DenseRows with the
-//    grid of the paged attention, one block per (kv head, slot).  It is the
-//    fused step's attend half with the same arithmetic in the same order, so
-//    the fused step equals this append followed by this attention bit for
-//    bit (chip_smoke.py holds that on the card).
-//  * Occupancy: gemma-2b's MQA gives B blocks for B slots; slow, correct.
+//  * quant_kv_attention runs quant_kv.cuh's split attend over DenseRows on
+//    the fused step's grid, (csize, n_kv, B) with the chunks of a (slot, kv
+//    head) on a cluster of csize CTAs or walked by one.  It is the fused
+//    step's attend half with the same arithmetic in the same order, so the
+//    fused step equals this append followed by this attention bit for bit
+//    (chip_smoke.py holds that on the card).
 #include "quant_kv.cuh"
 
 namespace rq {
@@ -48,14 +48,14 @@ quant_kv_append_kernel(const int* __restrict__ pos, const T* __restrict__ new_ro
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kKvThreads)
+__global__ void __launch_bounds__(kKvThreads, 2)
 quant_kv_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_packed,
                           const float* __restrict__ k_scale, const int8_t* __restrict__ v_packed,
                           const float* __restrict__ v_scale, const float* __restrict__ mask,
                           float* __restrict__ out, int n_kv, int g, int S, int hd, int block,
                           int k_bits, int v_bits) {
   extern __shared__ float smem[];
-  const int h = blockIdx.x, b = blockIdx.y, bh = b * n_kv + h;
+  const int h = blockIdx.y, b = blockIdx.z, bh = b * n_kv + h;
   const int nb = S / block;
   const int lk = lanes_of(k_bits), lv = lanes_of(v_bits);
   const int hdp_k = hd / lk, hdp_v = hd / lv;
@@ -65,7 +65,7 @@ quant_kv_attention_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_
   const DenseRows vrows{reinterpret_cast<const uint32_t*>(v_packed + (size_t)bh * S * hdp_v),
                         v_scale + (size_t)bh * nb, hdp_v / 4, block};
   attend(q + (size_t)bh * g * hd, mask + (size_t)b * S, krows, vrows, sm, 0.f, 0.f, -1,
-         out + (size_t)bh * g * hd, g, S, hd, block, lk, lv);
+         out + (size_t)bh * g * hd, g, S, hd, block, lk, lv, (int)blockIdx.x, (int)gridDim.x);
 }
 
 template <typename T>
@@ -81,13 +81,14 @@ template <typename T>
 cudaError_t launch_attention(const void* q, const void* k_packed, const void* k_scale,
                              const void* v_packed, const void* v_scale, const void* mask,
                              void* out, int B, int n_kv, int g, int S, int hd, int block,
-                             int k_bits, int v_bits, cudaStream_t stream) {
+                             int k_bits, int v_bits, int csize, cudaStream_t stream) {
   const size_t smem = kv_smem_bytes(g, hd, block, hd / lanes_of(k_bits), hd / lanes_of(v_bits));
-  return launch_kv(quant_kv_attention_kernel<T>, dim3((unsigned)n_kv, (unsigned)B), smem, stream,
-                   static_cast<const T*>(q), static_cast<const int8_t*>(k_packed),
-                   static_cast<const float*>(k_scale), static_cast<const int8_t*>(v_packed),
-                   static_cast<const float*>(v_scale), static_cast<const float*>(mask),
-                   static_cast<float*>(out), n_kv, g, S, hd, block, k_bits, v_bits);
+  return launch_kv_split(quant_kv_attention_kernel<T>, csize, n_kv, B, smem, stream,
+                         static_cast<const T*>(q), static_cast<const int8_t*>(k_packed),
+                         static_cast<const float*>(k_scale),
+                         static_cast<const int8_t*>(v_packed),
+                         static_cast<const float*>(v_scale), static_cast<const float*>(mask),
+                         static_cast<float*>(out), n_kv, g, S, hd, block, k_bits, v_bits);
 }
 
 inline bool bad_dense_shape(int B, int H, int S, int hd, int block) {
@@ -116,21 +117,22 @@ extern "C" int rq_quant_kv_append(const void* pos, const void* new_rows, void* p
 
 // q (B, n_kv, g, hd) with hd % 16 == 0; packed (B, n_kv, S, hdp) int8 and
 // scales (B, n_kv, S / block) f32, only read; mask (B, S) f32 additive; out
-// (B, n_kv, g, hd) f32.
+// (B, n_kv, g, hd) f32; csize the CTAs a (slot, kv head) takes.
 extern "C" int rq_quant_kv_attention(const void* q, const void* k_packed, const void* k_scale,
                                      const void* v_packed, const void* v_scale, const void* mask,
                                      void* out, int B, int n_kv, int g, int S, int hd, int block,
-                                     int k_bits, int v_bits, int dtype, void* stream) {
+                                     int k_bits, int v_bits, int csize, int dtype, void* stream) {
   if (rq::bad_dense_shape(B, n_kv, S, hd, block) || g < 1 || rq::bad_kv_bits(k_bits) ||
-      rq::bad_kv_bits(v_bits) || rq::misaligned(k_packed) || rq::misaligned(v_packed))
+      rq::bad_kv_bits(v_bits) || rq::bad_split(csize, S, block, false) ||
+      rq::misaligned(k_packed) || rq::misaligned(v_packed))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rq::kF32)
     return (int)rq::launch_attention<float>(q, k_packed, k_scale, v_packed, v_scale, mask, out, B,
-                                            n_kv, g, S, hd, block, k_bits, v_bits, s);
+                                            n_kv, g, S, hd, block, k_bits, v_bits, csize, s);
   if (dtype == rq::kBF16)
     return (int)rq::launch_attention<__nv_bfloat16>(q, k_packed, k_scale, v_packed, v_scale, mask,
                                                     out, B, n_kv, g, S, hd, block, k_bits, v_bits,
-                                                    s);
+                                                    csize, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,8 +15,11 @@
 // touched blocks written once, at 3.35 TB/s; the arithmetic is small.
 //
 // Design.
-//  * One block per (slot, kv head), as the dense kernel.  A 32-position
-//    tile spans two 16-position blocks that may lie far apart in the pool:
+//  * The attention kernels run quant_kv.cuh's split body on the dense
+//    kernels' grid, (csize, n_kv, B): the chunks of one (slot, kv head) on a
+//    cluster of csize CTAs, or walked by one (kernels/quant_kv/kernel.py
+//    attend_plan).  A 32-position tile spans two 16-position blocks that may
+//    lie far apart in the pool:
 //    the tile loader resolves every row through PagedRows (table[slot][s /
 //    block]), and an entry < 0 reads as zero levels at scale 1e-12, which
 //    is what to_dense gives the plain version.  Dense and paged share the
@@ -30,16 +33,17 @@
 //    touched entry: block 0 is never written on the card.  Its bytes are no
 //    part of the contract (the JAX scatter leaves duplicates unspecified).
 //  * The fused step relies on the engine's copy-on-write: a live slot's
-//    touched block is mapped by that slot alone, so no other block reads
-//    the bytes this one rewrites.  Attention reads the touched block from
-//    the shared-memory copy, and only where the table maps it.
-//  * Occupancy: gemma-2b's MQA gives 8 blocks for 8 slots; slow, correct.
+//    touched block is mapped by that slot alone, so no other slot's CTAs
+//    read the bytes this one rewrites; within the slot only the CTA whose
+//    chunks hold pos requantizes the block and reads it, from its
+//    shared-memory copy, and only where the table maps it.
+//  * The appends keep one block per (head, slot).
 #include "quant_kv.cuh"
 
 namespace rq {
 
 template <typename T>
-__global__ void __launch_bounds__(kKvThreads)
+__global__ void __launch_bounds__(kKvThreads, 2)
 quant_kv_decode_step_paged_kernel(const int* __restrict__ pos, const int* __restrict__ table,
                                   const T* __restrict__ q, const T* __restrict__ k_new,
                                   const T* __restrict__ v_new, int8_t* k_pool, float* k_scale,
@@ -48,7 +52,8 @@ quant_kv_decode_step_paged_kernel(const int* __restrict__ pos, const int* __rest
                                   int n_kv, int g, int nb, int hd, int block, int k_bits,
                                   int v_bits) {
   extern __shared__ float smem[];
-  const int h = blockIdx.x, b = blockIdx.y, bh = b * n_kv + h;
+  const int rank = blockIdx.x, csize = gridDim.x;
+  const int h = blockIdx.y, b = blockIdx.z, bh = b * n_kv + h;
   const int S = nb * block;
   const int lk = lanes_of(k_bits), lv = lanes_of(v_bits);
   const int hdp_k = hd / lk, hdp_v = hd / lv;
@@ -57,13 +62,13 @@ quant_kv_decode_step_paged_kernel(const int* __restrict__ pos, const int* __rest
   float* o = out + (size_t)bh * g * hd;
   const int p = pos[b];
   if (p < 0 || p >= S) {  // no block to write: leave the pool alone, attend to nothing
-    for (int i = threadIdx.x; i < g * hd; i += blockDim.x) o[i] = 0.f;
+    zero_slice(o, g * hd, rank, csize);
     return;
   }
   const int e = trow[p / block];
   int bidx = -1;  // sequence block read from shared memory; -1 = none
   float ksc = 0.f, vsc = 0.f;
-  if (e >= 0) {  // block-uniform
+  if (e >= 0 && holds_position(p, rank, csize)) {  // block-uniform
     const size_t blk = (size_t)e * n_kv + h;
     const int off = p % block;
     ksc = requant_side(reinterpret_cast<uint8_t*>(k_pool) + blk * block * hdp_k, k_scale + blk,
@@ -79,11 +84,11 @@ quant_kv_decode_step_paged_kernel(const int* __restrict__ pos, const int* __rest
   const PagedRows vrows{reinterpret_cast<const uint32_t*>(v_pool), v_scale, trow, n_kv, h,
                         hdp_v / 4, block};
   attend(q + (size_t)bh * g * hd, mask + (size_t)b * S, krows, vrows, sm, ksc, vsc, bidx, o, g,
-         S, hd, block, lk, lv);
+         S, hd, block, lk, lv, rank, csize);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kKvThreads)
+__global__ void __launch_bounds__(kKvThreads, 2)
 quant_kv_attention_paged_kernel(const int* __restrict__ table, const T* __restrict__ q,
                                 const int8_t* __restrict__ k_pool,
                                 const float* __restrict__ k_scale,
@@ -93,7 +98,7 @@ quant_kv_attention_paged_kernel(const int* __restrict__ table, const T* __restri
                                 int n_kv, int g, int nb, int hd, int block, int k_bits,
                                 int v_bits) {
   extern __shared__ float smem[];
-  const int h = blockIdx.x, b = blockIdx.y, bh = b * n_kv + h;
+  const int h = blockIdx.y, b = blockIdx.z, bh = b * n_kv + h;
   const int lk = lanes_of(k_bits), lv = lanes_of(v_bits);
   const KvSmem sm = carve_kv_smem(smem, g, hd, block, hd / lk);
   const int* trow = table + (size_t)b * nb;
@@ -102,7 +107,8 @@ quant_kv_attention_paged_kernel(const int* __restrict__ table, const T* __restri
   const PagedRows vrows{reinterpret_cast<const uint32_t*>(v_pool), v_scale, trow, n_kv, h,
                         hd / lv / 4, block};
   attend(q + (size_t)bh * g * hd, mask + (size_t)b * nb * block, krows, vrows, sm, 0.f, 0.f, -1,
-         out + (size_t)bh * g * hd, g, nb * block, hd, block, lk, lv);
+         out + (size_t)bh * g * hd, g, nb * block, hd, block, lk, lv, (int)blockIdx.x,
+         (int)gridDim.x);
 }
 
 template <typename T>
@@ -131,30 +137,30 @@ cudaError_t launch_step_paged(const void* pos, const void* table, const void* q,
                               const void* k_new, const void* v_new, void* k_pool, void* k_scale,
                               void* v_pool, void* v_scale, const void* mask, void* out, int B,
                               int n_kv, int g, int nb, int hd, int block, int k_bits,
-                              int v_bits, cudaStream_t stream) {
+                              int v_bits, int csize, cudaStream_t stream) {
   const size_t smem = kv_smem_bytes(g, hd, block, hd / lanes_of(k_bits), hd / lanes_of(v_bits));
-  return launch_kv(quant_kv_decode_step_paged_kernel<T>, dim3((unsigned)n_kv, (unsigned)B), smem,
-                   stream, static_cast<const int*>(pos), static_cast<const int*>(table),
-                   static_cast<const T*>(q), static_cast<const T*>(k_new),
-                   static_cast<const T*>(v_new), static_cast<int8_t*>(k_pool),
-                   static_cast<float*>(k_scale), static_cast<int8_t*>(v_pool),
-                   static_cast<float*>(v_scale), static_cast<const float*>(mask),
-                   static_cast<float*>(out), n_kv, g, nb, hd, block, k_bits, v_bits);
+  return launch_kv_split(quant_kv_decode_step_paged_kernel<T>, csize, n_kv, B, smem, stream,
+                         static_cast<const int*>(pos), static_cast<const int*>(table),
+                         static_cast<const T*>(q), static_cast<const T*>(k_new),
+                         static_cast<const T*>(v_new), static_cast<int8_t*>(k_pool),
+                         static_cast<float*>(k_scale), static_cast<int8_t*>(v_pool),
+                         static_cast<float*>(v_scale), static_cast<const float*>(mask),
+                         static_cast<float*>(out), n_kv, g, nb, hd, block, k_bits, v_bits);
 }
 
 template <typename T>
 cudaError_t launch_attention_paged(const void* table, const void* q, const void* k_pool,
                                    const void* k_scale, const void* v_pool, const void* v_scale,
                                    const void* mask, void* out, int B, int n_kv, int g, int nb,
-                                   int hd, int block, int k_bits, int v_bits,
+                                   int hd, int block, int k_bits, int v_bits, int csize,
                                    cudaStream_t stream) {
   const size_t smem = kv_smem_bytes(g, hd, block, hd / lanes_of(k_bits), hd / lanes_of(v_bits));
-  return launch_kv(quant_kv_attention_paged_kernel<T>, dim3((unsigned)n_kv, (unsigned)B), smem,
-                   stream, static_cast<const int*>(table), static_cast<const T*>(q),
-                   static_cast<const int8_t*>(k_pool), static_cast<const float*>(k_scale),
-                   static_cast<const int8_t*>(v_pool), static_cast<const float*>(v_scale),
-                   static_cast<const float*>(mask), static_cast<float*>(out), n_kv, g, nb, hd,
-                   block, k_bits, v_bits);
+  return launch_kv_split(quant_kv_attention_paged_kernel<T>, csize, n_kv, B, smem, stream,
+                         static_cast<const int*>(table), static_cast<const T*>(q),
+                         static_cast<const int8_t*>(k_pool), static_cast<const float*>(k_scale),
+                         static_cast<const int8_t*>(v_pool), static_cast<const float*>(v_scale),
+                         static_cast<const float*>(mask), static_cast<float*>(out), n_kv, g, nb,
+                         hd, block, k_bits, v_bits);
 }
 
 template <typename T>
@@ -178,25 +184,27 @@ inline bool bad_paged_shape(int B, int n_kv, int nb, int hd, int block) {
 // hd % 16 == 0; k_new / v_new (B, n_kv, hd) in q's type; pools (P, n_kv,
 // block, hdp) int8 and scales (P, n_kv) f32, written in place at each slot's
 // mapped touched block; mask (B, nb * block) f32 additive; out (B, n_kv, g,
-// hd) f32.
+// hd) f32; csize the CTAs a (slot, kv head) takes (1: one walks every chunk).
 extern "C" int rq_quant_kv_decode_step_paged(const void* pos, const void* table, const void* q,
                                              const void* k_new, const void* v_new, void* k_pool,
                                              void* k_scale, void* v_pool, void* v_scale,
                                              const void* mask, void* out, int B, int n_kv, int g,
                                              int nb, int hd, int block, int k_bits, int v_bits,
-                                             int dtype, void* stream) {
+                                             int csize, int dtype, void* stream) {
   if (rq::bad_paged_shape(B, n_kv, nb, hd, block) || g < 1 || rq::bad_kv_bits(k_bits) ||
-      rq::bad_kv_bits(v_bits) || rq::misaligned(k_pool) || rq::misaligned(v_pool))
+      rq::bad_kv_bits(v_bits) || rq::bad_split(csize, nb * block, block, true) ||
+      rq::misaligned(k_pool) || rq::misaligned(v_pool))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rq::kF32)
     return (int)rq::launch_step_paged<float>(pos, table, q, k_new, v_new, k_pool, k_scale,
                                              v_pool, v_scale, mask, out, B, n_kv, g, nb, hd,
-                                             block, k_bits, v_bits, s);
+                                             block, k_bits, v_bits, csize, s);
   if (dtype == rq::kBF16)
     return (int)rq::launch_step_paged<__nv_bfloat16>(pos, table, q, k_new, v_new, k_pool,
                                                      k_scale, v_pool, v_scale, mask, out, B,
-                                                     n_kv, g, nb, hd, block, k_bits, v_bits, s);
+                                                     n_kv, g, nb, hd, block, k_bits, v_bits,
+                                                     csize, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -205,19 +213,21 @@ extern "C" int rq_quant_kv_attention_paged(const void* table, const void* q, con
                                            const void* k_scale, const void* v_pool,
                                            const void* v_scale, const void* mask, void* out,
                                            int B, int n_kv, int g, int nb, int hd, int block,
-                                           int k_bits, int v_bits, int dtype, void* stream) {
+                                           int k_bits, int v_bits, int csize, int dtype,
+                                           void* stream) {
   if (rq::bad_paged_shape(B, n_kv, nb, hd, block) || g < 1 || rq::bad_kv_bits(k_bits) ||
-      rq::bad_kv_bits(v_bits) || rq::misaligned(k_pool) || rq::misaligned(v_pool))
+      rq::bad_kv_bits(v_bits) || rq::bad_split(csize, nb * block, block, false) ||
+      rq::misaligned(k_pool) || rq::misaligned(v_pool))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rq::kF32)
     return (int)rq::launch_attention_paged<float>(table, q, k_pool, k_scale, v_pool, v_scale,
                                                   mask, out, B, n_kv, g, nb, hd, block, k_bits,
-                                                  v_bits, s);
+                                                  v_bits, csize, s);
   if (dtype == rq::kBF16)
     return (int)rq::launch_attention_paged<__nv_bfloat16>(table, q, k_pool, k_scale, v_pool,
                                                           v_scale, mask, out, B, n_kv, g, nb,
-                                                          hd, block, k_bits, v_bits, s);
+                                                          hd, block, k_bits, v_bits, csize, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -28,8 +28,11 @@
 //    with __fmul_rn / __fsub_rn / __fadd_rn so that nvcc does not contract
 //    x1 * cos - x2 * sin into an FMA (torch rounds each product).
 //  * Then quant_kv.cuh's requant_side (K, then V, written into the cache in
-//    place) and attend, on the shared-memory rows.  A position outside
-//    [0, S) writes nothing and attends to nothing, as the plain step does.
+//    place) and attend, on the shared-memory rows, in its walk mode: this
+//    CTA folds every chunk itself, in the order a cluster would, so the
+//    output equals row 3's bit for bit (a cluster would multiply the reads
+//    of wqkv).  A position outside [0, S) writes nothing and attends to
+//    nothing, as the plain step does.
 //  * Occupancy: gemma-2b's MQA gives B x 1 blocks (at most 8 on 132 SMs),
 //    each reading all of wqkv: slow but correct.  Splitting the projection
 //    across blocks is later work.
@@ -120,7 +123,7 @@ quant_kv_decode_step_proj_kernel(const int* __restrict__ pos, const float* __res
   const DenseRows krows{reinterpret_cast<const uint32_t*>(kp_), ks, hdp_k / 4, block};
   const DenseRows vrows{reinterpret_cast<const uint32_t*>(vp_), vs, hdp_v / 4, block};
   attend(static_cast<const float*>(proj), mask + (size_t)b * S, krows, vrows, sm, ksc, vsc,
-         bidx, o, g, S, hd, block, lk, lv);
+         bidx, o, g, S, hd, block, lk, lv, 0, 1);  // walk: one CTA folds every chunk
 }
 
 inline size_t proj_smem_bytes(int g, int hd, int block, int k_bits, int v_bits) {

@@ -36,19 +36,19 @@ SIGNATURES = {
     # x, packed, scale, y, M, N, K, kp, bits, dtype, nt, wgs, splits, cluster, stream
     "rq_quant_matmul": [_P, _P, _P, _P] + [_I] * 10 + [_P],
     # pos, q, k_new, v_new, k_packed, k_scale, v_packed, v_scale, mask, out,
-    # B, n_kv, g, S, hd, block, k_bits, v_bits, dtype, stream
-    "rq_quant_kv_decode_step": [_P] * 10 + [_I] * 9 + [_P],
+    # B, n_kv, g, S, hd, block, k_bits, v_bits, cluster, dtype, stream
+    "rq_quant_kv_decode_step": [_P] * 10 + [_I] * 10 + [_P],
     # pos, table, q, k_new, v_new, k_pool, k_scale, v_pool, v_scale, mask, out,
-    # B, n_kv, g, nb, hd, block, k_bits, v_bits, dtype, stream
-    "rq_quant_kv_decode_step_paged": [_P] * 11 + [_I] * 9 + [_P],
+    # B, n_kv, g, nb, hd, block, k_bits, v_bits, cluster, dtype, stream
+    "rq_quant_kv_decode_step_paged": [_P] * 11 + [_I] * 10 + [_P],
     # table, q, k_pool, k_scale, v_pool, v_scale, mask, out,
-    # B, n_kv, g, nb, hd, block, k_bits, v_bits, dtype, stream
-    "rq_quant_kv_attention_paged": [_P] * 8 + [_I] * 9 + [_P],
+    # B, n_kv, g, nb, hd, block, k_bits, v_bits, cluster, dtype, stream
+    "rq_quant_kv_attention_paged": [_P] * 8 + [_I] * 10 + [_P],
     # pos, table, new, pool, scale, B, H, nb, hd, block, bits, dtype, stream
     "rq_quant_kv_append_paged": [_P] * 5 + [_I] * 7 + [_P],
     # q, k_packed, k_scale, v_packed, v_scale, mask, out,
-    # B, n_kv, g, S, hd, block, k_bits, v_bits, dtype, stream
-    "rq_quant_kv_attention": [_P] * 7 + [_I] * 9 + [_P],
+    # B, n_kv, g, S, hd, block, k_bits, v_bits, cluster, dtype, stream
+    "rq_quant_kv_attention": [_P] * 7 + [_I] * 10 + [_P],
     # pos, new, packed, scale, B, H, S, hd, block, bits, dtype, stream
     "rq_quant_kv_append": [_P] * 4 + [_I] * 7 + [_P],
     # pos, x, w_packed, w_scale, cos, sin, k_packed, k_scale, v_packed, v_scale, mask,

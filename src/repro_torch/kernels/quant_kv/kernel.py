@@ -1,11 +1,106 @@
 """ctypes bindings of the CUDA quantized-KV kernels (``csrc/quant_kv_decode_step.cu``,
-``csrc/quant_kv_dense.cu``, ``csrc/quant_kv_paged.cu``, ``csrc/quant_kv_proj.cu``)."""
+``csrc/quant_kv_dense.cu``, ``csrc/quant_kv_paged.cu``, ``csrc/quant_kv_proj.cu``).
+
+The attention body (``csrc/quant_kv.cuh`` ``attend``) is split over S; its
+launch is planned here, in Python, so that the CPU tests can check it
+(:func:`attend_plan`).
+"""
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.core.packing import LANES
 from repro_torch.kernels import LAUNCHES, _build
+
+#: positions per chunk of the split attention (``csrc/quant_kv.cuh`` kChunk)
+CHUNK = 64
+#: positions per tile of a chunk's online softmax (``kTile``)
+TILE = 32
+#: the most CTAs one (slot, kv head) takes: a cluster of 16 (above 8 the
+#: non-portable cluster size)
+MAX_CLUSTER = 16
+#: the fused steps: one CTA requantizes the touched block and reads it
+FUSED = ("quant_kv_decode_step", "quant_kv_decode_step_paged")
+#: every kernel that runs the split attention body; row 8 walks it on one CTA
+ATTEND_KERNELS = FUSED + ("quant_kv_attention", "quant_kv_attention_paged",
+                          "quant_kv_decode_step_proj")
+
+
+@dataclasses.dataclass(frozen=True)
+class AttendPlan:
+    """How one (slot, kv head) of the attention body runs.
+
+    S is cut into ``chunks`` chunks of ``chunk`` positions from position 0.
+    ``cluster`` CTAs of a thread-block cluster take them, rank r the chunks
+    r, r + cluster, ... in rounds (``mode == "cluster"``), or one CTA walks
+    them all (``cluster == 1``, ``mode == "walk"``).  Each chunk's partial is
+    folded into the result one at a time in :meth:`fold_order`, which is
+    chunk order in both modes, so the two give the same bits.
+    """
+
+    s: int
+    chunk: int
+    cluster: int
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.s // self.chunk)
+
+    @property
+    def mode(self) -> str:
+        return "walk" if self.cluster == 1 else "cluster"
+
+    def grid(self, b: int, n_kv: int) -> tuple[int, int, int]:
+        return (self.cluster, n_kv, b)
+
+    def chunk_range(self, c: int) -> tuple[int, int]:
+        """Positions ``[c0, c1)`` of chunk ``c``."""
+        return (c * self.chunk, min((c + 1) * self.chunk, self.s))
+
+    def rank_chunks(self, rank: int) -> list[int]:
+        """The chunks rank ``rank`` computes, round by round."""
+        return list(range(rank, self.chunks, self.cluster))
+
+    def fold_order(self) -> list[int]:
+        """The chunks in the order their partials are folded: round by round,
+        within a round in rank order, as the kernel folds them."""
+        rounds = -(-self.chunks // self.cluster)
+        return [k * self.cluster + j for k in range(rounds) for j in range(self.cluster)
+                if k * self.cluster + j < self.chunks]
+
+
+def attend_plan(kernel: str, s: int, block: int) -> AttendPlan:
+    """The launch of ``kernel``'s attention over S = ``s`` positions.
+
+    A cluster of one CTA per chunk, at most :data:`MAX_CLUSTER`; one CTA
+    walks every chunk for row 8 (each of its CTAs reads all of ``wqkv``, so
+    a cluster would multiply those reads) and for a fused step whose
+    sequence blocks do not each lie inside one chunk (only one CTA may
+    requantize a block).  Never depends on B: the bits do not either.
+    """
+    if kernel not in ATTEND_KERNELS:
+        raise ValueError(f"attend_plan: {kernel!r} does not run the attention body")
+    cluster = min(-(-s // CHUNK), MAX_CLUSTER)
+    if kernel == "quant_kv_decode_step_proj" or (kernel in FUSED and CHUNK % block):
+        cluster = 1
+    return AttendPlan(s, CHUNK, cluster)
+
+
+def walk_plan(p: AttendPlan) -> AttendPlan:
+    """The same chunks walked by one CTA (the same bits as ``p``)."""
+    return dataclasses.replace(p, cluster=1)
+
+
+def _split(kernel: str, s: int, block: int, launch: AttendPlan | None) -> int:
+    """The cluster size to launch: ``launch``'s (checked) or the plan's."""
+    p = launch or attend_plan(kernel, s, block)
+    if p.s != s or p.chunk != CHUNK or not 1 <= p.cluster <= min(p.chunks, MAX_CLUSTER) or (
+            p.cluster > 1 and kernel in FUSED and CHUNK % block):
+        raise ValueError(f"{kernel}: a plan for S={p.s} (chunk {p.chunk}, cluster "
+                         f"{p.cluster}) given for S={s}, block={block}")
+    return p.cluster
 
 
 def _check_hd(name: str, hd: int, s: int, block: int) -> None:
@@ -23,19 +118,21 @@ def _require_pool(prefix, packed, scale, bits, *, hd, block, n_kv, dev) -> None:
 
 
 def quant_kv_decode_step_cuda(pos, q, k_new, v_new, k_packed, k_scale, v_packed, v_scale,
-                              mask, *, k_bits: int, v_bits: int, hd: int,
-                              block: int) -> torch.Tensor:
-    """One kernel per (slot, kv head): requantize the touched block + attend.
+                              mask, *, k_bits: int, v_bits: int, hd: int, block: int,
+                              launch: AttendPlan | None = None) -> torch.Tensor:
+    """One launch: requantize the touched block, then attend, split over S.
 
     ``pos`` (B,) int32; ``q`` (B, n_kv, g, hd); ``k_new``/``v_new``
     (B, n_kv, hd) in q's dtype; packed ``(B, n_kv, S, hd/lanes)`` int8 and
     scales ``(B, n_kv, S/block, 1)`` f32, WRITTEN IN PLACE (the touched block
     and its scale); ``mask`` (B, S) f32 additive.  Returns (B, n_kv, g, hd) f32.
+    ``launch`` replaces :func:`attend_plan`'s (both modes give the same bits).
     """
     b, n_kv, g, _ = q.shape
     s = k_packed.shape[2]
     dev = q.device
     _check_hd("quant_kv_decode_step", hd, s, block)
+    csize = _split("quant_kv_decode_step", s, block, launch)
     code = _build.dtype_code(q, "quant_kv_decode_step")
     _build.require(q, "q", shape=(b, n_kv, g, hd))
     _build.require(pos, "pos", dtype=torch.int32, shape=(b,), device=dev)
@@ -52,7 +149,7 @@ def quant_kv_decode_step_cuda(pos, q, k_new, v_new, k_packed, k_scale, v_packed,
     rc = _build.lib().rq_quant_kv_decode_step(
         pos.data_ptr(), q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_packed.data_ptr(), k_scale.data_ptr(), v_packed.data_ptr(), v_scale.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), b, n_kv, g, s, hd, block, k_bits, v_bits, code,
+        mask.data_ptr(), out.data_ptr(), b, n_kv, g, s, hd, block, k_bits, v_bits, csize, code,
         _build.stream_of(q))
     LAUNCHES["quant_kv_decode_step"] += 1
     _build.check(rc, "quant_kv_decode_step")
@@ -67,8 +164,9 @@ def quant_kv_decode_step_proj_cuda(pos, x, w_packed, w_scale, cos, sin, k_packed
                                    v_packed, v_scale, mask, *, w_bits: int, k_bits: int,
                                    v_bits: int, n_heads: int, hd: int,
                                    block: int) -> torch.Tensor:
-    """One kernel per (slot, kv head): project the query group and the K/V
-    rows from the fused ``wqkv``, rotate, requantize the touched block, attend.
+    """One CTA per (slot, kv head): project the query group and the K/V rows
+    from the fused ``wqkv``, rotate, requantize the touched block, attend
+    (the split body walked by that CTA: ``attend_plan``'s walk mode).
 
     ``pos`` (B,) int32, B <= 8; ``x`` (B, d) f32; ``w_packed``
     ((n_heads + 2 n_kv) hd, d/lanes) int8 and ``w_scale`` (1, that) f32;
@@ -119,17 +217,19 @@ def _require_dense(prefix, packed, scale, bits, *, b, h, s, hd, block, dev) -> N
 
 
 def quant_kv_attention_cuda(q, k_packed, k_scale, v_packed, v_scale, mask, *, k_bits: int,
-                            v_bits: int, hd: int, block: int) -> torch.Tensor:
-    """One kernel per (slot, kv head): attention over the dense packed cache.
+                            v_bits: int, hd: int, block: int,
+                            launch: AttendPlan | None = None) -> torch.Tensor:
+    """One launch: attention over the dense packed cache, split over S.
 
     ``q`` (B, n_kv, g, hd); packed ``(B, n_kv, S, hd/lanes)`` int8 and scales
     ``(B, n_kv, S/block, 1)`` f32, only read; ``mask`` (B, S) f32 additive.
-    Returns (B, n_kv, g, hd) f32.
+    Returns (B, n_kv, g, hd) f32.  ``launch`` as in :func:`quant_kv_decode_step_cuda`.
     """
     b, n_kv, g, _ = q.shape
     s = k_packed.shape[2]
     dev = q.device
     _check_hd("quant_kv_attention", hd, s, block)
+    csize = _split("quant_kv_attention", s, block, launch)
     code = _build.dtype_code(q, "quant_kv_attention")
     _build.require(q, "q", shape=(b, n_kv, g, hd))
     _require_dense("k_", k_packed, k_scale, k_bits, b=b, h=n_kv, s=s, hd=hd, block=block, dev=dev)
@@ -139,7 +239,7 @@ def quant_kv_attention_cuda(q, k_packed, k_scale, v_packed, v_scale, mask, *, k_
     rc = _build.lib().rq_quant_kv_attention(
         q.data_ptr(), k_packed.data_ptr(), k_scale.data_ptr(), v_packed.data_ptr(),
         v_scale.data_ptr(), mask.data_ptr(), out.data_ptr(), b, n_kv, g, s, hd, block, k_bits,
-        v_bits, code, _build.stream_of(q))
+        v_bits, csize, code, _build.stream_of(q))
     LAUNCHES["quant_kv_attention"] += 1
     _build.check(rc, "quant_kv_attention")
     return out
@@ -167,20 +267,22 @@ def quant_kv_append_cuda(pos, new, packed, scale, *, bits: int, hd: int, block: 
 
 def quant_kv_decode_step_paged_cuda(pos, table, q, k_new, v_new, k_pool, k_scale, v_pool,
                                     v_scale, mask, *, k_bits: int, v_bits: int, hd: int,
-                                    block: int) -> torch.Tensor:
-    """One kernel per (slot, kv head) through the block table: requantize the
-    touched physical block in place, then attend over the mapped blocks.
+                                    block: int, launch: AttendPlan | None = None) -> torch.Tensor:
+    """One launch through the block table: requantize the touched physical
+    block in place, then attend over the mapped blocks, split over S.
 
     ``pos`` (B,) int32; ``table`` (B, S/block) int32 (-1 = unmapped); ``q``
     (B, n_kv, g, hd); ``k_new``/``v_new`` (B, n_kv, hd) in q's dtype; pools
     ``(P, n_kv, block, hd/lanes)`` int8 and scales ``(P, n_kv, 1, 1)`` f32,
     WRITTEN IN PLACE at every slot's mapped touched block (an unmapped one
     is left alone); ``mask`` (B, S) f32 additive.  Returns (B, n_kv, g, hd) f32.
+    ``launch`` as in :func:`quant_kv_decode_step_cuda`.
     """
     b, n_kv, g, _ = q.shape
     nb = table.shape[1]
     dev = q.device
     _check_hd("quant_kv_decode_step_paged", hd, nb * block, block)
+    csize = _split("quant_kv_decode_step_paged", nb * block, block, launch)
     code = _build.dtype_code(q, "quant_kv_decode_step_paged")
     _build.require(q, "q", shape=(b, n_kv, g, hd))
     _build.require(pos, "pos", dtype=torch.int32, shape=(b,), device=dev)
@@ -194,7 +296,7 @@ def quant_kv_decode_step_paged_cuda(pos, table, q, k_new, v_new, k_pool, k_scale
     rc = _build.lib().rq_quant_kv_decode_step_paged(
         pos.data_ptr(), table.data_ptr(), q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_pool.data_ptr(), k_scale.data_ptr(), v_pool.data_ptr(), v_scale.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), b, n_kv, g, nb, hd, block, k_bits, v_bits, code,
+        mask.data_ptr(), out.data_ptr(), b, n_kv, g, nb, hd, block, k_bits, v_bits, csize, code,
         _build.stream_of(q))
     LAUNCHES["quant_kv_decode_step_paged"] += 1
     _build.check(rc, "quant_kv_decode_step_paged")
@@ -202,15 +304,16 @@ def quant_kv_decode_step_paged_cuda(pos, table, q, k_new, v_new, k_pool, k_scale
 
 
 def quant_kv_attention_paged_cuda(table, q, k_pool, k_scale, v_pool, v_scale, mask, *,
-                                  k_bits: int, v_bits: int, hd: int,
-                                  block: int) -> torch.Tensor:
-    """One kernel per (slot, kv head): attention over the table-mapped blocks
-    (unmapped entries read as zero levels at scale 1e-12).  Shapes as
-    :func:`quant_kv_decode_step_paged_cuda`; nothing is written."""
+                                  k_bits: int, v_bits: int, hd: int, block: int,
+                                  launch: AttendPlan | None = None) -> torch.Tensor:
+    """One launch: attention over the table-mapped blocks (unmapped entries
+    read as zero levels at scale 1e-12), split over S.  Shapes and
+    ``launch`` as :func:`quant_kv_decode_step_paged_cuda`; nothing is written."""
     b, n_kv, g, _ = q.shape
     nb = table.shape[1]
     dev = q.device
     _check_hd("quant_kv_attention_paged", hd, nb * block, block)
+    csize = _split("quant_kv_attention_paged", nb * block, block, launch)
     code = _build.dtype_code(q, "quant_kv_attention_paged")
     _build.require(q, "q", shape=(b, n_kv, g, hd))
     _build.require(table, "table", dtype=torch.int32, shape=(b, nb), device=dev)
@@ -221,7 +324,7 @@ def quant_kv_attention_paged_cuda(table, q, k_pool, k_scale, v_pool, v_scale, ma
     rc = _build.lib().rq_quant_kv_attention_paged(
         table.data_ptr(), q.data_ptr(), k_pool.data_ptr(), k_scale.data_ptr(),
         v_pool.data_ptr(), v_scale.data_ptr(), mask.data_ptr(), out.data_ptr(), b, n_kv, g,
-        nb, hd, block, k_bits, v_bits, code, _build.stream_of(q))
+        nb, hd, block, k_bits, v_bits, csize, code, _build.stream_of(q))
     LAUNCHES["quant_kv_attention_paged"] += 1
     _build.check(rc, "quant_kv_attention_paged")
     return out

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.kernels import PLAIN_CALLS
+from repro_torch.kernels.quant_kv.kernel import CHUNK, TILE
 from repro_torch.kernels.quant_matmul.ref import dequant_matmul
 from repro_torch.kvcache.cache import QuantizedKVLayer, append_side, append_token
 from repro_torch.kvcache.paged import append_token_paged, to_dense
@@ -156,3 +157,96 @@ def quant_kv_decode_step_paged_ref(q: torch.Tensor, layer, pos, k_new, v_new,
     PLAIN_CALLS["quant_kv_decode_step_paged"] += 1
     append_token_paged(layer, pos, k_new, v_new)
     return _attend_dense(q, to_dense(layer), kv_valid, out_dtype), layer
+
+
+# ---------------------------------------------------------------------------
+# the CUDA attention body's arithmetic, for the tests
+# ---------------------------------------------------------------------------
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``fmaf(a, b, c)``: the product is exact in f64, then one rounding
+    to f64 and one to f32 (a double rounding that differs from ``fmaf`` only
+    at rare ties)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _warp_sum(x: torch.Tensor) -> torch.Tensor:
+    """``common.cuh`` warp_sum over the last axis (32 lanes): the xor
+    butterfly, lane 0's total."""
+    lanes = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        x = x + x[..., lanes ^ off]
+    return x[..., 0]
+
+
+def _fold(state, part):
+    """``quant_kv.cuh`` fold_chunk: the running (M, L, O) and one chunk's
+    partial (m, l, acc); an empty chunk (m = -inf) adds nothing."""
+    big_m, big_l, big_o = state
+    m, l, acc = part
+    mn = torch.maximum(big_m, m)
+    a, b = torch.exp(big_m - mn), torch.exp(m - mn)
+    keep = m != -math.inf
+    return (torch.where(keep, mn, big_m),
+            torch.where(keep, _fma(big_l, a, l * b), big_l),
+            torch.where(keep[..., None], _fma(big_o, a[..., None], acc * b[..., None]), big_o))
+
+
+def attend_mirror(q: torch.Tensor, layer, kv_valid: torch.Tensor) -> torch.Tensor:
+    """A CPU mirror of ``csrc/quant_kv.cuh`` ``attend``, for the tests (uncounted).
+
+    ``q`` (B, hq, hd); ``layer`` dense or paged (read through ``to_dense``);
+    ``kv_valid`` (B, S) bool.  Returns (B, hq, hd) f32.  The kernel's
+    arithmetic in its order: K and V dequantized as level * scale; S cut into
+    chunks of ``CHUNK`` positions, each a fresh online softmax over
+    ``TILE``-position tiles (a tile with no valid position skipped unless the
+    slot has none; scores a sequential fused dot product, times hd^-0.5 plus
+    the mask in one fma, exp sums by the warp's butterfly; probabilities times
+    V a sequential fma chain after the rescale); the chunks' partials folded
+    in chunk order; out = O / max(L, 1e-30).  It does not depend on how the
+    kernel spreads the chunks over CTAs.
+    """
+    if not isinstance(layer, QuantizedKVLayer):
+        layer = to_dense(layer)
+    b, s, n_kv, hd = layer.shape
+    g = q.shape[1] // n_kv
+    qg = q.to(torch.float32).reshape(b, n_kv, g, hd)
+
+    def deq(packed, scale, bits):
+        lev = packing.unpack(packed, bits, hd).to(torch.float32)          # (B, H, S, hd)
+        return lev * _scale_per_pos(scale, layer.block).transpose(2, 3)
+
+    kf = deq(layer.k_packed, layer.k_scale, layer.k_bits)
+    vf = deq(layer.v_packed, layer.v_scale, layer.v_bits)
+    mask = torch.where(kv_valid, 0.0, -1e30).to(torch.float32)
+    inv_sqrt = torch.tensor(1.0) / torch.sqrt(torch.tensor(float(hd)))
+    any_valid = kv_valid.any(dim=1)
+    neg = torch.full((b, n_kv, g), -math.inf)
+    state = (neg, torch.zeros((b, n_kv, g)), torch.zeros((b, n_kv, g, hd)))
+    for c0 in range(0, s, CHUNK):
+        m, l, acc = neg, torch.zeros((b, n_kv, g)), torch.zeros((b, n_kv, g, hd))
+        for t0 in range(c0, min(c0 + CHUNK, s), TILE):
+            t1 = min(t0 + TILE, s)
+            live = (kv_valid[:, t0:t1].any(dim=1) | ~any_valid)[:, None, None]     # (B, 1, 1)
+            if not bool(live.any()):
+                continue
+            kt, vt = kf[:, :, t0:t1], vf[:, :, t0:t1]                      # (B, H, n, hd)
+            dot = torch.zeros((b, n_kv, g, t1 - t0))
+            for c in range(hd):
+                dot = _fma(qg[..., c, None], kt[:, :, None, :, c], dot)
+            sc = _fma(dot, inv_sqrt, mask[:, None, None, t0:t1])
+            sc = torch.cat([sc, torch.full((b, n_kv, g, TILE - (t1 - t0)), -math.inf)], -1)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            e = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l_new = _fma(l, corr, _warp_sum(e))
+            a = acc * corr[..., None]
+            for t in range(t1 - t0):
+                a = _fma(e[..., t, None], vt[:, :, None, t, :], a)
+            m = torch.where(live, m_new, m)
+            l = torch.where(live, l_new, l)
+            acc = torch.where(live[..., None], a, acc)
+        state = _fold(state, (m, l, acc))
+    _, big_l, big_o = state
+    return (big_o / torch.clamp(big_l, min=1e-30)[..., None]).reshape(b, n_kv * g, hd)

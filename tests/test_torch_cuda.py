@@ -613,3 +613,178 @@ def test_f32_engine_takes_row8_and_matches_the_unfused_engine(cuda):
     for a, b in zip(*states):
         for f in ("k_packed", "k_scale", "v_packed", "v_scale"):
             assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+# -- the attention body split over S (rows 3, 4, 6, 7): cluster and walk ------
+
+#: (S, block): 32 chunks (two rounds of a 16-CTA cluster), 8 chunks in one
+#: round, and one chunk with a ragged last tile
+SPLIT_CASES = {"rounds": 2048, "one_round": 512, "one_chunk": 48}
+SPLIT_BITS = [(8, 4), (4, 2)]
+
+
+def _split_case(cuda, s, k_bits, v_bits, paged, seed):
+    """B 4, 2 kv heads of 4 queries, hd 32, block 16.  Slot 0 writes in the
+    first chunk, slot 1 at the last position, slot 2 between and attends to
+    a window of 40 (for S 2048 every chunk before it empty), slot 3 is idle
+    (pos -1, nothing valid).  Paged: the dense layer's blocks copied into a
+    pool through a shuffled table; slot 3's row is unmapped.  Returns the
+    layer, pos, kv_valid, q, k_new, v_new."""
+    b, h, hq, hd, block = 4, 2, 8, 32, 16
+    nb = s // block
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    pos = torch.tensor([5, s - 1, s // 2 + 3, -1], dtype=torch.int32, device=cuda)
+    ar = torch.arange(s, device=cuda)[None, :]
+    valid = ar <= pos[:, None]
+    valid[2] &= ar[0] > pos[2] - 40
+    rows = torch.randn((2, b, s, h, hd), generator=gen, device=cuda)
+    dense = tcache.init_kv_layer(b, s, h, hd, k_bits=k_bits, v_bits=v_bits, block=block,
+                                 device=cuda)
+    dense = tcache.insert_rows(dense, torch.arange(b, device=cuda), rows[0], rows[1],
+                               valid_len=pos.clamp(min=0))
+    q = torch.randn((b, hq, hd), generator=gen, device=cuda)
+    kn, vn = (torch.randn((b, 1, h, hd), generator=gen, device=cuda) for _ in range(2))
+    if not paged:
+        return dense, pos, valid, q, kn, vn
+    layer = tpaged.init_paged_layer(3 * nb, b, s, h, hd, k_bits=k_bits, v_bits=v_bits,
+                                    block=block, device=cuda)
+    ids = (torch.randperm(3 * nb, generator=gen, device=cuda) + 1).reshape(3, nb)
+    table = torch.full((b, nb), -1, dtype=torch.int32, device=cuda)
+    table[:3] = ids.to(torch.int32)
+    layer.block_table.copy_(table)
+    for side in ("k", "v"):
+        pool, scale = getattr(layer, f"{side}_packed"), getattr(layer, f"{side}_scale")
+        src = getattr(dense, f"{side}_packed")[:3]                 # (3, H, S, hdp)
+        pool[ids.reshape(-1)] = src.reshape(3, h, nb, block, -1).transpose(1, 2).reshape(
+            3 * nb, h, block, -1)
+        scale[ids.reshape(-1)] = getattr(dense, f"{side}_scale")[:3].transpose(1, 2).reshape(
+            3 * nb, h, 1, 1)
+    return layer, pos, valid, q, kn, vn
+
+
+def _split_runs(layer, pos, valid, q, kn, vn, launch, valid_a=None):
+    """The fused step (on its own copy) and the attention alone (under
+    ``valid_a``, default ``valid``), through the wrappers with ``launch``
+    (None: the plan).  Returns (step out, the layer after it, attention out)."""
+    from repro_torch.kernels.quant_kv import kernel as kvk
+
+    paged = isinstance(layer, tpaged.PagedKVLayer)
+    b, s, n_kv, hd = layer.shape
+    qg = q.reshape(b, n_kv, -1, hd).contiguous()
+    mask = torch.where(valid, 0.0, -1e30).float()
+    mask_a = mask if valid_a is None else torch.where(valid_a, 0.0, -1e30).float()
+    kw = dict(k_bits=layer.k_bits, v_bits=layer.v_bits, hd=hd, block=layer.block)
+    lay = _copy(layer)
+    fields = [getattr(lay, f) for f in ("k_packed", "k_scale", "v_packed", "v_scale")]
+    k3, v3 = kn[:, 0].contiguous(), vn[:, 0].contiguous()
+    if paged:
+        o_s = kvk.quant_kv_decode_step_paged_cuda(
+            pos, lay.block_table, qg, k3, v3, *fields, mask, **kw,
+            launch=launch and launch("quant_kv_decode_step_paged", s, layer.block))
+        o_a = kvk.quant_kv_attention_paged_cuda(
+            layer.block_table, qg, layer.k_packed, layer.k_scale, layer.v_packed,
+            layer.v_scale, mask_a, **kw,
+            launch=launch and launch("quant_kv_attention_paged", s, layer.block))
+    else:
+        o_s = kvk.quant_kv_decode_step_cuda(
+            pos, qg, k3, v3, *fields, mask, **kw,
+            launch=launch and launch("quant_kv_decode_step", s, layer.block))
+        o_a = kvk.quant_kv_attention_cuda(
+            qg, layer.k_packed, layer.k_scale, layer.v_packed, layer.v_scale, mask_a, **kw,
+            launch=launch and launch("quant_kv_attention", s, layer.block))
+    torch.cuda.synchronize()
+    return o_s.reshape(q.shape), lay, o_a.reshape(q.shape)
+
+
+@pytest.mark.parametrize("paged", (False, True), ids=("dense", "paged"))
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+@pytest.mark.parametrize("k_bits,v_bits", SPLIT_BITS)
+def test_attend_cluster_and_walk_give_the_same_bits(cuda, case, paged, k_bits, v_bits):
+    """Each fused step and attention alone with its plan's cluster and with
+    one CTA walking the same chunks: outputs and cache bytes bit for bit.
+    S 2048 folds 32 chunks over two rounds of a 16-CTA cluster; S 48 is one
+    chunk, where the plan is one CTA already."""
+    from repro_torch.kernels.quant_kv import kernel as kvk
+
+    s = SPLIT_CASES[case]
+    base, *inputs = _split_case(cuda, s, k_bits, v_bits, paged, seed=s + k_bits)
+    valid_a = inputs[1].clone()
+    valid_a[0] = False                  # slot 0 attends to nothing valid
+    p = kvk.attend_plan("quant_kv_attention", s, base.block)
+    assert p.cluster == min(p.chunks, kvk.MAX_CLUSTER) and p.chunks == -(-s // kvk.CHUNK)
+    kernels.reset_counts()
+    o_s, lay, o_a = _split_runs(base, *inputs, launch=None, valid_a=valid_a)
+    w_s, wlay, w_a = _split_runs(base, *inputs, valid_a=valid_a,
+                                 launch=lambda *a: kvk.walk_plan(kvk.attend_plan(*a)))
+    assert torch.equal(o_s, w_s) and torch.equal(o_a, w_a)
+    for f in ("k_packed", "k_scale", "v_packed", "v_scale"):
+        assert torch.equal(getattr(lay, f), getattr(wlay, f)), f
+    step = "quant_kv_decode_step_paged" if paged else "quant_kv_decode_step"
+    assert kernels.LAUNCHES[step] == 2
+    assert kernels.LAUNCHES["quant_kv_attention_paged" if paged else "quant_kv_attention"] == 2
+
+
+@pytest.mark.parametrize("paged", (False, True), ids=("dense", "paged"))
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+@pytest.mark.parametrize("k_bits,v_bits", SPLIT_BITS)
+def test_attend_sums_as_its_mirror_and_the_touched_blocks_hold(cuda, case, paged, k_bits,
+                                                               v_bits):
+    """f32: the fused step's cache bytes and scales equal the plain step's
+    (touched blocks in the first chunk, the last and between); its output and
+    the attention alone within rel 1e-6 of ``ref.attend_mirror`` (the
+    kernel's arithmetic on the CPU), the idle slot's step output zero, and
+    the attention of a slot with data but no valid position the reference's
+    uniform softmax over all S."""
+    from repro_torch.kernels.quant_kv.ref import attend_mirror
+
+    s = SPLIT_CASES[case]
+    base, pos, valid, q, kn, vn = _split_case(cuda, s, k_bits, v_bits, paged, seed=s + v_bits)
+    valid_a = valid.clone()
+    valid_a[0] = False
+    o_s, lay, o_a = _split_runs(base, pos, valid, q, kn, vn, launch=None, valid_a=valid_a)
+    plain = _copy(base)
+    kv_ops.quant_kv_decode_step(q, plain, pos, kn, vn, valid, impl="torch")
+    for f in ("k_packed", "k_scale", "v_packed", "v_scale"):
+        x, y = getattr(lay, f), getattr(plain, f)
+        if paged:          # block 0 is the trash block, written by the plain version only
+            x, y = x[1:], y[1:]
+        assert torch.equal(x, y), f
+
+    def cpu(layer):
+        return dataclasses.replace(layer, **{f: getattr(layer, f).cpu() for f in (
+            "k_packed", "k_scale", "v_packed", "v_scale", *(("block_table",) if paged else ()))})
+
+    live = pos >= 0
+    m_s = attend_mirror(q.cpu(), cpu(lay), valid.cpu())
+    m_a = attend_mirror(q.cpu(), cpu(base), valid_a.cpu())
+    assert _rel(o_s[live].cpu(), m_s[live.cpu()]) <= 1e-6
+    assert _rel(o_a.cpu(), m_a) <= 1e-6
+    assert torch.equal(o_s[~live], torch.zeros_like(o_s[~live]))
+    assert float(o_a[0].abs().max()) > 0
+
+
+@pytest.mark.parametrize("paged", (False, True), ids=("dense", "paged"))
+@pytest.mark.parametrize("mode", ("cluster", "walk"))
+def test_attend_idle_slots_write_nothing(cuda, paged, mode):
+    """A slot at pos -1, one at pos S and (paged) one whose touched entry is
+    unmapped: the fused step leaves their cache rows (their pool blocks, and
+    block 0) as they were, and the first two read zeros."""
+    from repro_torch.kernels.quant_kv import kernel as kvk
+
+    s = 512
+    base, pos, valid, q, kn, vn = _split_case(cuda, s, 8, 4, paged, seed=7)
+    pos = torch.tensor([-1, s, 100, 200], dtype=torch.int32, device=cuda)
+    if paged:
+        base.block_table[3, 200 // base.block] = -1
+    walk = (lambda *a: kvk.walk_plan(kvk.attend_plan(*a))) if mode == "walk" else None
+    o_s, lay, _ = _split_runs(base, pos, valid, q, kn, vn, launch=walk)
+    assert torch.equal(o_s[:2], torch.zeros_like(o_s[:2]))
+    fields = ("k_packed", "k_scale", "v_packed", "v_scale")
+    if paged:
+        touched = {int(base.block_table[2, 100 // base.block])}
+        keep = [i for i in range(base.k_packed.shape[0]) if i not in touched]
+        for f in fields:
+            assert torch.equal(getattr(lay, f)[keep], getattr(base, f)[keep]), f
+    else:
+        for f in fields:
+            assert torch.equal(getattr(lay, f)[:2], getattr(base, f)[:2]), f

@@ -45,7 +45,8 @@ def test_every_submodule_imports_without_jax():
     assert res.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "tools").glob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_package_imports(path):
     assert path.exists(), path
