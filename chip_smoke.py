@@ -16,13 +16,19 @@ the last line is not the ``ok`` line:
      kernels on a shuffled block pool (pool bytes exact, the fused paged
      step bitwise equal to append-then-attend and to the dense step on the
      same contents), with CUDA-event medians of the kernel, the plain
-     version and one library call; the dense append where phase 6's
-     commit runs it (8 slots over 1024 positions, a masked slot, rows at
-     and past the cache's end), bytes exact after every burst position;
-     the tensor-core GEMM swept over M 32, 128, 256 and 2560 at 4, 6 and 8
-     bits (warm and L2-cold, against torch.matmul on the dequantized
-     weights, with its ptxas registers and shared memory, and the host's
-     time a call at M 128), and where the plan has one CTA walk the K
+     version and one library call (rows 3-7 and 9 also their device time
+     back to back); the burst append where phase 6's commit runs it, dense
+     (8 slots over 1024 positions, a masked slot, rows past the cache's
+     end, a block edge) and paged, bytes exact against the same kernel one
+     position at a time and the plain version, timed there for rows 5 and
+     9's entries in the kernels line (a call, the plain version and the
+     bound of the touched blocks' bytes); the GEMV against its mirror
+     at bits 2-8, M 1-8, ragged shapes, its bits the same at every M and N,
+     and swept over M 1, 4 and 8 at 4, 6 and 8 bits (warm and L2-cold,
+     against torch.matmul); the tensor-core GEMM swept over M 32, 128, 256
+     and 2560 at 4, 6 and 8 bits (warm and L2-cold, against torch.matmul on
+     the dequantized weights, with its ptxas registers and shared memory,
+     and the host's time a call at M 128), and where the plan has one CTA walk the K
      ranges, that plan against a cluster of CTAs (bit-equal, both timed);
      the quantized-KV attention split over S (rows 3, 4, 6, 7) with its
      plan's cluster against one CTA walking the same chunks, dense at S 512
@@ -136,12 +142,12 @@ PG = dict(B=8, n_kv=1, g=8, hd=256, S=1024, block=16, pool=512)
 #: write positions on block edges and between; slot 6 is idle (its table row all -1)
 PG_POS = (15, 16, 255, 256, 1000, 1023, 500, 600)
 PG_IDLE = 6
-#: phase 6's dense commit replay: 8 slots over max_seq 1024 at K 8 / V 4
+#: phase 6's commit replay (the burst append): 8 slots over max_seq 1024 at K 8 / V 4
 SPEC_KV = dict(B=8, n_kv=1, g=8, hd=256, S=1024, block=16)
 #: each slot's burst start (burst index j writes at start + j) and accepted
-#: count; slot 7 accepts nothing (pos -1 at every j) and slots 5 and 6 run
-#: past S, as idle slots at stale positions do
-SPEC_START = (264, 487, 509, 764, 1015, 1021, 1023, 700)
+#: count; slot 2 crosses a block edge, slot 7 accepts nothing and slots 5 and
+#: 6 run past S, as idle slots at stale positions do
+SPEC_START = (264, 487, 510, 764, 1015, 1021, 1023, 700)
 SPEC_ACC = (3, 0, 2, 1, 3, 3, 3, -1)
 #: row 8 (the projection-fused step): gemma-2b's head geometry with d cut to 512,
 #: the widest the kernel's gate admits; write positions on block edges and at S
@@ -423,6 +429,153 @@ def sweep_gemm(torch, gen, aside) -> None:
                     f"{tot['host_new']:.4f}), torch.matmul {tot['host_lib']:.4f}")
         del qts
     del flush
+
+
+#: check_gemv: (N, K) of wqkv, w_down and ragged shapes (K 1000: rows not
+#: 16-byte aligned, byte loads; K 2080: a short last range; N 2561 and 300:
+#: a part tile)
+GEMV_CHECK = ((2560, 2048), (2048, 16384), (2561, 1000), (300, 2080))
+
+
+def check_gemv(torch, results: dict) -> None:
+    """Row 1's arithmetic on the card: the kernel against its mirror
+    (``ref.quant_gemv_mirror``: the plan's K ranges, each summed exactly and
+    added in f32 in order, scale last) and its plain version at bits 2, 4, 6,
+    8, M 1-8, f32 and bf16, at GEMV_CHECK's shapes: f32 within rel 1e-5 of
+    the mirror, bf16 within one bf16 step of it at 99.9 % of outputs or more,
+    both within the family tolerance of the plain version (f32 1e-4, bf16
+    2e-2).  And a channel's bits do not depend on M (rows 0..M-1 of one x
+    against all 8) or N (the first 1000 channels alone).  Its own generator."""
+    from repro_torch.kernels.quant_gemv.kernel import plan, quant_gemv_cuda
+    from repro_torch.kernels.quant_gemv.ref import quant_gemv_mirror, quant_gemv_ref
+    from repro_torch.quant.tensor import quantize_tensor
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for n, k in GEMV_CHECK:
+        for bits in (2, 4, 6, 8):
+            qt = quantize_tensor(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5,
+                                 bits)
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn((8, k), generator=gen, device="cuda").to(dt)
+                y8 = quant_gemv_cuda(x, qt.packed, qt.scale, bits=bits, k=k)
+                for m in (1, 4, 8):
+                    got = y8 if m == 8 else quant_gemv_cuda(x[:m], qt.packed, qt.scale, bits=bits,
+                                                            k=k)
+                    if not torch.equal(got, y8[:m]):
+                        raise AssertionError(f"GEMV N={n} K={k} bits={bits} {dt}: M={m} moves "
+                                             f"the bits of its rows")
+                    want = quant_gemv_ref(x[:m], qt.packed, qt.scale, bits, k)
+                    err = rel(got, want)
+                    if not err <= tol[dt]:
+                        raise AssertionError(f"GEMV N={n} K={k} bits={bits} M={m} {dt}: rel "
+                                             f"{err:.3g} against the plain version")
+                    results["quant_gemv"]["max_abs_err"] = max(
+                        results["quant_gemv"]["max_abs_err"],
+                        float((got.float() - want.float()).abs().max()))
+                n1 = min(n, 1000)
+                part = quant_gemv_cuda(x, qt.packed[:n1].contiguous(),
+                                       qt.scale.reshape(-1)[:n1].contiguous(), bits=bits, k=k)
+                if not torch.equal(part, y8[:, :n1]):
+                    raise AssertionError(f"GEMV N={n} K={k} bits={bits} {dt}: N moves the bits")
+                mir = quant_gemv_mirror(x, qt.packed, qt.scale, bits, k).float()
+                got = y8.float()
+                if dt is torch.float32:
+                    err = rel(got, mir)
+                    if not err <= 1e-5:
+                        raise AssertionError(f"GEMV N={n} K={k} bits={bits} f32: rel {err:.3g} "
+                                             f"against its mirror")
+                else:
+                    step = torch.exp2(torch.floor(torch.log2(mir.abs().clamp_min(1e-30))) - 7)
+                    err = float(((got - mir).abs() > step).float().mean())
+                    if not err <= 1e-3:
+                        raise AssertionError(f"GEMV N={n} K={k} bits={bits} bf16: {100 * err:.3f} "
+                                             f"% of outputs more than one bf16 step from its "
+                                             f"mirror")
+                worst[dt] = max(worst[dt], err)
+                del x, y8, part, mir, got, want
+            del qt
+        log(f"  ok GEMV N={n} K={k} (splits {plan(8, n, k).splits}, ranges "
+            f"{plan(8, n, k).k_ranges()[:2]}...): bits 2-8, M 1-8, f32 and bf16 within the "
+            f"family tolerance of the plain version, the same bits whatever M and N")
+    log(f"  ok GEMV against its mirror: f32 rel <= {worst[torch.float32]:.2e} (limit 1e-5), "
+        f"bf16 {100 * worst[torch.bfloat16]:.3f} % of outputs beyond one bf16 step (limit 0.1 %)")
+
+
+#: sweep_gemv: the decode batches (1 slot, the dense engine's 4, the fleet's 8) at
+#: the policy's widths, bf16 x, and f32 x at the dense engine's batch
+SWEEP_GEMV = [(bits, m, "bf16") for bits in SWEEP_BITS for m in GEMV_MS] + [
+    (bits, SERVE_M, "f32") for bits in SWEEP_BITS]
+
+
+def sweep_gemv(torch, seed: int = SEED + 2, cases=None, check: bool = True) -> dict:
+    """The GEMV at the decode batches (M 1, 4, 8) x 4, 6 and 8 bits, bf16 x
+    (and f32 x at M 4), summed over one gemma-2b layer's four fused linears:
+    the kernel's device time back to back (``time_batch``) and with L2
+    flushed before each call (``time_cold``: a layer's packed weights, 55 MB
+    at 4 bits, exceed the 50 MB L2, as a decode step finds them), and
+    torch.matmul on the dequantized weights in x's type the same two ways,
+    against the bound.  Its own generator, so no other check's inputs move.
+    ``cases`` (keys "bits/M/dtype") limits the sweep; ``check=False`` skips
+    the comparison with the plain version (for timing-only variants).  Returns
+    ``{"bits/M/dtype": {kernel, cold, lib, lib_cold, bound, bound_by,
+    linears: {name: kernel}}}``."""
+    from repro_torch.kernels.quant_gemv.kernel import quant_gemv_cuda
+    from repro_torch.kernels.quant_gemv.ref import quant_gemv_ref
+    from repro_torch.quant.tensor import quantize_tensor
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    out = {}
+    for bits in SWEEP_BITS:
+        qts = {}
+        for name, (n, k) in LINEARS.items():
+            qt = quantize_tensor(torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5,
+                                 bits)
+            if cases and not any(c.startswith(f"{bits}/") for c in cases):
+                continue
+            qts[name] = (qt.packed, qt.scale, {d: qt.dequantize(dt).T.contiguous()
+                                               for d, dt in dts.items()})
+            del qt
+        for b, m, dname in SWEEP_GEMV:
+            if b != bits or (cases and f"{bits}/{m}/{dname}" not in cases):
+                continue
+            dt = dts[dname]
+            tot = dict(kernel=0.0, cold=0.0, lib=0.0, lib_cold=0.0, bytes=0.0, flops=0.0)
+            each = {}
+            for name, (n, k) in LINEARS.items():
+                packed, scale, wd = qts[name]
+                x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+                run = lambda: quant_gemv_cuda(x, packed, scale, bits=bits, k=k)  # noqa: E731
+                lib_mm = lambda: torch.matmul(x, wd[dname].T)                   # noqa: E731
+                err = rel(run(), quant_gemv_ref(x, packed, scale, bits, k)) if check else 0.0
+                if not err <= (1e-4 if dname == "f32" else 2e-2):
+                    raise AssertionError(f"GEMV sweep {name} bits={bits} M={m} {dname}: "
+                                         f"rel {err:.3g}")
+                t = dict(kernel=time_batch(torch, run, reps=20),
+                         cold=time_cold(torch, run, flush),
+                         lib=time_batch(torch, lib_mm, reps=20),
+                         lib_cold=time_cold(torch, lib_mm, flush))
+                act = x.element_size()
+                nbytes = packed.numel() + 4 * n + act * (m * k + m * n)
+                for key, val in (*t.items(), ("bytes", nbytes), ("flops", 2.0 * m * n * k)):
+                    tot[key] += val
+                each[name] = t["kernel"]
+                del x
+            b_ms, b_by = bound(tot["bytes"], tot["flops"])
+            out[f"{bits}/{m}/{dname}"] = dict(
+                kernel=tot["kernel"], cold=tot["cold"], lib=tot["lib"], lib_cold=tot["lib_cold"],
+                bound=b_ms, bound_by=b_by, linears=each)
+            log(f"  GEMV four linears bits={bits} M={m} {dname}: kernel {tot['kernel']:.4f} ms "
+                f"back to back, {tot['cold']:.4f} cold; torch.matmul {tot['lib']:.4f}, "
+                f"{tot['lib_cold']:.4f} cold; bound {b_ms:.4f} ms ({b_by}), "
+                f"{100 * b_ms / tot['kernel']:.1f} % of it back to back; by linear "
+                + ", ".join(f"{nm} {v:.4f}" for nm, v in each.items()))
+        del qts
+    del flush
+    return out
 
 
 def compare_split_modes(torch, gen) -> None:
@@ -805,8 +958,8 @@ def check_decode_step_proj(torch, gen, results: dict) -> None:
 
 
 def _dense_bytes(torch, layer, pos, hq: int, act: int) -> tuple[float, float, float]:
-    """Bytes the dense attention and ONE side's append (the K side) must move,
-    by ``_paged_bytes``' rules, and the attention's operations: the attention
+    """Bytes the dense attention and the append (both sides) must move, by
+    ``_paged_bytes``' rules, and the attention's operations: the attention
     reads the rows each slot attends to (positions 0..pos) and their blocks'
     scales, bf16 q and output and the validity at one byte a position; the
     append reads the touched block's rows before the write offset, its scale
@@ -821,8 +974,9 @@ def _dense_bytes(torch, layer, pos, hq: int, act: int) -> tuple[float, float, fl
     nblk = sum(x // blk + 1 for x in p)
     attn = (n_kv * (npos * (hdp[layer.k_bits] + hdp[layer.v_bits]) + 8 * nblk)
             + 2 * b * hq * hd * act + b * s)
-    append = n_kv * (sum(x % blk for x in p) * hdp[layer.k_bits]
-                     + b * (4 + hd * act + blk * hdp[layer.k_bits] + 4)) + 4 * b
+    append = sum(n_kv * (sum(x % blk for x in p) * hdp[bits] + b * (4 + hd * act + blk * hdp[bits]
+                                                                      + 4))
+                 for bits in (layer.k_bits, layer.v_bits)) + 4 * b
     return attn, append, 4.0 * hq * hd * npos
 
 
@@ -834,7 +988,6 @@ def check_dense_halves(torch, base, q, kn, vn, pos, valid, k_bits, v_bits, dt, r
     from repro_torch.kernels.quant_kv import kernel as kv_kernel
     from repro_torch.kernels.quant_kv import ops as kv_ops
     from repro_torch.kernels.quant_kv import ref as kv_ref
-    from repro_torch.kvcache.cache import append_side
 
     c = KV
     fields = ("k_packed", "k_scale", "v_packed", "v_scale")
@@ -879,7 +1032,6 @@ def check_dense_halves(torch, base, q, kn, vn, pos, valid, k_bits, v_bits, dt, r
     hq = q.shape[1]
     qg = q.reshape(c["B"], c["n_kv"], c["g"], c["hd"])
     mask = torch.where(valid, 0.0, -1e30).float()
-    k3 = kn[:, 0].contiguous()
     kd, vd = fused.dequantize(dt)                                  # (B, S, H, hd)
     kd = kd.transpose(1, 2).repeat_interleave(c["g"], dim=1)
     vd = vd.transpose(1, 2).repeat_interleave(c["g"], dim=1)
@@ -898,40 +1050,123 @@ def check_dense_halves(torch, base, q, kn, vn, pos, valid, k_bits, v_bits, dt, r
           time_ms(torch, run_l))
     device = {"quant_kv_attention": (time_batch(torch, run4, reps=20),
                                      time_batch(torch, run_l, reps=20))}
-    # one side (K) of the append: one launch; the plain side is the same
-    # requantize of ref.py's append on that side alone
-    t5 = (time_ms(torch, lambda: kv_kernel.quant_kv_append_cuda(
-              pos, k3, fused.k_packed, fused.k_scale, bits=k_bits, hd=c["hd"],
-              block=c["block"])),
-          time_ms(torch, lambda: append_side(plain.k_packed, plain.k_scale, k3.float(), pos,
-                                             k_bits, c["hd"], c["block"])),
-          None)
+    # one decode append (the burst kernel at J = 1), both sides in one
+    # launch, against ref.py's append; rows 5 and 9's entries in the kernels
+    # line are the burst's, where phase 6 launches it (check_burst)
+    zero, k1, v1 = torch.zeros_like(pos), kn.contiguous(), vn.contiguous()
+
+    def run5():
+        kv_kernel.quant_kv_append_burst_cuda(pos, zero, k1, v1, fused.k_packed, fused.k_scale,
+                                             fused.v_packed, fused.v_scale, k_bits=k_bits,
+                                             v_bits=v_bits, hd=c["hd"], block=c["block"])
+
+    t5 = (time_ms(torch, run5), time_ms(torch, lambda: kv_ref.quant_kv_append_ref(plain, pos, kn,
+                                                                                 vn)), None)
+    device["quant_kv_append"] = (time_batch(torch, run5, reps=20),)
     attn_b, append_b, flops = _dense_bytes(torch, fused, pos, hq, q.element_size())
     for name, (t_k, t_p, t_l), nbytes, fl in (("quant_kv_attention", t4, attn_b, flops),
                                               ("quant_kv_append", t5, append_b, 0.0)):
         b_ms, b_by = bound(nbytes, fl)
         lib = "none" if t_l is None else f"{t_l:.4f} ms"
-        dev = ("; device time back to back: kernel {:.4f} ms  sdpa {:.4f} ms".format(*device[name])
-               if name in device else "")
+        dev = "; device time back to back: kernel {:.4f} ms".format(device[name][0])
+        if len(device[name]) > 1:
+            dev += "  sdpa {:.4f} ms".format(device[name][1])
         log(f"  {name} k{k_bits}/v{v_bits} B={c['B']} S={c['S']} hd={c['hd']} g={c['g']} "
             f"bf16: kernel {t_k:.4f} ms  plain {t_p:.4f} ms  sdpa {lib}  "
             f"bound {b_ms:.6f} ms ({b_by}){dev}")
-        if (k_bits, v_bits) == (8, 4):                  # the serving phases' state bits
-            results[name].update(ms=t_k, plain_ms=t_p, library_ms=t_l, bytes=nbytes, flops=fl)
+    if (k_bits, v_bits) == (8, 4):                      # the serving phases' state bits
+        results["quant_kv_attention"].update(ms=t4[0], plain_ms=t4[1], library_ms=t4[2],
+                                             bytes=attn_b, flops=flops)
     del kd, vd
 
 
-def check_dense_replay(torch, gen, results: dict) -> None:
-    """Kernel 5 where phase 6's dense commit runs it: ``spec.loop._masked_append``
-    as ``commit_state`` calls it, over 8 slots of max_seq 1024 at K 8 / V 4,
-    with bf16 rows sliced from a (B, K+1, H, hd) burst.  After every burst
-    position the bytes and scales equal the plain path's exactly; at the
-    end every block the accepted positions in [0, S) do not touch, the
-    masked slot's included, is as before; the attention over the result is
-    within rel 1e-4 of its plain version."""
+def _burst_paths(torch, base, start, acc, kb, vb):
+    """The burst appended three ways from copies of ``base``: the burst kernel
+    (one launch), the same kernel one position at a time (J = 1, the slots
+    past their ``acc`` masked by ``acc`` -1: the commit's launches before the
+    burst) and the plain version.  Returns the three layers and the two
+    kernel paths' device times back to back (ms)."""
+    from repro_torch.kernels.quant_kv import ops as kv_ops
+
+    def burst(lay, impl):
+        kv_ops.quant_kv_append_burst(lay, start, acc, kb, vb, impl=impl)
+
+    def sequential(lay):
+        for j in range(kb.shape[1]):
+            kv_ops.quant_kv_append_burst(lay, start + j, torch.where(j <= acc, 0, -1),
+                                         kb[:, j:j + 1], vb[:, j:j + 1], impl="cuda")
+
+    lb, ls, lp = _clone(base), _clone(base), _clone(base)
+    burst(lb, "cuda")
+    sequential(ls)
+    burst(lp, "torch")
+    torch.cuda.synchronize()
+    scratch, plain = _clone(base), _clone(base)
+    times = dict(device=time_batch(torch, lambda: burst(scratch, "cuda"), reps=20),
+                 sequential=time_batch(torch, lambda: sequential(scratch), reps=20),
+                 ms=time_ms(torch, lambda: burst(scratch, "cuda")),
+                 plain_ms=time_ms(torch, lambda: burst(plain, "torch")))
+    return lb, ls, lp, times
+
+
+def _burst_bytes(layer, start, acc, j_len: int, act: int) -> float:
+    """Bytes one layer's burst append must move, both sides: for every block
+    the accepted positions touch (inside [0, S), and mapped where the layer
+    is paged), its rows before the first of them and its scale read, the
+    block and its scale written, and its table entry read where paged; the
+    accepted positions' new rows read; ``start`` and ``acc`` read."""
+    from repro_torch.core.packing import LANES
+    from repro_torch.kvcache.paged import PagedKVLayer
+
+    paged = isinstance(layer, PagedKVLayer)
+    b, s, n_kv, hd = layer.shape
+    blk = layer.block
+    hdp = [-(-hd // LANES[bits]) for bits in (layer.k_bits, layer.v_bits)]
+    table = layer.block_table.tolist() if paged else None
+    total = 8.0 * b
+    for i, (p0, a) in enumerate(zip(start.tolist(), acc.tolist())):
+        ps = [p for p in range(p0, p0 + min(a, j_len - 1) + 1)
+              if 0 <= p < s and not (paged and table[i][p // blk] < 0)]
+        first = {}                        # touched block -> its first write offset
+        for p in ps:
+            first.setdefault(p // blk, p % blk)
+        for w in hdp:
+            total += n_kv * (sum(off * w + 8 + blk * w for off in first.values())
+                             + len(ps) * hd * act)
+        total += 4 * len(first) if paged else 0
+    return total
+
+
+def _record_burst(results: dict, name: str, layer, start, acc, j_len: int, act: int,
+                  times: dict) -> str:
+    """Rows 5 and 9's entries in the kernels line: the burst append as phase
+    6's commit launches it, one layer, bf16 rows.  Returns the bound's text."""
+    nbytes = _burst_bytes(layer, start, acc, j_len, act)
+    results[name].update(ms=times["ms"], plain_ms=times["plain_ms"], library_ms=None,
+                         bytes=nbytes, flops=0.0)
+    b_ms, _ = bound(nbytes, 0.0)
+    return (f"call {times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, bound {b_ms:.6f} ms "
+            f"(bytes); device time back to back {times['device']:.4f} ms, "
+            f"{times['sequential']:.4f} one position at a time")
+
+
+def check_burst(torch, gen, results: dict) -> None:
+    """The speculative commit's burst append (rows 5 and 9's kernels, one
+    launch a layer) where phase 6 runs it: dense over 8 slots of max_seq 1024
+    at K 8 / V 4 with bf16 rows of a (B, K+1, H, hd) burst (slot 2 crosses a
+    block edge, slots 4-6 run past S, slot 7 accepts nothing), and paged on
+    phase 2's shuffled pool with the bursts' next blocks mapped (slots 0 and
+    2 cross a block edge, slot 6 is idle).  Bytes and scales exactly equal to
+    the kernel run one position at a time and to the plain version (paged:
+    blocks 1..P-1); every block the accepted positions do not touch, the
+    masked slots' included, as before; the dense attention over the result
+    within rel 1e-4 of its plain version.  Device time of one layer's burst
+    against the positions one at a time, and rows 5 and 9's entries in the
+    kernels line: the burst's call and plain times and the bound of the
+    bytes it must move.  (Slots 5 and 6 run past S in the dense case
+    only.)"""
     from repro_torch.kernels.quant_kv import ops as kv_ops
     from repro_torch.kvcache.cache import init_kv_layer, insert_rows
-    from repro_torch.spec.loop import _masked_append
 
     c = SPEC_KV
     b, h, hd, s, blk = c["B"], c["n_kv"], c["hd"], c["S"], c["block"]
@@ -945,45 +1180,81 @@ def check_dense_replay(torch, gen, results: dict) -> None:
     before = insert_rows(layer, torch.arange(b, device="cuda"), k, v, valid_len=start.long())
     kb = torch.randn((b, SPEC_K + 1, h, hd), generator=gen, device="cuda").to(dt)
     vb = torch.randn((b, SPEC_K + 1, h, hd), generator=gen, device="cuda").to(dt)
-    la, lp = _clone(before), _clone(before)
+    lb, ls, lp, t_dense = _burst_paths(torch, before, start, acc, kb, vb)
+    dense_line = _record_burst(results, "quant_kv_append", before, start, acc, kb.shape[1],
+                               kb.element_size(), t_dense)
     r5 = results["quant_kv_append"]
-    for j in range(SPEC_K + 1):
-        mask = j <= acc
-        for lay, impl in ((la, "cuda"), (lp, "torch")):
-            _masked_append(lay, start + j, kb[:, j:j + 1], vb[:, j:j + 1], mask, impl)
-        torch.cuda.synchronize()
-        for f in fields:
-            x, y = getattr(la, f), getattr(lp, f)
-            r5["max_abs_err"] = max(r5["max_abs_err"], float((x.float() - y.float()).abs().max()))
-            if not torch.equal(x, y):
-                raise AssertionError(f"dense replay, burst index {j}: {f} differs from the "
-                                     f"plain version in {int((x != y).sum())} entries")
+    for f in fields:
+        x, y, z = getattr(lb, f), getattr(ls, f), getattr(lp, f)
+        r5["max_abs_err"] = max(r5["max_abs_err"], float((x.float() - z.float()).abs().max()))
+        if not (torch.equal(x, y) and torch.equal(x, z)):
+            raise AssertionError(f"dense burst: {f} differs from the positions one at a time "
+                                 f"in {int((x != y).sum())} entries, from the plain version in "
+                                 f"{int((x != z).sum())}")
     touched = torch.zeros((b, s // blk), dtype=torch.bool, device="cuda")
     for i, (p0, a) in enumerate(zip(SPEC_START, SPEC_ACC)):
         for p in range(p0, p0 + a + 1):
             if p < s:
                 touched[i, p // blk] = True
     for f in fields:
-        x, y = getattr(la, f), getattr(before, f)
+        x, y = getattr(lb, f), getattr(before, f)
         x, y = x.reshape(b, h, s // blk, -1), y.reshape(b, h, s // blk, -1)
         if not torch.equal(x.transpose(1, 2)[~touched], y.transpose(1, 2)[~touched]):
-            raise AssertionError(f"dense replay wrote {f} outside the accepted positions' "
-                                 f"blocks")
+            raise AssertionError(f"dense burst wrote {f} outside the accepted positions' blocks")
     valid = (torch.arange(s, device="cuda")[None, :]
              <= (start + acc).clamp(max=s - 1)[:, None].long())
     q = torch.randn((b, h * c["g"], hd), generator=gen, device="cuda").to(dt)
-    o_c = kv_ops.quant_kv_attention(q, la, valid, impl="cuda", out_dtype=torch.float32)
-    o_p = kv_ops.quant_kv_attention(q, la, valid, impl="torch", out_dtype=torch.float32)
+    o_c = kv_ops.quant_kv_attention(q, lb, valid, impl="cuda", out_dtype=torch.float32)
+    o_p = kv_ops.quant_kv_attention(q, lb, valid, impl="torch", out_dtype=torch.float32)
     torch.cuda.synchronize()
     err = rel(o_c, o_p)
     r4 = results["quant_kv_attention"]
     r4["max_abs_err"] = max(r4["max_abs_err"], float((o_c - o_p).abs().max()))
     if not err <= 1e-4:
         raise AssertionError(f"dense attention at phase 6's shapes: rel {err:.3g}")
-    log(f"  ok dense commit replay at phase 6's shapes (B={b} S={s} hd={hd} k8/v4 bf16, "
-        f"starts {SPEC_START}, accepted {SPEC_ACC}): bytes and scales exact after each of "
-        f"{SPEC_K + 1} burst positions, slot 7 (pos -1) and every block outside the accepted "
-        f"positions untouched, nothing written at pos >= S; attention rel {err:.2e}")
+    log(f"  ok dense burst at phase 6's shapes (B={b} S={s} hd={hd} k8/v4 bf16, starts "
+        f"{SPEC_START}, accepted {SPEC_ACC}): bytes and scales equal to the positions one at a "
+        f"time and to the plain version, nothing outside the accepted positions' blocks "
+        f"written; attention rel {err:.2e}; one layer's burst: {dense_line}")
+    # paged: phase 2's pool from its own generator (no later check's inputs
+    # move), the next block of every burst that leaves its block mapped
+    pgen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    base = _paged_layer(torch, pgen, 8, 4)
+    pc = PG
+    tbl = base.block_table.clone()
+    free = sorted(set(range(1, pc["pool"])) - set(tbl[tbl >= 0].tolist()))
+    pstart = torch.tensor(PG_POS, dtype=torch.int32, device="cuda")
+    pacc = torch.tensor(SPEC_ACC, device="cuda").clone()
+    pacc[5] = 0        # slot 5 sits at S - 1: paged bursts shrink before max_seq
+    for i, (p0, a) in enumerate(zip(PG_POS, pacc.tolist())):
+        if i == PG_IDLE:
+            continue
+        for p in range(p0, min(p0 + a + 1, pc["S"])):
+            if tbl[i, p // pc["block"]] < 0:
+                tbl[i, p // pc["block"]] = free.pop()
+    base.block_table.copy_(tbl)
+    kb = torch.randn((pc["B"], SPEC_K + 1, pc["n_kv"], pc["hd"]), generator=pgen,
+                     device="cuda").to(dt)
+    vb = torch.randn((pc["B"], SPEC_K + 1, pc["n_kv"], pc["hd"]), generator=pgen,
+                     device="cuda").to(dt)
+    lb, ls, lp, t_paged = _burst_paths(torch, base, pstart, pacc, kb, vb)
+    paged_line = _record_burst(results, "quant_kv_append_paged", base, pstart, pacc,
+                               kb.shape[1], kb.element_size(), t_paged)
+    r9 = results["quant_kv_append_paged"]
+    for f in fields:
+        x, y, z = getattr(lb, f), getattr(ls, f), getattr(lp, f)
+        r9["max_abs_err"] = max(r9["max_abs_err"],
+                                float((x[1:].float() - z[1:].float()).abs().max()))
+        if not (torch.equal(x, y) and torch.equal(x[1:], z[1:])):
+            raise AssertionError(f"paged burst: {f} differs from the positions one at a time "
+                                 f"in {int((x != y).sum())} entries, from the plain version in "
+                                 f"{int((x[1:] != z[1:]).sum())} (blocks 1..P-1)")
+        if not torch.equal(x[0], getattr(base, f)[0]):
+            raise AssertionError(f"paged burst wrote {f} into the trash block")
+    log(f"  ok paged burst on phase 2's pool (starts {PG_POS}, accepted {pacc.tolist()}, slot "
+        f"{PG_IDLE} idle): pool bytes and scales equal to the positions one at a time "
+        f"(everywhere) and to the plain version (blocks 1..P-1); one layer's burst: "
+        f"{paged_line}")
 
 
 def _paged_layer(torch, gen, k_bits, v_bits):
@@ -1156,11 +1427,11 @@ def time_paged(torch, layer, q, kn, vn, pos, valid, k_bits, v_bits, dt, results)
     t_lib = time_ms(torch, lambda: sdpa(q[:, :, None, :], kd, vd,
                                         attn_mask=valid[:, None, None, :]))
 
-    def append_both():
-        kv_kernel.quant_kv_append_paged_cuda(pos, tbl, k3, layer.k_packed, layer.k_scale,
-                                             bits=k_bits, hd=c["hd"], block=c["block"])
-        kv_kernel.quant_kv_append_paged_cuda(pos, tbl, v3, layer.v_packed, layer.v_scale,
-                                             bits=v_bits, hd=c["hd"], block=c["block"])
+    zero = torch.zeros_like(pos)
+    k1, v1 = kn.contiguous(), vn.contiguous()
+
+    def append_both():          # one decode append: the burst kernel at J = 1
+        kv_kernel.quant_kv_append_burst_paged_cuda(pos, zero, tbl, k1, v1, *pool, **kw)
 
     def run7():
         return kv_kernel.quant_kv_decode_step_paged_cuda(pos, tbl, qg, k3, v3, *pool, mask, **kw)
@@ -1171,7 +1442,8 @@ def time_paged(torch, layer, q, kn, vn, pos, valid, k_bits, v_bits, dt, results)
     d_lib = time_batch(torch, lambda: sdpa(q[:, :, None, :], kd, vd,
                                            attn_mask=valid[:, None, None, :]), reps=20)
     device = {"quant_kv_decode_step_paged": (time_batch(torch, run7, reps=20), d_lib),
-              "quant_kv_attention_paged": (time_batch(torch, run6, reps=20), d_lib)}
+              "quant_kv_attention_paged": (time_batch(torch, run6, reps=20), d_lib),
+              "quant_kv_append_paged": (time_batch(torch, append_both, reps=20),)}
     times = {
         "quant_kv_decode_step_paged": (
             time_ms(torch, run7),
@@ -1193,12 +1465,14 @@ def time_paged(torch, layer, q, kn, vn, pos, valid, k_bits, v_bits, dt, results)
         nbytes, fl = sizes[name]
         b_ms, b_by = bound(nbytes, fl)
         lib = "none" if t_l is None else f"{t_l:.4f} ms"
-        dev = ("; device time back to back: kernel {:.4f} ms  sdpa {:.4f} ms".format(*device[name])
-               if name in device else "")
+        dev = "; device time back to back: kernel {:.4f} ms".format(device[name][0])
+        if len(device[name]) > 1:
+            dev += "  sdpa {:.4f} ms".format(device[name][1])
         log(f"  {name} k{k_bits}/v{v_bits} B={c['B']} S={c['S']} hd={c['hd']} g={c['g']} "
             f"bf16: kernel {t_k:.4f} ms  plain {t_p:.4f} ms  sdpa {lib}  "
             f"bound {b_ms:.5f} ms ({b_by}){dev}")
-        if (k_bits, v_bits) == (8, 4):                  # the serving phase's state bits
+        # row 9's entry is the burst's, where phase 6 launches it (check_burst)
+        if (k_bits, v_bits) == (8, 4) and name != "quant_kv_append_paged":
             results[name].update(ms=t_k, plain_ms=t_p, library_ms=t_l, bytes=nbytes, flops=fl)
     del kd, vd
 
@@ -1705,8 +1979,9 @@ def spec_launches(cfg, st, paged: bool) -> dict:
     """Launches a run's structure predicts: a decode step is 4 fused linears
     (GEMV) and one decode step kernel per layer; a speculative round at K
     is K such draft steps, one verify (4 GEMMs per layer, one decode step
-    kernel per layer and burst position) and K+1 two-sided replays of the
-    append per layer; an admission is 4 GEMMs per layer."""
+    kernel per layer and burst position) and one burst append per layer (the
+    commit's replay of the accepted positions, both sides); an admission is
+    4 GEMMs per layer."""
     from repro_torch import kernels
 
     n = cfg.n_layers
@@ -1718,7 +1993,7 @@ def spec_launches(cfg, st, paged: bool) -> dict:
     out["quant_matmul"] = 4 * n * (st["admissions"] + rounds)
     out["quant_gemv"] = 4 * n * (plain_steps + SPEC_K * rounds)
     out[step] = n * (plain_steps + (2 * SPEC_K + 1) * rounds)
-    out[append] = 2 * n * (SPEC_K + 1) * rounds
+    out[append] = n * rounds
     return out
 
 
@@ -2369,11 +2644,13 @@ def main() -> int:
     aside = torch.Generator(device="cuda").manual_seed(SEED + 1)
     log("== 2. kernels against their plain versions")
     check_linears(torch, gen, results)
+    check_gemv(torch, results)
     sweep_gemm(torch, gen, aside)
+    sweep_gemv(torch)
     compare_split_modes(torch, aside)
     compare_attend_modes(torch, aside)
     check_decode_step(torch, gen, results)
-    check_dense_replay(torch, gen, results)
+    check_burst(torch, gen, results)
     check_paged(torch, gen, results)
     check_decode_step_proj(torch, gen, results)
     cfg = configs.get_config(ARCH)

@@ -61,25 +61,27 @@ static_assert(kChunk % kTile == 0, "a tile never straddles two chunks");
 static_assert(kTile % kWarps == 0, "every warp loads whole rows of a tile");
 
 struct KvSmem {
-  float *q, *acc, *tot, *kf, *vf, *rq, *p, *mk, *m, *l, *corr, *tm, *tl, *red;
+  float *q, *acc, *tot, *kf, *vf, *p, *mk, *m, *l, *corr, *tm, *tl, *red;
   uint8_t *kblk, *vblk;
 };
 
-// The dequantized K and V tiles; requant_side's f32 block shares their room
-// (it is done before the first tile is loaded).
-__host__ __device__ inline size_t kv_work_floats(int hd, int block) {
-  const size_t tiles = (size_t)kTile * (hd + 1) + (size_t)kTile * hd;
-  const size_t blk = (size_t)block * hd;
-  return tiles > blk ? tiles : blk;
+// The dequantized K and V tiles.
+__host__ __device__ inline size_t kv_work_floats(int hd) {
+  return (size_t)kTile * (hd + 1) + (size_t)kTile * hd;
 }
 
-__host__ __device__ inline size_t kv_smem_floats(int g, int hd, int block) {
-  return 3 * (size_t)g * hd + kv_work_floats(hd, block) + (size_t)g * kTile + kChunk +
-         5 * (size_t)g + kRed;
+__host__ __device__ inline size_t round16(size_t bytes) { return (bytes + 15) / 16 * 16; }
+
+__host__ __device__ inline size_t kv_smem_floats(int g, int hd) {
+  return 3 * (size_t)g * hd + kv_work_floats(hd) + (size_t)g * kTile + kChunk + 5 * (size_t)g +
+         kRed;
 }
 
+// The floats, then the touched blocks' packed copies, each 16-byte aligned
+// (requantize_kv stores them a vector at a time).
 __host__ __device__ inline size_t kv_smem_bytes(int g, int hd, int block, int hdp_k, int hdp_v) {
-  return kv_smem_floats(g, hd, block) * sizeof(float) + (size_t)block * (hdp_k + hdp_v);
+  return round16(kv_smem_floats(g, hd) * sizeof(float)) + round16((size_t)block * hdp_k) +
+         (size_t)block * hdp_v;
 }
 
 __device__ inline KvSmem carve_kv_smem(float* smem, int g, int hd, int block, int hdp_k) {
@@ -89,8 +91,7 @@ __device__ inline KvSmem carve_kv_smem(float* smem, int g, int hd, int block, in
   sm.tot = sm.acc + g * hd;
   sm.kf = sm.tot + g * hd;
   sm.vf = sm.kf + kTile * (hd + 1);
-  sm.rq = sm.kf;
-  sm.p = sm.kf + kv_work_floats(hd, block);
+  sm.p = sm.kf + kv_work_floats(hd);
   sm.mk = sm.p + g * kTile;
   sm.m = sm.mk + kChunk;
   sm.l = sm.m + g;
@@ -98,25 +99,9 @@ __device__ inline KvSmem carve_kv_smem(float* smem, int g, int hd, int block, in
   sm.tm = sm.corr + g;
   sm.tl = sm.tm + g;
   sm.red = sm.tl + g;
-  sm.kblk = reinterpret_cast<uint8_t*>(sm.red + kRed);
-  sm.vblk = sm.kblk + block * hdp_k;
+  sm.kblk = reinterpret_cast<uint8_t*>(smem) + round16(kv_smem_floats(g, hd) * sizeof(float));
+  sm.vblk = sm.kblk + round16((size_t)block * hdp_k);
   return sm;
-}
-
-__device__ __forceinline__ float block_max(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_max(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
-    t = warp_max(t);
-    if (lane == 0) red[0] = t;
-  }
-  __syncthreads();
-  const float out = red[0];
-  __syncthreads();
-  return out;
 }
 
 // Packed rows of one (slot, head) in the dense cache: words (S, wpr), one
@@ -248,49 +233,263 @@ __device__ __forceinline__ void store_tile(const Rows& krows, const Rows& vrows,
   }
 }
 
-// Requantize one side's touched block in place: base points at its block x
-// hdp packed bytes and sc_ptr at its scale.  Rows before off are kept, row
-// off is new_row, rows past it are zeroed; the bytes must equal the plain
-// version's bit for bit, so: rintf (half to even), IEEE divisions for both
-// amax / qmax and x / scale (no fast math), common.cuh's lane layout.  A
-// copy of the new block goes to blk_out.  Returns the new scale.
+// The requantization of a touched block (one side: K or V), the plain
+// version's arithmetic: rows before the write offset `off` dequantized as
+// level * old scale, row off the new row, rows past it zero; the new scale
+// amax / qmax and the levels rintf(x / scale) (half to even) clamped to
+// +-qmax, both divisions IEEE (__fdiv_rn), in common.cuh's lane layout, so
+// the bytes equal the plain version's bit for bit.
+//
+// The block (block x hd values, hd % 16 == 0) is cut into groups of 16
+// consecutive values of one row, 16 / lanes packed bytes each; group i is
+// thread i's (then i + blockDim.x, ...), at most kReqGroups a thread.  A
+// thread loads each of its groups' old bytes with one vector load, keeps
+// them in registers (`raw`), and unpacks, requantizes and packs them there,
+// with one division by hd a group and none a value; the block's amax is
+// one warp shuffle reduction and one shared-memory exchange, for K and V at
+// once where both sides are requantized.  The same thread owns the same
+// groups at every step, so a burst (quant_kv_append_burst) keeps a block's
+// bytes in `raw` from one position to the next.
+constexpr int kReqGroups = 4;                       // block * hd <= 16384 values
+constexpr int kReqValues = 16;                      // values of a group
+
+__host__ __device__ inline bool bad_req_block(int hd, int block, int threads) {
+  return (size_t)block * hd > (size_t)kReqGroups * kReqValues * threads;
+}
+
+// Levels of a group's packed words (container bits cb: 2, 4 or 8), in order.
+__device__ __forceinline__ void unpack_group(const uint32_t (&w)[4], int cb, float (&lev)[16]) {
+  if (cb == 8) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) lev[e] = (float)word_lane(w[e >> 2], 8, e & 3);
+  } else if (cb == 4) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) lev[e] = (float)word_lane(w[e >> 3], 4, e & 7);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) lev[e] = (float)word_lane(w[0], 2, e);
+  }
+}
+
+// A group's levels packed into words (common.cuh's layout: value e at byte
+// e / lanes, field e % lanes, low bits first).
+__device__ __forceinline__ void pack_group(const int (&t)[16], int cb, uint32_t (&w)[4]) {
+  w[0] = w[1] = w[2] = w[3] = 0u;
+  if (cb == 8) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) w[e >> 2] |= (uint32_t)(t[e] & 0xFF) << (8 * (e & 3));
+  } else if (cb == 4) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) w[e >> 3] |= (uint32_t)(t[e] & 0xF) << (4 * (e & 7));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) w[0] |= (uint32_t)(t[e] & 0x3) << (2 * e);
+  }
+}
+
 template <typename T>
-__device__ float requant_side(uint8_t* __restrict__ base, float* __restrict__ sc_ptr,
-                              const T* __restrict__ new_row, uint8_t* __restrict__ blk_out,
-                              int bits, int hd, int block, int off, float* rq, float* red) {
-  const int lanes = lanes_of(bits);
-  const int hdp = (hd + lanes - 1) / lanes;
-  const float sc_old = *sc_ptr;
-  float local = 0.f;
-  for (int i = threadIdx.x; i < block * hd; i += blockDim.x) {
-    const int r = i / hd, c = i % hd;
-    float v = 0.f;
+struct BlockSide {
+  uint32_t raw[kReqGroups][4];   // the thread's groups' packed bytes (16 / lanes a group)
+  int bits;
+  float amax;
+
+  __device__ __forceinline__ int cb() const { return 8 / lanes_of(bits); }
+
+  // group i's 16 / lanes bytes at src into raw[j], or raw[j] to dst
+  __device__ __forceinline__ void read(const uint8_t* src, int i, int j) {
+    const int nb = 2 * cb();
+    const uint8_t* p = src + (size_t)i * nb;
+    if (nb == 16) {
+      const uint4 t = *reinterpret_cast<const uint4*>(p);
+      raw[j][0] = t.x; raw[j][1] = t.y; raw[j][2] = t.z; raw[j][3] = t.w;
+    } else if (nb == 8) {
+      const uint2 t = *reinterpret_cast<const uint2*>(p);
+      raw[j][0] = t.x; raw[j][1] = t.y;
+    } else {
+      raw[j][0] = *reinterpret_cast<const uint32_t*>(p);
+    }
+  }
+  __device__ __forceinline__ void write(uint8_t* dst, int i, int j) const {
+    const int nb = 2 * cb();
+    uint8_t* p = dst + (size_t)i * nb;
+    if (nb == 16)
+      *reinterpret_cast<uint4*>(p) = make_uint4(raw[j][0], raw[j][1], raw[j][2], raw[j][3]);
+    else if (nb == 8) *reinterpret_cast<uint2*>(p) = make_uint2(raw[j][0], raw[j][1]);
+    else *reinterpret_cast<uint32_t*>(p) = raw[j][0];
+  }
+
+  // Group j's values before the requantization (row r, columns c0..c0+15).
+  __device__ __forceinline__ void values(int j, int r, int c0, int off, float sc_old,
+                                         const T* __restrict__ new_row, float (&v)[16]) const {
     if (r < off) {
-      v = (float)unpack_lane(base[r * hdp + c / lanes], bits, c % lanes) * sc_old;
-    } else if (r == off) {
-      v = to_f(new_row[c]);
+      unpack_group(raw[j], cb(), v);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) v[e] = v[e] * sc_old;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) v[e] = r == off ? to_f(new_row[c0 + e]) : 0.f;
     }
-    rq[i] = v;
-    local = fmaxf(local, fabsf(v));
   }
-  const float amax = block_max(local, red);  // also orders the reads above before the writes below
-  const float qm = (float)((1 << (bits - 1)) - 1);
-  const float sc = __fdiv_rn(fmaxf(amax, 1e-12f), qm);
-  for (int i = threadIdx.x; i < block * hdp; i += blockDim.x) {
-    const int r = i / hdp, j = i % hdp;
-    uint32_t word = 0;
-    for (int l = 0; l < lanes; ++l) {
-      const int c = j * lanes + l;
-      if (c >= hd) break;
-      const float t = fminf(fmaxf(rintf(__fdiv_rn(rq[r * hd + c], sc)), -qm), qm);
-      word |= pack_field((int)t, bits, l);
+
+  // The old bytes of the thread's groups that lie before row off, into raw:
+  // every load in flight before any is used.
+  __device__ void fetch(const uint8_t* src, int hd, int block, int off) {
+    const int per_row = hd / kReqValues, n = block * per_row;
+#pragma unroll
+    for (int j = 0; j < kReqGroups; ++j) {
+      const int i = threadIdx.x + j * blockDim.x;
+      if (i < n && i / per_row < off) read(src, i, j);
     }
-    blk_out[i] = (uint8_t)word;
-    base[r * hdp + j] = (uint8_t)word;
   }
-  if (threadIdx.x == 0) *sc_ptr = sc;
+
+  // Pass 1: the largest |value| over the thread's groups, from the bytes in
+  // raw (fetch, or the previous position of a burst).
+  __device__ void scan(int hd, int block, int off, float sc_old, const T* __restrict__ new_row) {
+    const int per_row = hd / kReqValues, n = block * per_row;
+    amax = 0.f;
+#pragma unroll
+    for (int j = 0; j < kReqGroups; ++j) {
+      const int i = threadIdx.x + j * blockDim.x;
+      if (i >= n) break;
+      const int r = i / per_row, c0 = (i - r * per_row) * kReqValues;
+      float v[16];
+      values(j, r, c0, off, sc_old, new_row, v);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) amax = fmaxf(amax, fabsf(v[e]));
+    }
+  }
+
+  // Pass 2: requantize at scale sc into raw, and write the groups to dst
+  // and to dst2 (each where not null).
+  __device__ void requantize(float sc, int hd, int block, int off, float sc_old,
+                             const T* __restrict__ new_row, uint8_t* dst, uint8_t* dst2) {
+    const int per_row = hd / kReqValues, n = block * per_row;
+    const float qm = (float)((1 << (bits - 1)) - 1);
+#pragma unroll
+    for (int j = 0; j < kReqGroups; ++j) {
+      const int i = threadIdx.x + j * blockDim.x;
+      if (i >= n) break;
+      const int r = i / per_row, c0 = (i - r * per_row) * kReqValues;
+      float v[16];
+      values(j, r, c0, off, sc_old, new_row, v);
+      int t[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) t[e] = (int)fminf(fmaxf(rintf(__fdiv_rn(v[e], sc)), -qm), qm);
+      pack_group(t, cb(), raw[j]);
+      if (dst) write(dst, i, j);
+      if (dst2) write(dst2, i, j);
+    }
+  }
+
+  // The thread's groups' bytes to dst (a block the burst leaves).
+  __device__ void store_all(uint8_t* dst, int hd, int block) const {
+    const int n = block * (hd / kReqValues);
+#pragma unroll
+    for (int j = 0; j < kReqGroups; ++j) {
+      const int i = threadIdx.x + j * blockDim.x;
+      if (i < n) write(dst, i, j);
+    }
+  }
+};
+
+// The new scale of a block whose largest |value| is amax.
+__device__ __forceinline__ float req_scale(float amax, int bits) {
+  return __fdiv_rn(fmaxf(amax, 1e-12f), (float)((1 << (bits - 1)) - 1));
+}
+
+// Block-wide max of a and b at once: one shuffle reduction each and one
+// exchange through red (2 * warps floats, which the caller must not reuse
+// before a further __syncthreads).
+__device__ __forceinline__ void block_max2(float& a, float& b, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  a = warp_max(a);
+  b = warp_max(b);
+  if (lane == 0) {
+    red[warp] = a;
+    red[nw + warp] = b;
+  }
   __syncthreads();
-  return sc;
+  a = red[0];
+  b = red[nw];
+  for (int w = 1; w < nw; ++w) {
+    a = fmaxf(a, red[w]);
+    b = fmaxf(b, red[nw + w]);
+  }
+}
+
+// Requantize the K and V blocks touched at offset off in place (kbase /
+// vbase their packed bytes, ksc_ptr / vsc_ptr their scales) with the new
+// rows inserted, copies of the new blocks to kblk / vblk (shared memory,
+// 16-byte aligned) for the attention; the new scales into ksc / vsc.
+template <typename T>
+__device__ void requantize_kv(uint8_t* kbase, float* ksc_ptr, const T* __restrict__ knew,
+                              uint8_t* kblk, int k_bits, uint8_t* vbase, float* vsc_ptr,
+                              const T* __restrict__ vnew, uint8_t* vblk, int v_bits, int hd,
+                              int block, int off, float* red, float& ksc, float& vsc) {
+  BlockSide<T> k, v;
+  k.bits = k_bits;
+  v.bits = v_bits;
+  const float kold = *ksc_ptr, vold = *vsc_ptr;
+  k.fetch(kbase, hd, block, off);   // both sides' loads in flight together
+  v.fetch(vbase, hd, block, off);
+  k.scan(hd, block, off, kold, knew);
+  v.scan(hd, block, off, vold, vnew);
+  float ka = k.amax, va = v.amax;
+  block_max2(ka, va, red);   // also orders every read above before the writes below
+  ksc = req_scale(ka, k_bits);
+  vsc = req_scale(va, v_bits);
+  k.requantize(ksc, hd, block, off, kold, knew, kbase, kblk);
+  v.requantize(vsc, hd, block, off, vold, vnew, vbase, vblk);
+  if (threadIdx.x == 0) {
+    *ksc_ptr = ksc;
+    *vsc_ptr = vsc;
+  }
+  __syncthreads();
+}
+
+// The burst append of one (head, slot, side): positions start + j for j =
+// 0 .. min(acc, J - 1), row j at rows + j * row_stride, each requantizing
+// the bytes the previous one left.  block_of(p, base, sc) finds p's packed
+// block and its scale (false: p writes nothing).  The block being written
+// stays in registers (BlockSide's raw) and goes back to the cache when the
+// burst moves on and at the end; nothing else reads it meanwhile.
+template <typename T, typename Locate>
+__device__ void append_burst(const T* __restrict__ rows, size_t row_stride, int start, int acc,
+                             int J, int bits, int hd, int block, float* red, Locate block_of) {
+  BlockSide<T> blk;
+  blk.bits = bits;
+  uint8_t* cur = nullptr;      // the block held in registers
+  float* cur_sc = nullptr;
+  float sc = 0.f;
+  int calls = 0;
+  for (int j = 0; j < J && j <= acc; ++j) {
+    const int p = start + j;
+    uint8_t* base;
+    float* sc_ptr;
+    if (!block_of(p, base, sc_ptr)) continue;   // block-uniform
+    if (base != cur) {
+      if (cur) {
+        blk.store_all(cur, hd, block);
+        if (threadIdx.x == 0) *cur_sc = sc;
+      }
+      blk.fetch(base, hd, block, p % block);   // positions only grow within a block
+      sc = *sc_ptr;
+      cur = base;
+      cur_sc = sc_ptr;
+    }
+    const T* row = rows + (size_t)j * row_stride;
+    const int off = p % block;
+    blk.scan(hd, block, off, sc, row);
+    float a = blk.amax, unused = 0.f;
+    block_max2(a, unused, red + (calls++ & 1) * kRed);   // halves alternate: no reuse race
+    const float ns = req_scale(a, bits);
+    blk.requantize(ns, hd, block, off, sc, row, nullptr, nullptr);
+    sc = ns;
+  }
+  if (cur) {
+    blk.store_all(cur, hd, block);
+    if (threadIdx.x == 0) *cur_sc = sc;
+  }
 }
 
 // One chunk's partial into sm.m, sm.l, sm.acc: a fresh online softmax over
@@ -544,17 +743,12 @@ __device__ __forceinline__ bool holds_position(int p, int rank, int csize) {
   return (p / kChunk) % csize == rank;
 }
 
-// Dynamic shared memory of an append kernel: the reduction scratch, the
-// block in f32 and one packed copy of it.
-inline size_t append_smem_bytes(int hd, int block, int bits) {
-  return ((size_t)kRed + (size_t)block * hd) * sizeof(float) +
-         (size_t)block * (hd / lanes_of(bits));
-}
 
 inline bool bad_kv_bits(int bits) { return bits != 2 && bits != 4 && bits != 6 && bits != 8; }
 
-// The attention bodies read packed rows as 4-byte words.
-inline bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) & 3; }
+// The attention bodies read packed rows as 4-byte words, the requantization
+// a touched block's groups as vectors of up to 16 bytes.
+inline bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) & 15; }
 
 // Raise the kernel's dynamic shared-memory limit, then launch it.
 template <typename Kernel, typename... Args>

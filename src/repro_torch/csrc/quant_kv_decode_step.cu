@@ -16,7 +16,7 @@
 //    "walk"); kernels/quant_kv/kernel.py's attend_plan picks csize by shape,
 //    and both give the same bits.  gemma-2b's MQA at max_seq 1024 and 8
 //    slots: 8 clusters of 16.
-//  * Requantize first (requant_side), in the one CTA whose chunks hold pos:
+//  * Requantize first (requantize_kv), in the one CTA whose chunks hold pos:
 //    the new block and its scale are WRITTEN INTO THE CACHE IN PLACE (this
 //    replaces the Pallas path's ops.place_block scatter) and a copy of the
 //    block stays in that CTA's shared memory, from which it attends to
@@ -40,7 +40,7 @@ quant_kv_decode_step_kernel(const int* __restrict__ pos, const T* __restrict__ q
                             int8_t* k_packed, float* k_scale, int8_t* v_packed, float* v_scale,
                             const float* __restrict__ mask, float* __restrict__ out,
                             int n_kv, int g, int S, int hd, int block, int k_bits, int v_bits) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int rank = blockIdx.x, csize = gridDim.x;
   const int h = blockIdx.y, b = blockIdx.z, bh = b * n_kv + h;
   const int nb = S / block;
@@ -63,10 +63,9 @@ quant_kv_decode_step_kernel(const int* __restrict__ pos, const T* __restrict__ q
   if (holds_position(p, rank, csize)) {  // block-uniform
     bidx = p / block;
     const int off = p % block;
-    ksc = requant_side(kp + (size_t)bidx * block * hdp_k, ks + bidx, k_new + (size_t)bh * hd,
-                       sm.kblk, k_bits, hd, block, off, sm.rq, sm.red);
-    vsc = requant_side(vp + (size_t)bidx * block * hdp_v, vs + bidx, v_new + (size_t)bh * hd,
-                       sm.vblk, v_bits, hd, block, off, sm.rq, sm.red);
+    requantize_kv(kp + (size_t)bidx * block * hdp_k, ks + bidx, k_new + (size_t)bh * hd,
+                  sm.kblk, k_bits, vp + (size_t)bidx * block * hdp_v, vs + bidx,
+                  v_new + (size_t)bh * hd, sm.vblk, v_bits, hd, block, off, sm.red, ksc, vsc);
   }
   const DenseRows krows{reinterpret_cast<const uint32_t*>(kp), ks, hdp_k / 4, block};
   const DenseRows vrows{reinterpret_cast<const uint32_t*>(vp), vs, hdp_v / 4, block};
@@ -104,8 +103,8 @@ extern "C" int rq_quant_kv_decode_step(const void* pos, const void* q, const voi
                                        void* stream) {
   if (B < 1 || n_kv < 1 || g < 1 || hd < 16 || hd % 16 || block < 1 || S % block ||
       rq::bad_kv_bits(k_bits) || rq::bad_kv_bits(v_bits) ||
-      rq::bad_split(csize, S, block, true) || rq::misaligned(k_packed) ||
-      rq::misaligned(v_packed))
+      rq::bad_split(csize, S, block, true) || rq::bad_req_block(hd, block, rq::kKvThreads) ||
+      rq::misaligned(k_packed) || rq::misaligned(v_packed))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rq::kF32)

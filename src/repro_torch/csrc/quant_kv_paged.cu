@@ -7,8 +7,8 @@
 //                                   pallas_call at :568)
 //   quant_kv_attention_paged     <- quant_kv_attention_paged_pallas (:237,
 //                                   pallas_call at :285)
-//   quant_kv_append_paged        <- quant_kv_append_paged_pallas (:737,
-//                                   pallas_call at :772)
+//   quant_kv_append_burst_paged  <- quant_kv_append_paged_pallas (:737,
+//                                   pallas_call at :772), a burst of calls
 //
 // Bound on the H100: bytes.  The packed K and V rows of the mapped blocks a
 // slot attends to, their scales and the table rows are read once, the
@@ -37,7 +37,11 @@
 //    read the bytes this one rewrites; within the slot only the CTA whose
 //    chunks hold pos requantizes the block and reads it, from its
 //    shared-memory copy, and only where the table maps it.
-//  * The appends keep one block per (head, slot).
+//  * The append is the dense burst append through the table (one CTA per
+//    head, slot and side, both sides in one launch; one decode append is a
+//    burst of one position): a position whose entry is unmapped writes
+//    nothing, and positions may move from one physical block to the next
+//    anywhere in the pool.
 #include "quant_kv.cuh"
 
 namespace rq {
@@ -51,7 +55,7 @@ quant_kv_decode_step_paged_kernel(const int* __restrict__ pos, const int* __rest
                                   const float* __restrict__ mask, float* __restrict__ out,
                                   int n_kv, int g, int nb, int hd, int block, int k_bits,
                                   int v_bits) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int rank = blockIdx.x, csize = gridDim.x;
   const int h = blockIdx.y, b = blockIdx.z, bh = b * n_kv + h;
   const int S = nb * block;
@@ -71,12 +75,10 @@ quant_kv_decode_step_paged_kernel(const int* __restrict__ pos, const int* __rest
   if (e >= 0 && holds_position(p, rank, csize)) {  // block-uniform
     const size_t blk = (size_t)e * n_kv + h;
     const int off = p % block;
-    ksc = requant_side(reinterpret_cast<uint8_t*>(k_pool) + blk * block * hdp_k, k_scale + blk,
-                       k_new + (size_t)bh * hd, sm.kblk, k_bits, hd, block, off, sm.rq,
-                       sm.red);
-    vsc = requant_side(reinterpret_cast<uint8_t*>(v_pool) + blk * block * hdp_v, v_scale + blk,
-                       v_new + (size_t)bh * hd, sm.vblk, v_bits, hd, block, off, sm.rq,
-                       sm.red);
+    requantize_kv(reinterpret_cast<uint8_t*>(k_pool) + blk * block * hdp_k, k_scale + blk,
+                  k_new + (size_t)bh * hd, sm.kblk, k_bits,
+                  reinterpret_cast<uint8_t*>(v_pool) + blk * block * hdp_v, v_scale + blk,
+                  v_new + (size_t)bh * hd, sm.vblk, v_bits, hd, block, off, sm.red, ksc, vsc);
     bidx = p / block;
   }
   const PagedRows krows{reinterpret_cast<const uint32_t*>(k_pool), k_scale, trow, n_kv, h,
@@ -97,7 +99,7 @@ quant_kv_attention_paged_kernel(const int* __restrict__ table, const T* __restri
                                 const float* __restrict__ mask, float* __restrict__ out,
                                 int n_kv, int g, int nb, int hd, int block, int k_bits,
                                 int v_bits) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int h = blockIdx.y, b = blockIdx.z, bh = b * n_kv + h;
   const int lk = lanes_of(k_bits), lv = lanes_of(v_bits);
   const KvSmem sm = carve_kv_smem(smem, g, hd, block, hd / lk);
@@ -113,23 +115,29 @@ quant_kv_attention_paged_kernel(const int* __restrict__ table, const T* __restri
 
 template <typename T>
 __global__ void __launch_bounds__(kKvThreads)
-quant_kv_append_paged_kernel(const int* __restrict__ pos, const int* __restrict__ table,
-                             const T* __restrict__ new_rows, int8_t* pool, float* scale, int H,
-                             int nb, int hd, int block, int bits) {
-  extern __shared__ float smem[];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int p = pos[b];
-  if (p < 0 || p >= nb * block) return;
-  const int e = table[(size_t)b * nb + p / block];
-  if (e < 0) return;  // idle slot: nothing to write (see the note above)
-  float* red = smem;
-  float* rq = red + kRed;
-  uint8_t* blk_copy = reinterpret_cast<uint8_t*>(rq + block * hd);
-  const size_t blk = (size_t)e * H + h;
+quant_kv_append_burst_paged_kernel(const int* __restrict__ start, const int* __restrict__ acc,
+                                   const int* __restrict__ table, const T* __restrict__ k_burst,
+                                   const T* __restrict__ v_burst, int8_t* k_pool,
+                                   float* k_scale, int8_t* v_pool, float* v_scale, int H,
+                                   int nb, int hd, int block, int k_bits, int v_bits, int J) {
+  __shared__ float red[2 * kRed];
+  const int h = blockIdx.x, b = blockIdx.y, side = blockIdx.z;
+  const int bits = side ? v_bits : k_bits;
   const int hdp = hd / lanes_of(bits);
-  requant_side(reinterpret_cast<uint8_t*>(pool) + blk * block * hdp, scale + blk,
-               new_rows + ((size_t)b * H + h) * hd, blk_copy, bits, hd, block, p % block, rq,
-               red);
+  uint8_t* pool = reinterpret_cast<uint8_t*>(side ? v_pool : k_pool);
+  float* scale = side ? v_scale : k_scale;
+  const int* trow = table + (size_t)b * nb;
+  const T* rows = (side ? v_burst : k_burst) + ((size_t)b * J * H + h) * hd;
+  append_burst(rows, (size_t)H * hd, start[b], acc[b], J, bits, hd, block, red,
+               [&](int p, uint8_t*& base, float*& sc) {
+                 if (p < 0 || p >= nb * block) return false;
+                 const int e = trow[p / block];
+                 if (e < 0) return false;   // unmapped: nothing to write
+                 const size_t blk = (size_t)e * H + h;
+                 base = pool + blk * block * hdp;
+                 sc = scale + blk;
+                 return true;
+               });
 }
 
 template <typename T>
@@ -164,14 +172,19 @@ cudaError_t launch_attention_paged(const void* table, const void* q, const void*
 }
 
 template <typename T>
-cudaError_t launch_append_paged(const void* pos, const void* table, const void* new_rows,
-                                void* pool, void* scale, int B, int H, int nb, int hd, int block,
-                                int bits, cudaStream_t stream) {
-  return launch_kv(quant_kv_append_paged_kernel<T>, dim3((unsigned)H, (unsigned)B),
-                   append_smem_bytes(hd, block, bits), stream, static_cast<const int*>(pos),
-                   static_cast<const int*>(table), static_cast<const T*>(new_rows),
-                   static_cast<int8_t*>(pool), static_cast<float*>(scale), H, nb, hd, block,
-                   bits);
+cudaError_t launch_append_burst_paged(const void* start, const void* acc, const void* table,
+                                      const void* k_burst, const void* v_burst, void* k_pool,
+                                      void* k_scale, void* v_pool, void* v_scale, int B, int H,
+                                      int nb, int hd, int block, int k_bits, int v_bits, int J,
+                                      cudaStream_t stream) {
+  quant_kv_append_burst_paged_kernel<T>
+      <<<dim3((unsigned)H, (unsigned)B, 2), kKvThreads, 0, stream>>>(
+          static_cast<const int*>(start), static_cast<const int*>(acc),
+          static_cast<const int*>(table), static_cast<const T*>(k_burst),
+          static_cast<const T*>(v_burst), static_cast<int8_t*>(k_pool),
+          static_cast<float*>(k_scale), static_cast<int8_t*>(v_pool),
+          static_cast<float*>(v_scale), H, nb, hd, block, k_bits, v_bits, J);
+  return cudaGetLastError();
 }
 
 inline bool bad_paged_shape(int B, int n_kv, int nb, int hd, int block) {
@@ -193,7 +206,8 @@ extern "C" int rq_quant_kv_decode_step_paged(const void* pos, const void* table,
                                              int csize, int dtype, void* stream) {
   if (rq::bad_paged_shape(B, n_kv, nb, hd, block) || g < 1 || rq::bad_kv_bits(k_bits) ||
       rq::bad_kv_bits(v_bits) || rq::bad_split(csize, nb * block, block, true) ||
-      rq::misaligned(k_pool) || rq::misaligned(v_pool))
+      rq::bad_req_block(hd, block, rq::kKvThreads) || rq::misaligned(k_pool) ||
+      rq::misaligned(v_pool))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rq::kF32)
@@ -231,20 +245,28 @@ extern "C" int rq_quant_kv_attention_paged(const void* table, const void* q, con
   return (int)cudaErrorInvalidValue;
 }
 
-// One side's append: pos (B,) i32; table (B, nb) i32; new_rows (B, H, hd);
-// pool (P, H, block, hdp) int8 and scale (P, H) f32, written in place.
-extern "C" int rq_quant_kv_append_paged(const void* pos, const void* table,
-                                        const void* new_rows, void* pool, void* scale, int B,
-                                        int H, int nb, int hd, int block, int bits, int dtype,
-                                        void* stream) {
-  if (rq::bad_paged_shape(B, H, nb, hd, block) || rq::bad_kv_bits(bits))
+// Both sides' append of a burst through the table: start / acc (B,) i32;
+// table (B, nb) i32, an unmapped entry writes nothing; k_burst / v_burst (B,
+// J, H, hd); pools (P, H, block, hdp) int8 and scales (P, H) f32, written in
+// place.  One append is the burst J = 1, acc = 0.
+extern "C" int rq_quant_kv_append_burst_paged(const void* start, const void* acc,
+                                              const void* table, const void* k_burst,
+                                              const void* v_burst, void* k_pool, void* k_scale,
+                                              void* v_pool, void* v_scale, int B, int H, int nb,
+                                              int hd, int block, int k_bits, int v_bits, int J,
+                                              int dtype, void* stream) {
+  if (rq::bad_paged_shape(B, H, nb, hd, block) || rq::bad_kv_bits(k_bits) ||
+      rq::bad_kv_bits(v_bits) || rq::bad_req_block(hd, block, rq::kKvThreads) || J < 1 ||
+      rq::misaligned(k_pool) || rq::misaligned(v_pool))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rq::kF32)
-    return (int)rq::launch_append_paged<float>(pos, table, new_rows, pool, scale, B, H, nb, hd,
-                                               block, bits, s);
+    return (int)rq::launch_append_burst_paged<float>(start, acc, table, k_burst, v_burst, k_pool,
+                                                     k_scale, v_pool, v_scale, B, H, nb, hd,
+                                                     block, k_bits, v_bits, J, s);
   if (dtype == rq::kBF16)
-    return (int)rq::launch_append_paged<__nv_bfloat16>(pos, table, new_rows, pool, scale, B, H,
-                                                       nb, hd, block, bits, s);
+    return (int)rq::launch_append_burst_paged<__nv_bfloat16>(
+        start, acc, table, k_burst, v_burst, k_pool, k_scale, v_pool, v_scale, B, H, nb, hd,
+        block, k_bits, v_bits, J, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,20 +14,23 @@
 // positions with their block scales, at 3.35 TB/s.
 //
 // Design.  One block per (slot, kv head), as the Pallas grid.
-//  * Projection: each warp takes pairs of the block's g * hd + 2 * hd rows
-//    (q group h at row h * g * hd, K head h at (n_heads + h) * hd, V head h
-//    at (n_heads + n_kv + h) * hd, as the Pallas BlockSpecs slice wqkv) and
-//    sums them with quant_gemv.cuh's gemv_rows against the slot's x row,
-//    then multiplies by the channel's scale: every projected value is the
-//    GEMV kernel's value for that row and channel, bit for bit, so the whole
-//    step equals the GEMV -> rotary -> decode-step composition bit for bit.
-//    The projection lands in shared memory ((g + 2) * hd floats, 10 KB at
-//    gemma-2b's head geometry, beside quant_kv.cuh's ~100 KB).
+//  * Projection: the slot's x row is staged in shared memory as the GEMV
+//    stages it (three bf16 pieces, every K range), and each warp takes
+//    16-row tiles of the block's g * hd + 2 * hd rows (q group h at row h *
+//    g * hd, K head h at (n_heads + h) * hd, V head h at (n_heads + n_kv +
+//    h) * hd, as the Pallas BlockSpecs slice wqkv; hd % 16 == 0, so a tile
+//    never straddles two), sums each K range with quant_gemv.cuh's
+//    GemvWarp and adds the ranges from zero in order, then multiplies by the
+//    channel's scale: every projected value is the GEMV kernel's value for
+//    that row and channel, bit for bit, so the whole step equals the GEMV
+//    -> rotary -> decode-step composition bit for bit.  The projection lands
+//    in shared memory ((g + 2) * hd floats, 10 KB at gemma-2b's head
+//    geometry, beside quant_kv.cuh's ~100 KB).
 //  * Rotary: cos / sin come from the caller, computed in torch from the
 //    same angle tensor the unfused path builds; the rotation is written
 //    with __fmul_rn / __fsub_rn / __fadd_rn so that nvcc does not contract
 //    x1 * cos - x2 * sin into an FMA (torch rounds each product).
-//  * Then quant_kv.cuh's requant_side (K, then V, written into the cache in
+//  * Then quant_kv.cuh's requantize_kv (K and V, written into the cache in
 //    place) and attend, on the shared-memory rows, in its walk mode: this
 //    CTA folds every chunk itself, in the order a cluster would, so the
 //    output equals row 3's bit for bit (a cluster would multiply the reads
@@ -42,7 +45,6 @@
 namespace rq {
 
 constexpr int kProjMaxB = 8;   // the GEMV's batch regime, as the reference's gate
-constexpr int kProjRows = 2;   // projected channels per warp step (the GEMV's kGemvRows)
 
 // Packed wqkv row of the block's projected row r (kv head h).
 __device__ __forceinline__ int proj_row(int r, int h, int n_heads, int n_kv, int g, int hd) {
@@ -52,7 +54,13 @@ __device__ __forceinline__ int proj_row(int r, int h, int n_heads, int n_kv, int
   return (n_heads + n_kv + h) * hd + (r - qr - hd);
 }
 
-template <int BITS>
+// Shared memory: the projection ((g + 2) * hd floats), quant_kv.cuh's
+// attention and requantization room, then the x staging (16-byte aligned).
+inline __host__ __device__ size_t proj_xs_offset(int g, int hd, int block, int hdp_k, int hdp_v) {
+  return round16((size_t)(g + 2) * hd * sizeof(float) + kv_smem_bytes(g, hd, block, hdp_k, hdp_v));
+}
+
+template <int CB>
 __global__ void __launch_bounds__(kKvThreads)
 quant_kv_decode_step_proj_kernel(const int* __restrict__ pos, const float* __restrict__ x,
                                  const uint8_t* __restrict__ w_packed,
@@ -61,9 +69,9 @@ quant_kv_decode_step_proj_kernel(const int* __restrict__ pos, const float* __res
                                  const float* __restrict__ sin_t, int8_t* k_packed,
                                  float* k_scale, int8_t* v_packed, float* v_scale,
                                  const float* __restrict__ mask, float* __restrict__ out,
-                                 int d, int kp, int vec, int n_heads, int n_kv, int S, int hd,
-                                 int block, int k_bits, int v_bits) {
-  extern __shared__ float smem[];
+                                 int d, int kp, int wvec, int xvec, int splits, int n_heads,
+                                 int n_kv, int S, int hd, int block, int k_bits, int v_bits) {
+  extern __shared__ __align__(16) float smem[];
   const int h = blockIdx.x, b = blockIdx.y, bh = b * n_kv + h;
   const int g = n_heads / n_kv;
   const int nb = S / block;
@@ -85,17 +93,40 @@ quant_kv_decode_step_proj_kernel(const int* __restrict__ pos, const float* __res
   }
   const int bidx = p / block, off = p % block;
 
-  // 1. project: rows come in pairs that never straddle a segment (hd is even)
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* xr = x + (size_t)b * d;
-  for (int r0 = warp * kProjRows; r0 < rows; r0 += (blockDim.x >> 5) * kProjRows) {
-    const int n0 = proj_row(r0, h, n_heads, n_kv, g, hd);
-    float acc[kProjRows][1];
-    gemv_rows<BITS, kProjRows, 1>(xr, 1, d, w_packed + (size_t)n0 * kp, kp, kProjRows, vec,
-                                  lane, acc);
-    if (lane == 0) {
+  // 1. project: stage the slot's x row for every K range (M = 1), then each
+  // warp sums its 16-row tiles range by range, as the GEMV's CTAs and
+  // cluster would
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2;
+  const int piece = gemv_piece_bytes<CB>(1, gemv_max_rounds<CB>(d, splits));
+  uint8_t* xs = reinterpret_cast<uint8_t*>(smem) + proj_xs_offset(g, hd, block, hdp_k, hdp_v);
+  for (int s = 0; s < splits; ++s) {
+    int k0, k1;
+    gemv_range(d, splits, s, k0, k1);
+    gemv_stage_x<CB, float>(x + (size_t)b * d, d, 1, k0, k1,
+                            (k1 - k0 + GemvShape<CB>::kRound - 1) / GemvShape<CB>::kRound, xvec,
+                            xs + (size_t)s * 3 * piece, piece);
+  }
+  __syncthreads();
+  for (int t = warp; t < rows / kGemvTileRows; t += blockDim.x >> 5) {
+    const int n0 = proj_row(t * kGemvTileRows, h, n_heads, n_kv, g, hd);
+    float total[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int s = 0; s < splits; ++s) {
+      int k0, k1;
+      gemv_range(d, splits, s, k0, k1);
+      const int rounds = (k1 - k0 + GemvShape<CB>::kRound - 1) / GemvShape<CB>::kRound;
+      GemvWarp<CB, true> wr{w_packed, kp, wvec, k0 / (8 / CB), rounds, lane, n0, 0, n0 + 16, 1};
+      wr.prime();
+      float acc[4];
+      wr.run(xs + (size_t)s * 3 * piece, piece, 1, [&](int, const float (&a)[4]) {
 #pragma unroll
-      for (int r = 0; r < kProjRows; ++r) proj[r0 + r] = acc[r][0] * w_scale[n0 + r];
+        for (int e = 0; e < 4; ++e) acc[e] = a[e];
+      });
+#pragma unroll
+      for (int e = 0; e < 4; ++e) total[e] = gemv_fold(total[e], acc[e]);
+    }
+    if ((lane & 3) == 0) {   // column 0 of the C fragment: rows g8 and g8 + 8
+      proj[t * kGemvTileRows + g8] = __fmul_rn(total[0], w_scale[n0 + g8]);
+      proj[t * kGemvTileRows + g8 + 8] = __fmul_rn(total[2], w_scale[n0 + g8 + 8]);
     }
   }
   __syncthreads();
@@ -116,39 +147,36 @@ quant_kv_decode_step_proj_kernel(const int* __restrict__ pos, const float* __res
   // 3. requantize the touched blocks in place, then attend (quant_kv.cuh)
   const float* krow = proj + (size_t)g * hd;
   const float* vrow = krow + hd;
-  const float ksc = requant_side(kp_ + (size_t)bidx * block * hdp_k, ks + bidx, krow, sm.kblk,
-                                 k_bits, hd, block, off, sm.rq, sm.red);
-  const float vsc = requant_side(vp_ + (size_t)bidx * block * hdp_v, vs + bidx, vrow, sm.vblk,
-                                 v_bits, hd, block, off, sm.rq, sm.red);
+  float ksc, vsc;
+  requantize_kv(kp_ + (size_t)bidx * block * hdp_k, ks + bidx, krow, sm.kblk, k_bits,
+                vp_ + (size_t)bidx * block * hdp_v, vs + bidx, vrow, sm.vblk, v_bits, hd, block,
+                off, sm.red, ksc, vsc);
   const DenseRows krows{reinterpret_cast<const uint32_t*>(kp_), ks, hdp_k / 4, block};
   const DenseRows vrows{reinterpret_cast<const uint32_t*>(vp_), vs, hdp_v / 4, block};
   attend(static_cast<const float*>(proj), mask + (size_t)b * S, krows, vrows, sm, ksc, vsc,
          bidx, o, g, S, hd, block, lk, lv, 0, 1);  // walk: one CTA folds every chunk
 }
 
-inline size_t proj_smem_bytes(int g, int hd, int block, int k_bits, int v_bits) {
-  return (size_t)(g + 2) * hd * sizeof(float) +
-         kv_smem_bytes(g, hd, block, hd / lanes_of(k_bits), hd / lanes_of(v_bits));
-}
-
-template <int BITS>
+template <int CB>
 cudaError_t launch_proj(const void* pos, const void* x, const void* w_packed,
                         const void* w_scale, const void* cos_t, const void* sin_t,
                         void* k_packed, void* k_scale, void* v_packed, void* v_scale,
                         const void* mask, void* out, int B, int d, int n_heads, int n_kv,
-                        int S, int hd, int block, int k_bits, int v_bits,
-                        cudaStream_t stream) {
-  const int kp = d / lanes_of(BITS);
-  const int vec = gemv_vec(x, w_packed, d, kp, BITS);
-  const size_t smem = proj_smem_bytes(n_heads / n_kv, hd, block, k_bits, v_bits);
-  return launch_kv(quant_kv_decode_step_proj_kernel<BITS>, dim3((unsigned)n_kv, (unsigned)B),
+                        int S, int hd, int block, int w_bits, int k_bits, int v_bits,
+                        int splits, cudaStream_t stream) {
+  const int kp = d / lanes_of(w_bits);
+  const int g = n_heads / n_kv, hdp_k = hd / lanes_of(k_bits), hdp_v = hd / lanes_of(v_bits);
+  const size_t smem = proj_xs_offset(g, hd, block, hdp_k, hdp_v) +
+                      (size_t)splits * 3 * gemv_piece_bytes<CB>(1, gemv_max_rounds<CB>(d, splits));
+  return launch_kv(quant_kv_decode_step_proj_kernel<CB>, dim3((unsigned)n_kv, (unsigned)B),
                    smem, stream, static_cast<const int*>(pos), static_cast<const float*>(x),
                    static_cast<const uint8_t*>(w_packed), static_cast<const float*>(w_scale),
                    static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
                    static_cast<int8_t*>(k_packed), static_cast<float*>(k_scale),
                    static_cast<int8_t*>(v_packed), static_cast<float*>(v_scale),
-                   static_cast<const float*>(mask), static_cast<float*>(out), d, kp, vec,
-                   n_heads, n_kv, S, hd, block, k_bits, v_bits);
+                   static_cast<const float*>(mask), static_cast<float*>(out), d, kp,
+                   gemv_wvec(w_packed, kp), gemv_xvec(x, d), splits, n_heads, n_kv, S, hd,
+                   block, k_bits, v_bits);
 }
 
 }  // namespace rq
@@ -157,32 +185,33 @@ cudaError_t launch_proj(const void* pos, const void* x, const void* w_packed,
 // ((n_heads + 2 n_kv) hd, d / lanes) int8 and w_scale ((n_heads + 2 n_kv) hd)
 // f32, the fused wqkv; cos / sin (B, hd / 2) f32; packed (B, n_kv, S, hdp)
 // int8 and scales (B, n_kv, S/block) f32, updated in place; mask (B, S) f32
-// additive; out (B, n_kv, g, hd) f32.  Activations are f32 only.
+// additive; out (B, n_kv, g, hd) f32; splits the GEMV's K ranges for K = d
+// (kernels/quant_gemv/kernel.py plan).  Activations are f32 only.
 extern "C" int rq_quant_kv_decode_step_proj(const void* pos, const void* x, const void* w_packed,
                                             const void* w_scale, const void* cos_t,
                                             const void* sin_t, void* k_packed, void* k_scale,
                                             void* v_packed, void* v_scale, const void* mask,
                                             void* out, int B, int d, int n_heads, int n_kv,
                                             int S, int hd, int block, int w_bits, int k_bits,
-                                            int v_bits, int dtype, void* stream) {
+                                            int v_bits, int splits, int dtype, void* stream) {
   if (dtype != rq::kF32 || B < 1 || B > rq::kProjMaxB || d < 1 || n_kv < 1 ||
       n_heads < n_kv || n_heads % n_kv || hd < 16 || hd % 16 || block < 1 || S % block ||
       rq::bad_kv_bits(w_bits) || d % rq::lanes_of(w_bits) || rq::bad_kv_bits(k_bits) ||
-      rq::bad_kv_bits(v_bits) || rq::misaligned(k_packed) || rq::misaligned(v_packed))
+      rq::bad_kv_bits(v_bits) || rq::bad_gemv_split(d, splits) ||
+      rq::bad_req_block(hd, block, rq::kKvThreads) || rq::misaligned(k_packed) ||
+      rq::misaligned(v_packed))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (w_bits) {
+  switch (rq::gemv_cb(w_bits)) {
     case 2: return (int)rq::launch_proj<2>(pos, x, w_packed, w_scale, cos_t, sin_t, k_packed,
                                            k_scale, v_packed, v_scale, mask, out, B, d, n_heads,
-                                           n_kv, S, hd, block, k_bits, v_bits, s);
+                                           n_kv, S, hd, block, w_bits, k_bits, v_bits, splits, s);
     case 4: return (int)rq::launch_proj<4>(pos, x, w_packed, w_scale, cos_t, sin_t, k_packed,
                                            k_scale, v_packed, v_scale, mask, out, B, d, n_heads,
-                                           n_kv, S, hd, block, k_bits, v_bits, s);
-    case 6: return (int)rq::launch_proj<6>(pos, x, w_packed, w_scale, cos_t, sin_t, k_packed,
-                                           k_scale, v_packed, v_scale, mask, out, B, d, n_heads,
-                                           n_kv, S, hd, block, k_bits, v_bits, s);
+                                           n_kv, S, hd, block, w_bits, k_bits, v_bits, splits, s);
     default: return (int)rq::launch_proj<8>(pos, x, w_packed, w_scale, cos_t, sin_t, k_packed,
-                                            k_scale, v_packed, v_scale, mask, out, B, d,
-                                            n_heads, n_kv, S, hd, block, k_bits, v_bits, s);
+                                            k_scale, v_packed, v_scale, mask, out, B, d, n_heads,
+                                            n_kv, S, hd, block, w_bits, k_bits, v_bits, splits,
+                                            s);
   }
 }

@@ -31,8 +31,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 #: C entry points -> argument types (every pointer and the stream as c_void_p)
 SIGNATURES = {
-    # x, packed, scale, y, M, N, K, kp, bits, dtype, stream
-    "rq_quant_gemv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, packed, scale, y, M, N, K, kp, bits, dtype, splits, tiles, stream
+    "rq_quant_gemv": [_P] * 4 + [_I] * 8 + [_P],
     # x, packed, scale, y, M, N, K, kp, bits, dtype, nt, wgs, splits, cluster, stream
     "rq_quant_matmul": [_P, _P, _P, _P] + [_I] * 10 + [_P],
     # pos, q, k_new, v_new, k_packed, k_scale, v_packed, v_scale, mask, out,
@@ -44,16 +44,18 @@ SIGNATURES = {
     # table, q, k_pool, k_scale, v_pool, v_scale, mask, out,
     # B, n_kv, g, nb, hd, block, k_bits, v_bits, cluster, dtype, stream
     "rq_quant_kv_attention_paged": [_P] * 8 + [_I] * 10 + [_P],
-    # pos, table, new, pool, scale, B, H, nb, hd, block, bits, dtype, stream
-    "rq_quant_kv_append_paged": [_P] * 5 + [_I] * 7 + [_P],
+    # start, acc, table, k_burst, v_burst, k_pool, k_scale, v_pool, v_scale,
+    # B, H, nb, hd, block, k_bits, v_bits, J, dtype, stream
+    "rq_quant_kv_append_burst_paged": [_P] * 9 + [_I] * 9 + [_P],
     # q, k_packed, k_scale, v_packed, v_scale, mask, out,
     # B, n_kv, g, S, hd, block, k_bits, v_bits, cluster, dtype, stream
     "rq_quant_kv_attention": [_P] * 7 + [_I] * 10 + [_P],
-    # pos, new, packed, scale, B, H, S, hd, block, bits, dtype, stream
-    "rq_quant_kv_append": [_P] * 4 + [_I] * 7 + [_P],
+    # start, acc, k_burst, v_burst, k_packed, k_scale, v_packed, v_scale,
+    # B, H, S, hd, block, k_bits, v_bits, J, dtype, stream
+    "rq_quant_kv_append_burst": [_P] * 8 + [_I] * 9 + [_P],
     # pos, x, w_packed, w_scale, cos, sin, k_packed, k_scale, v_packed, v_scale, mask,
-    # out, B, d, n_heads, n_kv, S, hd, block, w_bits, k_bits, v_bits, dtype, stream
-    "rq_quant_kv_decode_step_proj": [_P] * 12 + [_I] * 11 + [_P],
+    # out, B, d, n_heads, n_kv, S, hd, block, w_bits, k_bits, v_bits, splits, dtype, stream
+    "rq_quant_kv_decode_step_proj": [_P] * 12 + [_I] * 12 + [_P],
     # w, scale, out, rows, cols, bits, rowwise, dtype, stream
     "rq_fake_quant": [_P] * 3 + [_L, _L, _F, _I, _I, _P],
     # w, scale, g, dw, rows, cols, bits, rowwise, dtype, stream

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core.packing import LANES
 from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels.quant_gemv.kernel import split_of
 
 #: positions per chunk of the split attention (``csrc/quant_kv.cuh`` kChunk)
 CHUNK = 64
@@ -103,10 +104,16 @@ def _split(kernel: str, s: int, block: int, launch: AttendPlan | None) -> int:
     return p.cluster
 
 
+#: values of a touched block the requantization holds in registers (``csrc/quant_kv.cuh``
+#: kReqGroups x 16 values x 256 threads)
+MAX_BLOCK_VALUES = 16384
+
+
 def _check_hd(name: str, hd: int, s: int, block: int) -> None:
-    if hd % 16 or s % block:
+    if hd % 16 or s % block or block * hd > MAX_BLOCK_VALUES:
         raise ValueError(f"{name}: the CUDA kernel takes hd % 16 == 0 (whole 4-byte packed "
-                         f"words) and S % block == 0, got hd={hd}, S={s}, block={block}")
+                         f"words), S % block == 0 and block * hd <= {MAX_BLOCK_VALUES}, got "
+                         f"hd={hd}, S={s}, block={block}")
 
 
 def _require_pool(prefix, packed, scale, bits, *, hd, block, n_kv, dev) -> None:
@@ -165,8 +172,10 @@ def quant_kv_decode_step_proj_cuda(pos, x, w_packed, w_scale, cos, sin, k_packed
                                    v_bits: int, n_heads: int, hd: int,
                                    block: int) -> torch.Tensor:
     """One CTA per (slot, kv head): project the query group and the K/V rows
-    from the fused ``wqkv``, rotate, requantize the touched block, attend
-    (the split body walked by that CTA: ``attend_plan``'s walk mode).
+    from the fused ``wqkv`` (the GEMV's arithmetic over its K ranges,
+    ``quant_gemv.kernel.split_of(d)``), rotate, requantize the touched
+    block, attend (the split body walked by that CTA: ``attend_plan``'s walk
+    mode).
 
     ``pos`` (B,) int32, B <= 8; ``x`` (B, d) f32; ``w_packed``
     ((n_heads + 2 n_kv) hd, d/lanes) int8 and ``w_scale`` (1, that) f32;
@@ -202,7 +211,7 @@ def quant_kv_decode_step_proj_cuda(pos, x, w_packed, w_scale, cos, sin, k_packed
         pos.data_ptr(), x.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(), cos.data_ptr(),
         sin.data_ptr(), k_packed.data_ptr(), k_scale.data_ptr(), v_packed.data_ptr(),
         v_scale.data_ptr(), mask.data_ptr(), out.data_ptr(), b, d, n_heads, n_kv, s, hd, block,
-        w_bits, k_bits, v_bits, _build.dtype_code(x, "quant_kv_decode_step_proj"),
+        w_bits, k_bits, v_bits, split_of(d), _build.dtype_code(x, "quant_kv_decode_step_proj"),
         _build.stream_of(x))
     LAUNCHES["quant_kv_decode_step_proj"] += 1
     _build.check(rc, "quant_kv_decode_step_proj")
@@ -245,24 +254,44 @@ def quant_kv_attention_cuda(q, k_packed, k_scale, v_packed, v_scale, mask, *, k_
     return out
 
 
-def quant_kv_append_cuda(pos, new, packed, scale, *, bits: int, hd: int, block: int) -> None:
-    """One side's append, one kernel per (slot, head): requantize the block
-    holding each slot's ``pos`` with ``new`` (B, H, hd) inserted, IN PLACE in
-    ``packed`` (B, H, S, hd/lanes) int8 and ``scale`` (B, H, S/block, 1) f32.
-    A slot whose ``pos`` lies outside [0, S) writes nothing (a masked row)."""
-    b, h, _ = new.shape
-    s = packed.shape[2]
-    dev = new.device
-    _check_hd("quant_kv_append", hd, s, block)
-    code = _build.dtype_code(new, "quant_kv_append")
-    _build.require(new, "new", shape=(b, h, hd))
-    _build.require(pos, "pos", dtype=torch.int32, shape=(b,), device=dev)
-    _require_dense("", packed, scale, bits, b=b, h=h, s=s, hd=hd, block=block, dev=dev)
-    rc = _build.lib().rq_quant_kv_append(
-        pos.data_ptr(), new.data_ptr(), packed.data_ptr(), scale.data_ptr(), b, h, s, hd, block,
-        bits, code, _build.stream_of(new))
+def _burst_operands(name, start, acc, k_burst, v_burst, b: int, h: int, hd: int):
+    j = k_burst.shape[1]
+    dev = k_burst.device
+    _build.dtype_code(k_burst, name)
+    for nm, t in (("start", start), ("acc", acc)):
+        _build.require(t, nm, dtype=torch.int32, shape=(b,), device=dev)
+    for nm, t in (("k_burst", k_burst), ("v_burst", v_burst)):
+        _build.require(t, nm, dtype=k_burst.dtype, shape=(b, j, h, hd), device=dev)
+    return j
+
+
+def quant_kv_append_burst_cuda(start, acc, k_burst, v_burst, k_packed, k_scale, v_packed,
+                               v_scale, *, k_bits: int, v_bits: int, hd: int,
+                               block: int) -> None:
+    """Both sides' append in one launch, one CTA per (head, slot, side): for
+    every slot, burst positions ``start + j`` for j = 0 .. ``acc`` (``acc``
+    < 0: none), row j of ``k_burst`` / ``v_burst`` (B, J, H, hd), appended
+    in order IN PLACE in the packed ``(B, H, S, hd/lanes)`` int8 caches and
+    their ``(B, H, S/block, 1)`` f32 scales, each position requantizing its
+    block with the row inserted; a position outside [0, S) writes nothing
+    (a masked row).  The CTA keeps the touched block in registers between
+    positions, so a burst gives the bytes of its positions appended one
+    launch at a time (J = 1, ``acc`` 0: one decode append).  ``start`` and
+    ``acc`` (B,) int32."""
+    b = start.shape[0]
+    h, s = k_packed.shape[1], k_packed.shape[2]
+    dev = k_packed.device
+    _check_hd("quant_kv_append_burst", hd, s, block)
+    j = _burst_operands("quant_kv_append_burst", start, acc, k_burst, v_burst, b, h, hd)
+    _require_dense("k_", k_packed, k_scale, k_bits, b=b, h=h, s=s, hd=hd, block=block, dev=dev)
+    _require_dense("v_", v_packed, v_scale, v_bits, b=b, h=h, s=s, hd=hd, block=block, dev=dev)
+    rc = _build.lib().rq_quant_kv_append_burst(
+        start.data_ptr(), acc.data_ptr(), k_burst.data_ptr(), v_burst.data_ptr(),
+        k_packed.data_ptr(), k_scale.data_ptr(), v_packed.data_ptr(), v_scale.data_ptr(), b, h,
+        s, hd, block, k_bits, v_bits, j, _build.dtype_code(k_burst, "quant_kv_append_burst"),
+        _build.stream_of(k_burst))
     LAUNCHES["quant_kv_append"] += 1
-    _build.check(rc, "quant_kv_append")
+    _build.check(rc, "quant_kv_append_burst")
 
 
 def quant_kv_decode_step_paged_cuda(pos, table, q, k_new, v_new, k_pool, k_scale, v_pool,
@@ -330,23 +359,25 @@ def quant_kv_attention_paged_cuda(table, q, k_pool, k_scale, v_pool, v_scale, ma
     return out
 
 
-def quant_kv_append_paged_cuda(pos, table, new, pool, scale, *, bits: int, hd: int,
-                               block: int) -> None:
-    """One side's append, one kernel per (slot, head): requantize each slot's
-    mapped touched block with ``new`` (B, H, hd) inserted, IN PLACE in
-    ``pool`` (P, H, block, hd/lanes) int8 and ``scale`` (P, H, 1, 1) f32.
-    A slot whose touched entry is unmapped writes nothing."""
-    b, h, _ = new.shape
-    nb = table.shape[1]
-    dev = new.device
-    _check_hd("quant_kv_append_paged", hd, nb * block, block)
-    code = _build.dtype_code(new, "quant_kv_append_paged")
-    _build.require(new, "new", shape=(b, h, hd))
-    _build.require(pos, "pos", dtype=torch.int32, shape=(b,), device=dev)
+def quant_kv_append_burst_paged_cuda(start, acc, table, k_burst, v_burst, k_pool, k_scale,
+                                     v_pool, v_scale, *, k_bits: int, v_bits: int, hd: int,
+                                     block: int) -> None:
+    """:func:`quant_kv_append_burst_cuda` through the block table ``table``
+    (B, S/block) int32 into the pools (P, H, block, hd/lanes) int8 and their
+    (P, H, 1, 1) f32 scales: a position whose entry is unmapped writes
+    nothing."""
+    b, nb = table.shape
+    h = k_pool.shape[1]
+    dev = k_pool.device
+    _check_hd("quant_kv_append_burst_paged", hd, nb * block, block)
+    j = _burst_operands("quant_kv_append_burst_paged", start, acc, k_burst, v_burst, b, h, hd)
     _build.require(table, "table", dtype=torch.int32, shape=(b, nb), device=dev)
-    _require_pool("", pool, scale, bits, hd=hd, block=block, n_kv=h, dev=dev)
-    rc = _build.lib().rq_quant_kv_append_paged(
-        pos.data_ptr(), table.data_ptr(), new.data_ptr(), pool.data_ptr(), scale.data_ptr(),
-        b, h, nb, hd, block, bits, code, _build.stream_of(new))
+    _require_pool("k_", k_pool, k_scale, k_bits, hd=hd, block=block, n_kv=h, dev=dev)
+    _require_pool("v_", v_pool, v_scale, v_bits, hd=hd, block=block, n_kv=h, dev=dev)
+    rc = _build.lib().rq_quant_kv_append_burst_paged(
+        start.data_ptr(), acc.data_ptr(), table.data_ptr(), k_burst.data_ptr(),
+        v_burst.data_ptr(), k_pool.data_ptr(), k_scale.data_ptr(), v_pool.data_ptr(),
+        v_scale.data_ptr(), b, h, nb, hd, block, k_bits, v_bits, j,
+        _build.dtype_code(k_burst, "quant_kv_append_burst_paged"), _build.stream_of(k_burst))
     LAUNCHES["quant_kv_append_paged"] += 1
-    _build.check(rc, "quant_kv_append_paged")
+    _build.check(rc, "quant_kv_append_burst_paged")

@@ -17,13 +17,14 @@ from repro_torch.core.packing import LANES
 from repro_torch.kernels import IMPLS, LAUNCHES, PLAIN_CALLS, resolve_impl  # noqa: F401
 from repro_torch.kvcache.cache import QuantizedKVLayer
 from repro_torch.kvcache.paged import PagedKVLayer, place_paged_block  # noqa: F401
-from .kernel import (quant_kv_append_cuda, quant_kv_append_paged_cuda,
+from .kernel import (quant_kv_append_burst_cuda, quant_kv_append_burst_paged_cuda,
                      quant_kv_attention_cuda, quant_kv_attention_paged_cuda,
                      quant_kv_decode_step_cuda, quant_kv_decode_step_paged_cuda,
                      quant_kv_decode_step_proj_cuda)
-from .ref import (quant_kv_append_paged_ref, quant_kv_append_ref, quant_kv_attention_paged_ref,
-                  quant_kv_attention_ref, quant_kv_decode_step_paged_ref,
-                  quant_kv_decode_step_proj_ref, quant_kv_decode_step_ref)
+from .ref import (quant_kv_append_burst_ref, quant_kv_append_paged_ref, quant_kv_append_ref,
+                  quant_kv_attention_paged_ref, quant_kv_attention_ref,
+                  quant_kv_decode_step_paged_ref, quant_kv_decode_step_proj_ref,
+                  quant_kv_decode_step_ref)
 
 
 def _container(layer) -> bool:
@@ -90,23 +91,46 @@ def quant_kv_append(layer, pos, k_new: torch.Tensor, v_new: torch.Tensor, *,
     A slot whose position lies outside ``[0, S)`` (dense) or whose touched
     table entry is unmapped (paged) is left alone by the kernels; the plain
     versions write nothing there on a dense cache either, and write the
-    trash block on a paged one."""
+    trash block on a paged one.  On the card this is the burst append of
+    one position (:func:`quant_kv_append_burst`, ``acc`` 0)."""
     paged = _container(layer)
     impl = resolve_impl(impl, layer.k_packed.device)
     if impl == "torch":
         ref = quant_kv_append_paged_ref if paged else quant_kv_append_ref
         return ref(layer, pos, k_new, v_new)
     b = k_new.shape[0]
-    pos = _positions(pos, b, layer.k_packed.device)
-    kw = dict(hd=layer.head_dim, block=layer.block)
-    for new, packed, scale, bits in ((k_new, layer.k_packed, layer.k_scale, layer.k_bits),
-                                     (v_new, layer.v_packed, layer.v_scale, layer.v_bits)):
-        new = new[:, 0].contiguous()
-        if paged:
-            quant_kv_append_paged_cuda(pos, layer.block_table, new, packed, scale, bits=bits,
-                                       **kw)
-        else:
-            quant_kv_append_cuda(pos, new, packed, scale, bits=bits, **kw)
+    return quant_kv_append_burst(layer, pos, torch.zeros(b, dtype=torch.int32,
+                                                         device=layer.k_packed.device),
+                                 k_new, v_new, impl=impl)
+
+
+def quant_kv_append_burst(layer, start, acc, k_burst: torch.Tensor, v_burst: torch.Tensor, *,
+                          impl: str = "auto"):
+    """Append burst positions ``start + j`` for j = 0 .. ``acc`` of every
+    slot, in order, in place: the speculative commit's replay of the
+    accepted positions.  ``k_burst``/``v_burst`` (B, J, H, hd) hold row j
+    at index j (positions past J - 1 are not written); ``start`` (B,) ints
+    and ``acc`` (B,) accepted draft counts (< 0: the slot writes nothing).
+
+    The same bytes as :func:`quant_kv_append` at position j with the slots
+    whose ``acc`` < j masked (position -1 on a dense cache, table row -1 on
+    a paged one), for j = 0, 1, ...: "torch" runs exactly that
+    (:func:`ref.quant_kv_append_burst_ref`), "cuda" one launch.  Returns
+    the layer."""
+    paged = _container(layer)
+    impl = resolve_impl(impl, layer.k_packed.device)
+    if impl == "torch":
+        return quant_kv_append_burst_ref(layer, start, acc, k_burst, v_burst)
+    b = k_burst.shape[0]
+    dev = layer.k_packed.device
+    args = (_positions(start, b, dev), _positions(acc, b, dev), k_burst.contiguous(),
+            v_burst.to(k_burst.dtype).contiguous(), layer.k_packed, layer.k_scale,
+            layer.v_packed, layer.v_scale)
+    kw = dict(k_bits=layer.k_bits, v_bits=layer.v_bits, hd=layer.head_dim, block=layer.block)
+    if paged:
+        quant_kv_append_burst_paged_cuda(args[0], args[1], layer.block_table, *args[2:], **kw)
+    else:
+        quant_kv_append_burst_cuda(*args, **kw)
     return layer
 
 

@@ -12,6 +12,7 @@ the same contents give the same output bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -143,6 +144,28 @@ def quant_kv_append_paged_ref(layer, pos, k_new, v_new):
     """Paged append, in place: requantize each slot's mapped block."""
     PLAIN_CALLS["quant_kv_append_paged"] += 1
     return append_token_paged(layer, pos, k_new, v_new)
+
+
+def quant_kv_append_burst_ref(layer, start, acc, k_burst, v_burst):
+    """The burst append as positions appended one at a time, in place: at
+    burst index j every slot whose ``acc`` >= j appends row j of ``k_burst``
+    / ``v_burst`` (B, J, H, hd) at ``start + j``; the others are masked (a
+    dense position -1, a paged table row -1), as the JAX package's commit
+    masks them.  Each position is one counted plain append.  Returns the
+    layer."""
+    dev = layer.k_packed.device
+    start = torch.as_tensor(start, device=dev).reshape(-1).to(torch.int32)
+    acc = torch.as_tensor(acc, device=dev).reshape(-1)
+    for j in range(k_burst.shape[1]):
+        mask = j <= acc
+        kn, vn = k_burst[:, j:j + 1], v_burst[:, j:j + 1]
+        if isinstance(layer, QuantizedKVLayer):
+            quant_kv_append_ref(layer, torch.where(mask, start + j, -1), kn, vn)
+        else:
+            table = torch.where(mask[:, None], layer.block_table, -1)
+            quant_kv_append_paged_ref(dataclasses.replace(layer, block_table=table), start + j,
+                                      kn, vn)
+    return layer
 
 
 def quant_kv_decode_step_paged_ref(q: torch.Tensor, layer, pos, k_new, v_new,

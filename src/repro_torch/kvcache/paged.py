@@ -306,11 +306,14 @@ def append_token_paged(layer: PagedKVLayer, pos, k_new: torch.Tensor,
     b = k_new.shape[0]
     dev = layer.k_packed.device
     pos = torch.as_tensor(pos, device=dev).reshape(-1).expand(b).to(torch.long)
-    # a position past the table (an idle slot's stale one) reads the last
-    # entry, as the JAX package's clamped gather does
-    bidx = (pos // layer.block).clamp(0, layer.block_table.shape[1] - 1)[:, None]
-    phys = torch.take_along_dim(layer.block_table.to(torch.long), bidx, dim=1)[:, 0]
-    phys = phys.clamp_min(TRASH_BLOCK)
+    # a position past the table (an idle slot's stale one) writes the trash
+    # block, as in the JAX package, whose out-of-range gather reads a fill
+    # value below every block id
+    nb = layer.block_table.shape[1]
+    bidx = pos // layer.block
+    phys = torch.take_along_dim(layer.block_table.to(torch.long),
+                                bidx.clamp(0, nb - 1)[:, None], dim=1)[:, 0]
+    phys = torch.where(bidx < nb, phys, TRASH_BLOCK).clamp_min(TRASH_BLOCK)
     off = pos % layer.block
     kh = k_new.transpose(1, 2)[:, :, 0].to(torch.float32)    # (B, H, hd)
     vh = v_new.transpose(1, 2)[:, :, 0].to(torch.float32)

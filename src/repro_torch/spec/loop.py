@@ -33,14 +33,14 @@ a position of -1, which the append skips on either path: the bytes the JAX
 package's append-then-select leaves.  A paged masked slot reads
 table entry -1: the CUDA append writes nothing there, the plain append
 writes the trash block (block 0, whose bytes are no part of the contract).
+The commit replays a round's burst in one ``quant_kv_append_burst`` a
+layer.
 """
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
-from repro_torch.kernels.quant_kv.ops import quant_kv_append
+from repro_torch.kernels.quant_kv.ops import quant_kv_append_burst
 from repro_torch.kvcache.cache import QuantizedKVLayer
 from repro_torch.kvcache.paged import TRASH_BLOCK, PagedKVLayer
 from repro_torch.serve.sampling import filtered_logits
@@ -186,32 +186,20 @@ def restore_state(state, saved, pos: torch.Tensor, k: int):
     return state
 
 
-def _masked_append(layer, pos_j: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
-                   mask: torch.Tensor, impl: str):
-    """Append one burst position's K/V where ``mask`` (B,) holds, in place."""
-    if isinstance(layer, PagedKVLayer):
-        table = torch.where(mask[:, None], layer.block_table, -1)
-        quant_kv_append(dataclasses.replace(layer, block_table=table), pos_j, k_new, v_new,
-                        impl=impl)
-        return layer
-    # a dense append writes nothing at a position outside [0, S)
-    return quant_kv_append(layer, torch.where(mask, pos_j, -1), k_new, v_new, impl=impl)
-
-
 def commit_state(state, saved, pos: torch.Tensor, acc: torch.Tensor, burst_kv, k: int, *,
                  impl: str = "auto"):
     """Rewind the burst and replay exactly the accepted appends, in place.
 
     ``burst_kv``: the verify pass's per-layer fp K/V ``[(k, v), ...]``, each
     (B, K+1, H, hd); ``acc``: per-slot accepted draft counts.  Burst indices
-    ``0..acc`` replay (index 0 is the committed pending token).
+    ``0..acc`` replay (index 0 is the committed pending token), one
+    ``quant_kv_append_burst`` a layer: on the card one launch that appends
+    them in order, the bytes of the position-by-position appends.
     """
     restore_state(state, saved, pos, k)
     pos = pos.to(torch.int32)
-    for j in range(k + 1):
-        mask = j <= acc
-        for layer, sv, (k_new, v_new) in zip(state, saved, burst_kv):
-            if sv is None:          # fp layer: the verify's writes stand
-                continue
-            _masked_append(layer, pos + j, k_new[:, j:j + 1], v_new[:, j:j + 1], mask, impl)
+    for layer, sv, (k_new, v_new) in zip(state, saved, burst_kv):
+        if sv is None:              # fp layer: the verify's writes stand
+            continue
+        quant_kv_append_burst(layer, pos, acc, k_new[:, :k + 1], v_new[:, :k + 1], impl=impl)
     return state

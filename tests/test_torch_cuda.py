@@ -14,9 +14,12 @@ entry inside a valid range, the dense append and attention alone with a
 masked row, at reduced gemma-2b width in f32 the verify pass against
 decode steps and the speculative engine against the non-speculative one,
 the fake-quant forward and STE backward bit for bit at odd shapes, with
-row-wise scales, a zero column and infinite upstream gradients, and row 8
+row-wise scales, a zero column and infinite upstream gradients, row 8
 (the projection-fused step) bit for bit against the launches it replaces,
-at chip_smoke.py's geometry and at an odd one, and in a reduced f32 engine.
+at chip_smoke.py's geometry and at an odd one, and in a reduced f32 engine,
+the GEMV against the CPU mirror of its arithmetic with its bits independent
+of M and N, and the burst append against the appends one position at a
+time and the plain version, dense and paged.
 """
 import dataclasses
 
@@ -222,7 +225,7 @@ def test_dense_append_and_attention_kernels_match_plain(cuda, k_bits, v_bits, dt
     for f in fields:
         assert torch.equal(getattr(lf, f), getattr(ls, f)), f
     assert torch.equal(o_f, o_s)                  # fused = append then attend
-    assert kernels.LAUNCHES["quant_kv_append"] == 4
+    assert kernels.LAUNCHES["quant_kv_append"] == 2     # both sides in one launch
     assert kernels.LAUNCHES["quant_kv_attention"] == 2
     assert kernels.LAUNCHES["quant_kv_decode_step"] == 1
 
@@ -295,7 +298,7 @@ def test_paged_kernels_match_plain(cuda, k_bits, v_bits):
     assert _rel(o_s, o_a) <= 1e-5
     assert torch.equal(o_k, o_s)                  # fused = append then attend
     assert kernels.LAUNCHES["quant_kv_decode_step_paged"] == 1
-    assert kernels.LAUNCHES["quant_kv_append_paged"] == 2
+    assert kernels.LAUNCHES["quant_kv_append_paged"] == 1     # both sides in one launch
     assert kernels.LAUNCHES["quant_kv_attention_paged"] == 1
     # the fused step on the pool = the dense kernel on to_dense of the pool
     # (slot 2 is idle: its dense block is written, its paged one is not)
@@ -399,7 +402,8 @@ def test_decode_verify_matches_decode_steps_on_the_card(cuda):
 def test_speculative_engine_matches_non_speculative_on_the_card(cuda, paged):
     """Greedy streams of the speculative engine (K = 3, a 4-bit draft) equal
     the non-speculative engine's at reduced width in f32, through the
-    kernels only; the commit replays launch the dense or paged append."""
+    kernels only; the commit launches the dense or paged burst append once a
+    layer."""
     from repro_torch.serve.engine import ServeEngine
 
     cfg, serve, state = _reduced_model(cuda, 13)
@@ -414,7 +418,7 @@ def test_speculative_engine_matches_non_speculative_on_the_card(cuda, paged):
     assert eng.generate(prompts, max_new_tokens=10) == base
     st = eng.stats()
     append = "quant_kv_append_paged" if paged else "quant_kv_append"
-    assert st["launches"][append] == 2 * cfg.n_layers * 4 * st["spec_steps"] > 0
+    assert st["launches"][append] == cfg.n_layers * st["spec_steps"] > 0   # one burst a layer
     assert sum(st["plain_calls"].values()) == 0
     assert st["spec_accepted"] > 0
     if paged:
@@ -788,3 +792,122 @@ def test_attend_idle_slots_write_nothing(cuda, paged, mode):
     else:
         for f in fields:
             assert torch.equal(getattr(lay, f)[:2], getattr(base, f)[:2]), f
+
+
+#: the GEMV's mirror shapes: K of whole units (8 ranges, and 8 ranges of 8
+#: units), ragged K (byte loads: rows not 16-byte aligned; a short last
+#: range), odd N and a part tile
+GEMV_MIRROR_CASES = [(2048, 2560), (16384, 130), (37, 17), (700, 75), (2080, 300)]
+
+
+@pytest.mark.parametrize("bits", (2, 4, 6, 8))
+@pytest.mark.parametrize("k,n", GEMV_MIRROR_CASES)
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_gemv_sums_as_its_mirror_whatever_m_and_n(cuda, bits, k, n, dtype):
+    """The GEMV against ``ref.quant_gemv_mirror`` (the plan's K ranges, each
+    range's exact sum added in f32 in order): f32 x within rel 1e-5 (a range
+    is summed tile by tile in f32, the mirror's exactly), bf16 y at most one
+    bf16 step from the mirror at 99.9 % of outputs or more; and each row's
+    and channel's bits the same at every M and for a slice of the channels."""
+    from repro_torch.kernels.quant_gemv.kernel import quant_gemv_cuda
+    from repro_torch.kernels.quant_gemv.ref import quant_gemv_mirror
+
+    g = torch.Generator(device=cuda).manual_seed(bits * 5 + k + n)
+    qt = quantize_tensor(torch.randn((k, n), generator=g, device=cuda) / k ** 0.5, bits)
+    x = torch.randn((8, k), generator=g, device=cuda).to(dtype)
+    kernels.reset_counts()
+    full = quant_gemv_cuda(x, qt.packed, qt.scale, bits=bits, k=k)
+    for m in range(1, 8):
+        assert torch.equal(quant_gemv_cuda(x[:m], qt.packed, qt.scale, bits=bits, k=k), full[:m])
+    n1 = max(1, n // 3)
+    part = quant_gemv_cuda(x, qt.packed[:n1].contiguous(), qt.scale.reshape(-1)[:n1].contiguous(),
+                           bits=bits, k=k)
+    assert torch.equal(part, full[:, :n1])
+    assert kernels.LAUNCHES["quant_gemv"] == 9
+    mirror = quant_gemv_mirror(x, qt.packed, qt.scale, bits, k).float()
+    got = full.float()
+    if dtype is torch.float32:
+        assert _rel(got, mirror) <= 1e-5
+    else:
+        step = torch.exp2(torch.floor(torch.log2(mirror.abs().clamp_min(1e-30))) - 7)
+        assert ((got - mirror).abs() > step).float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_gemv_tilings_give_the_same_bits(cuda, dtype):
+    """One weight at K 2048 read at N 4096, 8192, 16384 and 32768, which the
+    plan gives 1, 2, 4 and 8 tiles a CTA: its first 4096 channels have the
+    same bits at every N."""
+    from repro_torch.kernels.quant_gemv import kernel as gk
+
+    k, widths = 2048, (4096, 8192, 16384, 32768)
+    g = torch.Generator(device=cuda).manual_seed(23)
+    qt = quantize_tensor(torch.randn((k, widths[-1]), generator=g, device=cuda) / k ** 0.5, 4)
+    x = torch.randn((4, k), generator=g, device=cuda).to(dtype)
+    assert [gk.plan(4, n, k).tiles for n in widths] == [1, 2, 4, gk.MAX_TILES]
+    outs = [gk.quant_gemv_cuda(x, qt.packed[:n].contiguous(),
+                               qt.scale.reshape(-1)[:n].contiguous(), bits=4, k=k)
+            for n in widths]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o[:, :widths[0]], outs[-1][:, :widths[0]]) for o in outs)
+
+
+def _burst_case(cuda, paged: bool, k_bits: int, v_bits: int, seed: int):
+    """A cache of 6 slots (hd 32, block 8, S 64) and a burst of 4 positions:
+    slot 0 crosses a block edge, slot 1 accepts nothing, slot 2 runs past S,
+    slot 3 accepts one; paged: a shuffled pool where slot 4's next block is
+    unmapped and slot 5 is idle."""
+    b, s, h, hd, block, j = 6, 64, 2, 32, 8, 4
+    rng = np.random.default_rng(seed)
+    start = torch.tensor([6, 20, 62, 33, 46, 10], dtype=torch.int32, device=cuda)
+    acc = torch.tensor([3, -1, 3, 1, 3, 3], dtype=torch.int32, device=cuda)
+    k = torch.from_numpy(rng.normal(size=(b, s, h, hd)).astype(np.float32)).to(cuda)
+    v = torch.from_numpy(rng.normal(size=(b, s, h, hd)).astype(np.float32)).to(cuda)
+    kw = dict(k_bits=k_bits, v_bits=v_bits, block=block)
+    if paged:
+        nb = s // block
+        ids = iter((rng.permutation(40) + 1).tolist())
+        table = torch.full((b, nb), -1, dtype=torch.int32)
+        for i, p in enumerate(start.tolist()):
+            if i < 5:
+                last = min(p // block + (0 if i == 4 else 1), nb - 1)
+                table[i, :last + 1] = torch.tensor([next(ids) for _ in range(last + 1)])
+        layer = tpaged.with_table(tpaged.init_paged_layer(41, b, s, h, hd, device=cuda, **kw),
+                                  table.numpy())
+        layer = tpaged.insert_prefill_rows(layer, table.numpy(), k, v,
+                                           valid_len=torch.where(torch.arange(b, device=cuda)
+                                                                 == 5, 0, start.long()))
+    else:
+        layer = tcache.insert_rows(tcache.init_kv_layer(b, s, h, hd, device=cuda, **kw),
+                                   torch.arange(b, device=cuda), k, v, valid_len=start.long())
+    kb = torch.from_numpy(rng.normal(size=(b, j, h, hd)).astype(np.float32)).to(cuda)
+    vb = torch.from_numpy(rng.normal(size=(b, j, h, hd)).astype(np.float32)).to(cuda)
+    return layer, start, acc, kb, vb
+
+
+@pytest.mark.parametrize("paged", (False, True))
+@pytest.mark.parametrize("k_bits,v_bits", [(8, 4), (4, 4), (8, 8), (2, 8), (6, 2)])
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_burst_kernel_equals_the_appends_one_at_a_time(cuda, paged, k_bits, v_bits, dtype):
+    """The burst append (one launch) against the same kernel one position at
+    a time (J = 1, the slots past their ``acc`` masked by ``acc`` -1) bit
+    for bit, and against the plain version (paged: blocks 1..P-1)."""
+    base, start, acc, kb, vb = _burst_case(cuda, paged, k_bits, v_bits, seed=k_bits + v_bits)
+    kb, vb = kb.to(dtype), vb.to(dtype)
+    fields = ("k_packed", "k_scale", "v_packed", "v_scale")
+    lb, ls, lp = _copy(base), _copy(base), _copy(base)
+    kernels.reset_counts()
+    kv_ops.quant_kv_append_burst(lb, start, acc, kb, vb)
+    assert kernels.LAUNCHES["quant_kv_append_paged" if paged else "quant_kv_append"] == 1
+    for j in range(kb.shape[1]):
+        kv_ops.quant_kv_append_burst(ls, start + j, torch.where(j <= acc, 0, -1),
+                                     kb[:, j:j + 1], vb[:, j:j + 1])
+    kv_ops.quant_kv_append_burst(lp, start, acc, kb, vb, impl="torch")
+    torch.cuda.synchronize()
+    rows = slice(1, None) if paged else slice(None)
+    for f in fields:
+        assert torch.equal(getattr(lb, f), getattr(ls, f)), f
+        assert torch.equal(getattr(lb, f)[rows], getattr(lp, f)[rows]), f
+    if paged:                                     # the kernels never write the trash block
+        for f in fields:
+            assert torch.equal(getattr(lb, f)[0], getattr(base, f)[0]), f

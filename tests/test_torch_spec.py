@@ -116,8 +116,9 @@ def test_dense_masked_append_and_attention_plain_match_jax(bits, impl):
     kernels.reset_counts()
     jl = jloop._masked_append(jl, jnp.asarray(LENS), jnp.asarray(kn), jnp.asarray(vn),
                               jnp.asarray(mask), impl)
-    tloop._masked_append(tl, torch.from_numpy(LENS), torch.from_numpy(kn), torch.from_numpy(vn),
-                         torch.from_numpy(mask), "auto")
+    # the port's dense masked row is position -1, which the append skips
+    kv_ops.quant_kv_append(tl, torch.where(torch.from_numpy(mask), torch.from_numpy(LENS), -1),
+                           torch.from_numpy(kn), torch.from_numpy(vn))
     _same_layer(tl, jl, scale_rtol=1e-6 if impl == "interpret" else 0.0)
     for name in FIELDS:
         assert torch.equal(getattr(tl, name)[1], before[name]), name

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the quantized-KV attention kernels (rows 3, 4, 6 and 7) of one tree.
+"""Time the quantized-KV kernels (rows 3-7 and 9, and the burst append) of one tree.
 
     python3 tools/attend_times.py [--src DIR] [--label NAME]
 
@@ -8,8 +8,15 @@ builds its kernels there, so that two trees can be timed in one session on
 one card, in turns (parent, change, change, parent).  Shapes are
 chip_smoke.py phase 2's, whose helpers this script reuses: rows 3 and 4 at
 B 4, S 512 (``KV``, ``KV_POS``), rows 6 and 7 at B 8, max_seq 1024 over 512
-shuffled blocks (``PG``, ``PG_POS``), K 8 / V 4, bf16 q.  For each kernel
-and for SDPA on the dequantized bf16 K/V it prints, in one JSON line, the
+shuffled blocks (``PG``, ``PG_POS``), K 8 / V 4, bf16 q; rows 5 and 9 (the
+appends) at the same shapes, both sides (K and V; on a tree whose append
+takes one side a launch, two launches, and one side alone as ``... one
+side``); the speculative commit's replay of one layer (``... burst``): K+1
+burst positions from ``SPEC_START`` with ``SPEC_ACC`` accepted, over
+``SPEC_KV``'s dense cache and over the paged layer from ``PG_POS``, through
+the burst append where the tree has one, else position by position as its
+``spec.loop.commit_state`` runs them.  For each and for SDPA on the
+dequantized bf16 K/V it prints, in one JSON line, the
 CUDA-event median of one call (``call_ms``: ``time_ms``, the wrapper's host
 time included, as chip_smoke.py's ``ms``) and the device time a launch
 takes back to back (``device_ms``: ``time_batch``), beside the card's name
@@ -26,6 +33,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
+def _replay(loop, layer, start, acc, kb, vb) -> None:
+    """One layer of a tree's ``commit_state`` replay, position by position."""
+    for j in range(kb.shape[1]):
+        loop._masked_append(layer, start + j, kb[:, j:j + 1], vb[:, j:j + 1], j <= acc, "cuda")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"), help="the tree's src directory")
@@ -36,12 +49,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("attend_times: no CUDA device", file=sys.stderr)
         return 2
-    sys.path[:0] = [str(Path(args.src).resolve()), str(ROOT)]
+    src = Path(args.src).resolve()
+    if not (src / "repro_torch").is_dir():
+        print(f"{Path(__file__).name}: {src} holds no repro_torch", file=sys.stderr)
+        return 2
+    sys.path[:0] = [str(src), str(ROOT)]
     import chip_smoke as cs
     from repro_torch.kernels.quant_kv import kernel as kvk
+    from repro_torch.kernels.quant_kv import ops as kv_ops
+    from repro_torch.kvcache.cache import init_kv_layer, insert_rows
     from repro_torch.kvcache.paged import to_dense
+    from repro_torch.spec import loop
 
     dt, kb, vb = torch.bfloat16, 8, 4
+    burst_api = hasattr(kv_ops, "quant_kv_append_burst")
+    appends = {}
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fns = {}
@@ -74,6 +96,36 @@ def main() -> int:
                                                       *pool, mask, **kw)
         fns[f"sdpa {kind}"] = partial(sdpa, q[:, :, None, :], kd, vd,
                                       attn_mask=valid[:, None, None, :])
+        appends[kind] = (layer, pos, kn, vn)
+    for kind, (layer, pos, kn, vn) in appends.items():
+        name = "quant_kv_append_paged" if kind == "paged" else "quant_kv_append"
+        fns[name] = partial(kv_ops.quant_kv_append, layer, pos, kn[:, None], vn[:, None],
+                            impl="cuda")
+        if not burst_api:           # one side a launch: time one side alone too
+            tbl = (layer.block_table,) if kind == "paged" else ()
+            fn = kvk.quant_kv_append_paged_cuda if kind == "paged" else kvk.quant_kv_append_cuda
+            fns[f"{name} one side"] = partial(fn, pos, *tbl, kn, layer.k_packed, layer.k_scale,
+                                              bits=kb, hd=layer.head_dim, block=layer.block)
+    dense = init_kv_layer(cs.SPEC_KV["B"], cs.SPEC_KV["S"], cs.SPEC_KV["n_kv"],
+                          cs.SPEC_KV["hd"], k_bits=kb, v_bits=vb, block=cs.SPEC_KV["block"],
+                          device="cuda")
+    rows = torch.randn((2, *dense.shape), generator=gen, device="cuda").to(dt)
+    start = torch.tensor(cs.SPEC_START, dtype=torch.int32, device="cuda")
+    dense = insert_rows(dense, torch.arange(rows.shape[1], device="cuda"), rows[0], rows[1],
+                        valid_len=start.long())
+    for kind, layer, st in (("dense", dense, start),
+                            ("paged", appends["paged"][0],
+                             torch.tensor(cs.PG_POS, dtype=torch.int32, device="cuda"))):
+        b, h, hd = st.numel(), layer.shape[2], layer.head_dim
+        kb_, vb_ = (torch.randn((b, cs.SPEC_K + 1, h, hd), generator=gen, device="cuda").to(dt)
+                    for _ in range(2))
+        acc = torch.tensor(cs.SPEC_ACC, device="cuda")
+        name = "quant_kv_append_paged burst" if kind == "paged" else "quant_kv_append burst"
+        if burst_api:
+            fns[name] = partial(kv_ops.quant_kv_append_burst, layer, st, acc, kb_, vb_,
+                                impl="cuda")
+        else:
+            fns[name] = partial(_replay, loop, layer, st, acc, kb_, vb_)
     times = {name: {"call_ms": cs.time_ms(torch, fn), "device_ms": cs.time_batch(torch, fn,
                                                                                  reps=20)}
              for name, fn in fns.items()}

@@ -16,6 +16,8 @@ compute wrong outputs; they say what that work costs, nothing more.
   nocompute  no scores and no probabilities times V (loads, softmax, fold kept)
   noload     no tile dequantized into shared memory (the loads go with it)
   nofold     the partials are not read across the cluster (syncs kept)
+  norequant  the fused steps (rows 3 and 7) skip the touched block's
+             requantization (the attention then reads a stale copy)
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 BODY = "repro_torch/csrc/quant_kv.cuh"
+DENSE_STEP = "repro_torch/csrc/quant_kv_decode_step.cu"
+PAGED = "repro_torch/csrc/quant_kv_paged.cu"
 PLAN = "repro_torch/kernels/quant_kv/kernel.py"
 
 VARIANTS = {
@@ -40,6 +44,9 @@ VARIANTS = {
     "noload": [(BODY, "    store_tile(krows, vrows, ks, vs, t0, S, block, bidx, regs);\n", "")],
     "nofold": [(BODY, "for (int j0 = 0; j0 < cnt; j0 += kFoldBatch) {",
                 "for (int j0 = 0; j0 < 0; j0 += kFoldBatch) {")],
+    "norequant": [(DENSE_STEP, "    requantize_kv(kp + ", "    if (0) requantize_kv(kp + "),
+                  (PAGED, "    requantize_kv(reinterpret_cast",
+                   "    if (0) requantize_kv(reinterpret_cast")],
 }
 
 
