@@ -30,20 +30,23 @@ the last line is not the ``ok`` line:
      the dequantized weights, with its ptxas registers and shared memory,
      and the host's time a call at M 128), and where the plan has one CTA walk the K
      ranges, that plan against a cluster of CTAs (bit-equal, both timed);
-     the quantized-KV attention split over S (rows 3, 4, 6, 7) with its
-     plan's cluster against one CTA walking the same chunks, dense at S 512
-     and 2048 (two rounds of 16 chunks) and paged at max_seq 1024: outputs
-     and cache bytes bit-equal, both timed; rows 3, 4, 6 and 7 also with
-     their device time back to back beside SDPA's;
+     the quantized-KV attention split over S (rows 3, 4, 6, 7 and 8) with
+     its plan's cluster against one CTA walking the same chunks, dense at S
+     512 and 2048 (two rounds of 16 chunks; row 8 at d 512, B 4, 4-bit
+     weights, f32 x) and paged at max_seq 1024: outputs and cache bytes
+     bit-equal, both timed; rows 3, 4, 6 and 7 also with their device time
+     back to back beside SDPA's;
      the fake-quant forward and STE backward at gemma-2b's ``w_gate``
      and tied embedding (per model dimension for the lookup, per vocabulary
-     entry for the head), bits 2-8 and 32, f32 and bf16, bytes exact; and
+     entry for the head), bits 2-8 and 32, f32 and bf16, bytes exact, with
+     a call's time and the device time back to back; and
      row 8, the projection-fused step, at gemma-2b's head geometry with d
      512 (B 4 and 8, a position at S), weights 2-8 bits against every state
      width: bit for bit equal to the launches it replaces (the GEMV, the
      torch rotary, the dense step), within tolerance of the plain step run
      on the GEMV's projection and, where no cache byte differs, of its plain
-     version;
+     version; a call and the device time back to back, its and the
+     composition's;
   3. full-width gemma-2b in f32: prefill + 8 teacher-forced decode steps
      through the kernels and again through the plain versions, and the
      speculative verify pass against K+1 decode steps;
@@ -154,6 +157,9 @@ SPEC_ACC = (3, 0, 2, 1, 3, 3, 3, -1)
 PROJ = dict(d=512, n_kv=1, g=8, hd=256, S=512, block=16)
 PROJ_POS = {4: (15, 256, 511, 512), 8: (0, 15, 16, 255, 256, 496, 511, 512)}
 PROJ_WBITS = (2, 4, 6, 8)
+#: time_batch's spin a call for row 8's composition (the GEMV, about ten torch
+#: ops of the rotary, row 3): about 1.7 ms at 1.8 GHz, past its host time a call
+COMPOSITION_SPIN = int(3e6)
 #: phase 2's fake-quant bit-widths (32 is what pretraining passes)
 FQ_BITS = (2, 4, 6, 8, 32)
 #: phase 7: the search command's arguments (8-bit weights are about 2388 MiB,
@@ -292,15 +298,17 @@ def check_linears(torch, gen, results: dict) -> None:
             del qt, packed, scale
 
 
-def time_batch(torch, fn, reps: int = 10, warmup: int = 2) -> float:
+def time_batch(torch, fn, reps: int = 10, warmup: int = 2, spin: int = int(2e5)) -> float:
     """Mean CUDA-event time (ms) of ``reps`` back-to-back calls of ``fn``, L2
-    as the last call left it (warm).  A spin on the device ahead of them lets
-    the host queue every launch first, so the device runs them without the
-    gaps of the host's launch time."""
+    as the last call left it (warm).  A spin on the device ahead of them
+    (``spin`` cycles a call: 2e5 is about 0.1 ms at 1.8 GHz) lets the host
+    queue every launch first, so the device runs them without the gaps of
+    the host's launch time; a call whose host time is longer (a composition
+    of many launches) needs a longer spin."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2e5) * reps)      # about 0.1 ms a launch at 1.8 GHz
+    torch.cuda._sleep(spin * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -624,19 +632,20 @@ def compare_split_modes(torch, gen) -> None:
 ATTEND_MODE_S = (512, 2048)
 
 
-def compare_attend_modes(torch, gen) -> None:
-    """Rows 3, 4, 6 and 7 with their plan's cluster against one CTA walking the
-    same chunks (``kernel.walk_plan``): outputs, cache bytes and scales
-    bit-equal, and both timed (device time of back-to-back launches, median
-    of five interleaved rounds, min-max).  K 8 / V 4, bf16 q; the dense rows
-    at ATTEND_MODE_S with phase 2's write positions scaled to S, the paged
-    rows on PG's shuffled pool."""
+def _attend_mode_runs(torch, gen):
+    """compare_attend_modes' launches: (row, S, block, B, the cache, run(layer,
+    plan)) for rows 3 and 4 at ATTEND_MODE_S (K 8 / V 4, bf16 q, phase 2's
+    write positions scaled to S), rows 6 and 7 on PG's shuffled pool, and row
+    8 at PROJ's shapes (B 4, w 4 bits, f32 x) at ATTEND_MODE_S with PROJ_POS[4]
+    scaled to S (the last one at S: it writes nothing)."""
     from repro_torch.kernels.quant_kv import kernel as kvk
     from repro_torch.kvcache.cache import init_kv_layer, insert_rows
+    from repro_torch.models.layers import rope_freqs
+    from repro_torch.quant.tensor import quantize_tensor
 
     dt, kb, vb = torch.bfloat16, 8, 4
     fields = ("k_packed", "k_scale", "v_packed", "v_scale")
-    cases = []
+    runs = []
     for s in ATTEND_MODE_S:
         c = dict(KV, S=s)
         pos = torch.tensor([min(p * s // KV["S"], s - 1) for p in KV_POS], dtype=torch.int32,
@@ -646,56 +655,96 @@ def compare_attend_modes(torch, gen) -> None:
         rows = torch.randn((2, c["B"], s, c["n_kv"], c["hd"]), generator=gen, device="cuda")
         layer = insert_rows(layer, torch.arange(c["B"], device="cuda"), rows[0].to(dt),
                             rows[1].to(dt), valid_len=pos.long())
-        cases.append(("dense", c, pos, layer, None))
-    pg = _paged_layer(torch, gen, kb, vb)
-    cases.append(("paged", PG, torch.tensor(PG_POS, dtype=torch.int32, device="cuda"), pg,
-                  pg.block_table))
-    for kind, c, pos, base, tbl in cases:
-        s = c["S"]
-        valid = torch.arange(s, device="cuda")[None, :] <= pos[:, None].long()
-        mask = torch.where(valid, 0.0, -1e30).float()
+        mask = torch.where(torch.arange(s, device="cuda")[None, :] <= pos[:, None].long(),
+                           0.0, -1e30).float()
         qg = torch.randn((c["B"], c["n_kv"], c["g"], c["hd"]), generator=gen,
                          device="cuda").to(dt)
         kn, vn = (torch.randn((c["B"], c["n_kv"], c["hd"]), generator=gen, device="cuda").to(dt)
                   for _ in range(2))
         kw = dict(k_bits=kb, v_bits=vb, hd=c["hd"], block=c["block"])
-        if kind == "dense":
-            rows = {"quant_kv_decode_step": lambda lay, lp: kvk.quant_kv_decode_step_cuda(
-                        pos, qg, kn, vn, *(getattr(lay, f) for f in fields), mask, **kw,
-                        launch=lp),
-                    "quant_kv_attention": lambda lay, lp: kvk.quant_kv_attention_cuda(
-                        qg, *(getattr(lay, f) for f in fields), mask, **kw, launch=lp)}
-        else:
-            rows = {"quant_kv_decode_step_paged":
-                    lambda lay, lp: kvk.quant_kv_decode_step_paged_cuda(
-                        pos, tbl, qg, kn, vn, *(getattr(lay, f) for f in fields), mask, **kw,
-                        launch=lp),
-                    "quant_kv_attention_paged":
-                    lambda lay, lp: kvk.quant_kv_attention_paged_cuda(
-                        tbl, qg, *(getattr(lay, f) for f in fields), mask, **kw, launch=lp)}
-        for name, run in rows.items():
-            p = kvk.attend_plan(name, s, c["block"])
-            plans = {"cluster": p, "walk": kvk.walk_plan(p)}
-            lays = {mode: _clone(base) for mode in plans}
-            outs = {mode: run(lays[mode], lp) for mode, lp in plans.items()}
-            torch.cuda.synchronize()
-            if not torch.equal(outs["cluster"], outs["walk"]):
-                raise AssertionError(f"{name} S={s}: cluster and walk outputs differ by "
-                                     f"{float((outs['cluster'] - outs['walk']).abs().max()):.3g}")
-            for f in fields:
-                if not torch.equal(getattr(lays["cluster"], f), getattr(lays["walk"], f)):
-                    raise AssertionError(f"{name} S={s}: cluster and walk {f} differ")
-            times = {mode: [] for mode in plans}
-            for _ in range(5):
-                for mode, lp in plans.items():
-                    times[mode].append(time_batch(torch, lambda lp=lp, lay=lays[mode]:
-                                                  run(lay, lp), reps=20))
-            log(f"  attention modes {name} B={c['B']} S={s} ({p.chunks} chunks of {p.chunk}) "
-                f"k{kb}/v{vb} bf16, device ms: "
-                + "; ".join(f"{mode} (x{plans[mode].cluster}) {statistics.median(t):.4f} "
-                            f"[{min(t):.4f}, {max(t):.4f}]" for mode, t in times.items())
-                + "; bit-equal")
-            del lays, outs
+        runs.append(("quant_kv_decode_step", s, c["block"], c["B"], layer,
+                     lambda lay, lp, pos=pos, qg=qg, kn=kn, vn=vn, mask=mask, kw=kw:
+                     kvk.quant_kv_decode_step_cuda(pos, qg, kn, vn, *(getattr(lay, f)
+                                                                      for f in fields),
+                                                   mask, **kw, launch=lp)))
+        runs.append(("quant_kv_attention", s, c["block"], c["B"], layer,
+                     lambda lay, lp, qg=qg, mask=mask, kw=kw: kvk.quant_kv_attention_cuda(
+                         qg, *(getattr(lay, f) for f in fields), mask, **kw, launch=lp)))
+    c = PG
+    pg = _paged_layer(torch, gen, kb, vb)
+    pos = torch.tensor(PG_POS, dtype=torch.int32, device="cuda")
+    mask = torch.where(torch.arange(c["S"], device="cuda")[None, :] <= pos[:, None].long(),
+                       0.0, -1e30).float()
+    qg = torch.randn((c["B"], c["n_kv"], c["g"], c["hd"]), generator=gen, device="cuda").to(dt)
+    kn, vn = (torch.randn((c["B"], c["n_kv"], c["hd"]), generator=gen, device="cuda").to(dt)
+              for _ in range(2))
+    kw = dict(k_bits=kb, v_bits=vb, hd=c["hd"], block=c["block"])
+    tbl = pg.block_table
+    runs.append(("quant_kv_decode_step_paged", c["S"], c["block"], c["B"], pg,
+                 lambda lay, lp, pos=pos, qg=qg, kn=kn, vn=vn, mask=mask, kw=kw:
+                 kvk.quant_kv_decode_step_paged_cuda(pos, tbl, qg, kn, vn, *(getattr(lay, f)
+                                                                            for f in fields),
+                                                     mask, **kw, launch=lp)))
+    runs.append(("quant_kv_attention_paged", c["S"], c["block"], c["B"], pg,
+                 lambda lay, lp, qg=qg, mask=mask, kw=kw: kvk.quant_kv_attention_paged_cuda(
+                     tbl, qg, *(getattr(lay, f) for f in fields), mask, **kw, launch=lp)))
+    c, b = PROJ, 4
+    hq = c["n_kv"] * c["g"]
+    wq = quantize_tensor(torch.randn((c["d"], (hq + 2 * c["n_kv"]) * c["hd"]), generator=gen,
+                                     device="cuda") / c["d"] ** 0.5, 4)
+    x = torch.randn((b, c["d"]), generator=gen, device="cuda")
+    for s in ATTEND_MODE_S:
+        pos = torch.tensor([p * s // c["S"] for p in PROJ_POS[b]], dtype=torch.int32,
+                           device="cuda")
+        layer = init_kv_layer(b, s, c["n_kv"], c["hd"], k_bits=kb, v_bits=vb, block=c["block"],
+                              device="cuda")
+        rows = torch.randn((2, b, s, c["n_kv"], c["hd"]), generator=gen, device="cuda")
+        layer = insert_rows(layer, torch.arange(b, device="cuda"), rows[0], rows[1],
+                            valid_len=pos.long().clamp(max=s))
+        mask = torch.where(torch.arange(s, device="cuda")[None, :] <= pos[:, None].long(),
+                           0.0, -1e30).float()
+        ang = pos[:, None].float() * rope_freqs(c["hd"], 10_000.0, device="cuda")
+        kw = dict(w_bits=4, k_bits=kb, v_bits=vb, n_heads=hq, hd=c["hd"], block=c["block"])
+        runs.append(("quant_kv_decode_step_proj", s, c["block"], b, layer,
+                     lambda lay, lp, pos=pos, mask=mask, cs=torch.cos(ang), sn=torch.sin(ang),
+                     kw=kw:
+                     kvk.quant_kv_decode_step_proj_cuda(
+                         pos, x, wq.packed, wq.scale.reshape(1, -1), cs, sn,
+                         *(getattr(lay, f) for f in fields), mask, **kw, launch=lp)))
+    return runs
+
+
+def compare_attend_modes(torch, gen) -> None:
+    """Rows 3, 4, 6, 7 and 8 with their plan's cluster against one CTA walking
+    the same chunks (``kernel.walk_plan``): outputs, cache bytes and scales
+    bit-equal, and both timed (device time of back-to-back launches, median
+    of five interleaved rounds, min-max), at ``_attend_mode_runs``' shapes."""
+    from repro_torch.kernels.quant_kv import kernel as kvk
+
+    fields = ("k_packed", "k_scale", "v_packed", "v_scale")
+    for name, s, block, b, base, run in _attend_mode_runs(torch, gen):
+        p = kvk.attend_plan(name, s, block)
+        plans = {"cluster": p, "walk": kvk.walk_plan(p)}
+        lays = {mode: _clone(base) for mode in plans}
+        outs = {mode: run(lays[mode], lp) for mode, lp in plans.items()}
+        torch.cuda.synchronize()
+        if not torch.equal(outs["cluster"], outs["walk"]):
+            raise AssertionError(f"{name} S={s}: cluster and walk outputs differ by "
+                                 f"{float((outs['cluster'] - outs['walk']).abs().max()):.3g}")
+        for f in fields:
+            if not torch.equal(getattr(lays["cluster"], f), getattr(lays["walk"], f)):
+                raise AssertionError(f"{name} S={s}: cluster and walk {f} differ")
+        times = {mode: [] for mode in plans}
+        for _ in range(5):
+            for mode, lp in plans.items():
+                times[mode].append(time_batch(torch, lambda lp=lp, lay=lays[mode]: run(lay, lp),
+                                              reps=20))
+        log(f"  attention modes {name} B={b} S={s} ({p.chunks} chunks of {p.chunk}) k8/v4, "
+            f"device ms: "
+            + "; ".join(f"{mode} (x{plans[mode].cluster}) {statistics.median(t):.4f} "
+                        f"[{min(t):.4f}, {max(t):.4f}]" for mode, t in times.items())
+            + "; bit-equal")
+        del lays, outs
 
 
 def _kv_layer(torch, gen, k_bits, v_bits, dt):
@@ -841,10 +890,11 @@ def check_decode_step_proj(torch, gen, results: dict) -> None:
     within rel 1e-5 wherever no cache byte differs; where bytes differ (kernel
     1's f32 sum moved a requantized level at a rounding edge, so the plain
     step attends to another level) that rel and the count of bytes are
-    logged.  CUDA-event medians at B 4, w 4, K 8 / V 4."""
+    logged.  CUDA-event medians and device time back to back, the kernel's
+    and the composition's, at B 4, w 4, K 8 / V 4."""
     from repro_torch.core.packing import LANES
     from repro_torch.kernels.quant_kv import ops as kv_ops
-    from repro_torch.kernels.quant_kv.kernel import quant_kv_decode_step_proj_cuda
+    from repro_torch.kernels.quant_kv.kernel import attend_plan, quant_kv_decode_step_proj_cuda
     from repro_torch.kernels.quant_kv.ref import quant_kv_decode_step_proj_ref
     from repro_torch.models.layers import rope_freqs
     from repro_torch.quant.tensor import quantize_tensor
@@ -922,14 +972,21 @@ def check_decode_step_proj(torch, gen, results: dict) -> None:
                 scale2 = wq.scale.reshape(1, -1)
                 kw = dict(w_bits=w_bits, k_bits=k_bits, v_bits=v_bits, n_heads=hq, hd=hd,
                           block=c["block"])
-                t_k = time_ms(torch, lambda: quant_kv_decode_step_proj_cuda(
-                    pos, x, wq.packed, scale2, cos, sin, lk.k_packed, lk.k_scale,
-                    lk.v_packed, lk.v_scale, mask, **kw))
+                def run_k():
+                    return quant_kv_decode_step_proj_cuda(
+                        pos, x, wq.packed, scale2, cos, sin, lk.k_packed, lk.k_scale,
+                        lk.v_packed, lk.v_scale, mask, **kw)
+
+                def run_c():
+                    return proj_composition(torch, x, wq, lc, pos, valid, n_heads=hq,
+                                            step="cuda")
+
+                t_k, t_c = time_ms(torch, run_k), time_ms(torch, run_c)
+                d_k = time_batch(torch, run_k, reps=20)
+                d_c = time_batch(torch, run_c, reps=20, spin=COMPOSITION_SPIN)
                 t_p = time_ms(torch, lambda: quant_kv_decode_step_proj_ref(
                     x, wq.packed, scale2, cos, sin, lp, pos, valid, w_bits=w_bits,
                     n_heads=hq))
-                t_c = time_ms(torch, lambda: proj_composition(
-                    torch, x, wq, lc, pos, valid, n_heads=hq, step="cuda"))
                 t_g = time_ms(torch, lambda: quant_gemv_cuda(x, wq.packed, wq.scale,
                                                              bits=w_bits, k=d))
                 hdp = {bb: -(-hd // LANES[bb]) for bb in (k_bits, v_bits)}
@@ -945,9 +1002,11 @@ def check_decode_step_proj(torch, gen, results: dict) -> None:
                 log(f"  quant_kv_decode_step_proj {tag} d={d} S={c['S']} hd={hd} g={g} f32: "
                     f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  composition (GEMV, rotary, "
                     f"kernel 3) {t_c:.4f} ms, of it the GEMV {t_g:.4f} ms  bound {b_ms:.5f} ms "
-                    f"({b_by})")
-                r.update(ms=t_k, plain_ms=t_p, library_ms=None, composition_ms=t_c,
-                         bytes=nbytes, flops=flops, rate=F32_FLOP_S)
+                    f"({b_by}); device time back to back: kernel {d_k:.4f} ms  composition "
+                    f"{d_c:.4f} ms (plan: a cluster of "
+                    f"{attend_plan('quant_kv_decode_step_proj', c['S'], c['block']).cluster})")
+                r.update(ms=t_k, device_ms=d_k, plain_ms=t_p, library_ms=None,
+                         composition_ms=t_c, bytes=nbytes, flops=flops, rate=F32_FLOP_S)
         del wq
     log(f"  ok row 8 at w {PROJ_WBITS} x k/v {KV_BITS} x B {tuple(PROJ_POS)}: cache bytes, "
         f"scales and output equal to the composition (kernel 1, torch rotary, kernel 3) bit "
@@ -1525,23 +1584,28 @@ def check_fake_quant(torch, cfg, gen, results: dict) -> None:
                 results["fake_quant"]["library_ms"] += t_l
                 log(f"  fake_quant {name:12s} {tuple(shape)} bits=4 bf16: "
                     f"torch.fake_quantize_per_channel_affine {t_l:.4f} ms (not bit-equal)")
+                def fwd():
+                    return fake_quant_cuda(w, scale, bits, rowwise=rowwise)
+
+                def bwd():
+                    return fake_quant_ste_bwd_cuda(w, scale, bits, g, rowwise=rowwise)
+
                 times = {
-                    "fake_quant": (time_ms(torch, lambda: fake_quant_cuda(w, scale, bits,
-                                                                          rowwise=rowwise)),
+                    "fake_quant": (time_ms(torch, fwd), time_batch(torch, fwd),
                                    time_ms(torch, lambda: fake_quant_ref(w, scale, bits)),
                                    2 * n * el + 4 * scale.numel()),
                     "fake_quant_ste_bwd": (
-                        time_ms(torch, lambda: fake_quant_ste_bwd_cuda(w, scale, bits, g,
-                                                                       rowwise=rowwise)),
+                        time_ms(torch, bwd), time_batch(torch, bwd),
                         time_ms(torch, lambda: fake_quant_ste_bwd_ref(w, scale, bits, g)),
                         3 * n * el + 4 * scale.numel())}
-                for kern, (t_k, t_p, nbytes) in times.items():
+                for kern, (t_k, d_k, t_p, nbytes) in times.items():
                     b_ms, b_by = bound(nbytes, 0.0)
                     log(f"  {kern:18s} {name:12s} {tuple(shape)} bits=4 bf16: kernel {t_k:.4f} ms"
-                        f"  plain {t_p:.4f} ms  bound {b_ms:.4f} ms ({b_by}), "
-                        f"{nbytes / t_k / 1e6:.0f} GB/s")
+                        f" (device time back to back {d_k:.4f} ms)  plain {t_p:.4f} ms  bound "
+                        f"{b_ms:.4f} ms ({b_by}), {nbytes / t_k / 1e6:.0f} GB/s")
                     r = results[kern]
                     r["ms"] += t_k
+                    r["device_ms"] += d_k
                     r["plain_ms"] += t_p
                     r["bytes"] += nbytes
         log(f"  ok fake_quant {name} {tuple(shape)}: forward and STE backward bytes exact, "
@@ -1549,6 +1613,10 @@ def check_fake_quant(torch, cfg, gen, results: dict) -> None:
         del w32, g32, w, g
         torch.cuda.empty_cache()
     results["fake_quant_ste_bwd"]["library_ms"] = None
+    fq, ste = results["fake_quant"], results["fake_quant_ste_bwd"]
+    log(f"  row 10 at bits 4 bf16, the three shapes summed: forward {fq['ms']:.4f} ms a call, "
+        f"{fq['device_ms']:.4f} ms device time back to back; STE backward {ste['ms']:.4f} and "
+        f"{ste['device_ms']:.4f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -2633,8 +2701,8 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"    {line.strip()}")
 
-    results = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0,
-                          max_abs_err=0.0) for name in kernels.KERNELS}
+    results = {name: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0,
+                          flops=0.0, max_abs_err=0.0) for name in kernels.KERNELS}
     results["gemv_gemm_gap"] = {}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     # the sweep's host-time rows and the split-mode comparison draw from their

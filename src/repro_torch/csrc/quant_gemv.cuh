@@ -209,22 +209,32 @@ __device__ __forceinline__ uint4 gemv_load16(const uint8_t* __restrict__ row, in
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+// Where a warp's tile t starts: row0 + t * tile_stride (the GEMV).  Row 8
+// passes its own map (quant_kv_proj.cu ProjTiles): a rank's tiles of one kv
+// head's rows, which lie in three slices of wqkv.
+struct StridedTiles {
+  __device__ __forceinline__ int operator()(int row0, int tile_stride, int t) const {
+    return row0 + t * tile_stride;
+  }
+};
+
 // One warp's tiles of 16 rows, each summed over one K range against the
 // staged x into a C fragment (rows g, g + 8 x columns 2q, 2q + 1) from
-// zero.  Tile t's rows start at row0 + t * tile_stride (rows at or past N
-// read zeros); the range starts at byte kb0 of each row and is `rounds`
-// rounds long.  The (tile, round) pairs form one stream, kGemvGroup rounds
+// zero.  Tile t's rows start at tile_rows(row0, tile_stride, t) (rows at or
+// past N read zeros); the range starts at byte kb0 of each row and is
+// `rounds` rounds long.  The (tile, round) pairs form one stream, kGemvGroup rounds
 // a load group: a lane keeps two groups in flight, the next one loading
 // while one is summed, across tile boundaries, so a warp that walks many
 // tiles never waits for a tile's first bytes.  prime() asks for the first
 // group, so a CTA can stage x while it comes; run() sums and hands each
 // finished tile's fragment to sink(t, acc).
-template <int CB, bool XF32>
+template <int CB, bool XF32, typename TileRows = StridedTiles>
 struct GemvWarp {
   static constexpr int G = kGemvGroup;
   const uint8_t* __restrict__ packed;
   int kp, wvec, kb0, rounds, lane;
   int row0, tile_stride, N, tiles;
+  TileRows tile_rows;
   uint4 wa[2][G], wb[2][G];
 
   template <int B>
@@ -234,7 +244,7 @@ struct GemvWarp {
     for (int i = 0; i < G; ++i) {
       const int j = j0 + i;
       const int t = j / rounds, r = j - t * rounds;
-      const int row = row0 + t * tile_stride + g;
+      const int row = tile_rows(row0, tile_stride, t) + g;
       const int off = kb0 + r * 64 + q * 16;
       const bool in = j < tiles * rounds;
       wa[B][i] = gemv_load16(packed + (size_t)row * kp, off, kp, in && row < N, wvec);

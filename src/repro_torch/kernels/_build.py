@@ -54,8 +54,9 @@ SIGNATURES = {
     # B, H, S, hd, block, k_bits, v_bits, J, dtype, stream
     "rq_quant_kv_append_burst": [_P] * 8 + [_I] * 9 + [_P],
     # pos, x, w_packed, w_scale, cos, sin, k_packed, k_scale, v_packed, v_scale, mask,
-    # out, B, d, n_heads, n_kv, S, hd, block, w_bits, k_bits, v_bits, splits, dtype, stream
-    "rq_quant_kv_decode_step_proj": [_P] * 12 + [_I] * 12 + [_P],
+    # out, B, d, n_heads, n_kv, S, hd, block, w_bits, k_bits, v_bits, splits, cluster, dtype,
+    # stream
+    "rq_quant_kv_decode_step_proj": [_P] * 12 + [_I] * 13 + [_P],
     # w, scale, out, rows, cols, bits, rowwise, dtype, stream
     "rq_fake_quant": [_P] * 3 + [_L, _L, _F, _I, _I, _P],
     # w, scale, g, dw, rows, cols, bits, rowwise, dtype, stream

@@ -3,7 +3,8 @@
 
 The attention body (``csrc/quant_kv.cuh`` ``attend``) is split over S; its
 launch is planned here, in Python, so that the CPU tests can check it
-(:func:`attend_plan`).
+(:func:`attend_plan`), and so is the share of ``wqkv`` each CTA of row 8's
+cluster projects (:func:`proj_tiles`, :func:`proj_row`).
 """
 from __future__ import annotations
 
@@ -23,10 +24,9 @@ TILE = 32
 #: non-portable cluster size)
 MAX_CLUSTER = 16
 #: the fused steps: one CTA requantizes the touched block and reads it
-FUSED = ("quant_kv_decode_step", "quant_kv_decode_step_paged")
-#: every kernel that runs the split attention body; row 8 walks it on one CTA
-ATTEND_KERNELS = FUSED + ("quant_kv_attention", "quant_kv_attention_paged",
-                          "quant_kv_decode_step_proj")
+FUSED = ("quant_kv_decode_step", "quant_kv_decode_step_paged", "quant_kv_decode_step_proj")
+#: every kernel that runs the split attention body
+ATTEND_KERNELS = FUSED + ("quant_kv_attention", "quant_kv_attention_paged")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,15 +76,16 @@ def attend_plan(kernel: str, s: int, block: int) -> AttendPlan:
     """The launch of ``kernel``'s attention over S = ``s`` positions.
 
     A cluster of one CTA per chunk, at most :data:`MAX_CLUSTER`; one CTA
-    walks every chunk for row 8 (each of its CTAs reads all of ``wqkv``, so
-    a cluster would multiply those reads) and for a fused step whose
-    sequence blocks do not each lie inside one chunk (only one CTA may
-    requantize a block).  Never depends on B: the bits do not either.
+    walks every chunk for a fused step (rows 3, 7 and 8) whose sequence
+    blocks do not each lie inside one chunk (only one CTA may requantize a
+    block).  Row 8 takes row 3's rule: its ranks share the projection of
+    ``wqkv`` (:func:`proj_tiles`), so a cluster reads ``wqkv`` once a slot,
+    as one CTA does.  Never depends on B: the bits do not either.
     """
     if kernel not in ATTEND_KERNELS:
         raise ValueError(f"attend_plan: {kernel!r} does not run the attention body")
     cluster = min(-(-s // CHUNK), MAX_CLUSTER)
-    if kernel == "quant_kv_decode_step_proj" or (kernel in FUSED and CHUNK % block):
+    if kernel in FUSED and CHUNK % block:
         cluster = 1
     return AttendPlan(s, CHUNK, cluster)
 
@@ -165,29 +166,55 @@ def quant_kv_decode_step_cuda(pos, q, k_new, v_new, k_packed, k_scale, v_packed,
 
 #: the projection-fused step's batch limit (the GEMV regime, as the JAX gate's B <= 8)
 PROJ_MAX_B = 8
+#: rows of one projection tile: one ``mma.sync`` A tile (``csrc/quant_gemv.cuh`` kGemvTileRows)
+PROJ_TILE = 16
+
+
+def proj_row(r: int, h: int, n_heads: int, n_kv: int, hd: int) -> int:
+    """The ``wqkv`` row of kv head ``h``'s projected row ``r``: its query group's
+    g * hd rows, then its K head's hd rows, then its V head's (the Pallas
+    BlockSpecs' slices; ``csrc/quant_kv_proj.cu`` ``proj_row``)."""
+    qr = n_heads // n_kv * hd
+    if r < qr:
+        return h * qr + r
+    if r < qr + hd:
+        return (n_heads + h) * hd + r - qr
+    return (n_heads + n_kv + h) * hd + r - qr - hd
+
+
+def proj_tiles(n_heads: int, n_kv: int, hd: int, cluster: int, rank: int) -> range:
+    """The 16-row tiles of a (slot, kv head)'s (g + 2) * hd projected rows that
+    rank ``rank`` of a ``cluster``-CTA cluster projects: tiles ``[rank * T //
+    cluster, (rank + 1) * T // cluster)`` of T, so the ranks share them
+    whole and in order, every tile on one rank (a rank may have none where
+    T < cluster).  Tile t's owner is ``((t + 1) * cluster - 1) // T``."""
+    tiles = (n_heads // n_kv + 2) * hd // PROJ_TILE
+    return range(rank * tiles // cluster, (rank + 1) * tiles // cluster)
 
 
 def quant_kv_decode_step_proj_cuda(pos, x, w_packed, w_scale, cos, sin, k_packed, k_scale,
                                    v_packed, v_scale, mask, *, w_bits: int, k_bits: int,
-                                   v_bits: int, n_heads: int, hd: int,
-                                   block: int) -> torch.Tensor:
-    """One CTA per (slot, kv head): project the query group and the K/V rows
-    from the fused ``wqkv`` (the GEMV's arithmetic over its K ranges,
-    ``quant_gemv.kernel.split_of(d)``), rotate, requantize the touched
-    block, attend (the split body walked by that CTA: ``attend_plan``'s walk
-    mode).
+                                   v_bits: int, n_heads: int, hd: int, block: int,
+                                   launch: AttendPlan | None = None) -> torch.Tensor:
+    """One cluster of ``attend_plan``'s size per (slot, kv head): each rank
+    projects its :func:`proj_tiles` of the query group and the K/V rows from
+    the fused ``wqkv`` (the GEMV's arithmetic over its K ranges,
+    ``quant_gemv.kernel.split_of(d)``), the ranks exchange the rows, the rank
+    holding ``pos`` requantizes the touched block, and all attend, split over
+    S as row 3 does.
 
     ``pos`` (B,) int32, B <= 8; ``x`` (B, d) f32; ``w_packed``
     ((n_heads + 2 n_kv) hd, d/lanes) int8 and ``w_scale`` (1, that) f32;
     ``cos``/``sin`` (B, hd/2) f32 at ``pos``; packed ``(B, n_kv, S, hd/lanes)``
     int8 and scales ``(B, n_kv, S/block, 1)`` f32, WRITTEN IN PLACE (the
     touched block and its scale); ``mask`` (B, S) f32 additive.  Returns
-    (B, n_kv, g, hd) f32.
+    (B, n_kv, g, hd) f32.  ``launch`` as in :func:`quant_kv_decode_step_cuda`.
     """
     b, d = x.shape
     n_kv, s = k_packed.shape[1], k_packed.shape[2]
     dev = x.device
     _check_hd("quant_kv_decode_step_proj", hd, s, block)
+    csize = _split("quant_kv_decode_step_proj", s, block, launch)
     if x.dtype != torch.float32:
         raise TypeError(f"quant_kv_decode_step_proj: the CUDA kernel takes float32 x, "
                         f"got {x.dtype}")
@@ -211,8 +238,8 @@ def quant_kv_decode_step_proj_cuda(pos, x, w_packed, w_scale, cos, sin, k_packed
         pos.data_ptr(), x.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(), cos.data_ptr(),
         sin.data_ptr(), k_packed.data_ptr(), k_scale.data_ptr(), v_packed.data_ptr(),
         v_scale.data_ptr(), mask.data_ptr(), out.data_ptr(), b, d, n_heads, n_kv, s, hd, block,
-        w_bits, k_bits, v_bits, split_of(d), _build.dtype_code(x, "quant_kv_decode_step_proj"),
-        _build.stream_of(x))
+        w_bits, k_bits, v_bits, split_of(d), csize,
+        _build.dtype_code(x, "quant_kv_decode_step_proj"), _build.stream_of(x))
     LAUNCHES["quant_kv_decode_step_proj"] += 1
     _build.check(rc, "quant_kv_decode_step_proj")
     return out

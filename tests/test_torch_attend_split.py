@@ -181,10 +181,10 @@ def test_every_plan_covers_each_position_once_and_folds_in_chunk_order(row):
         assert p.chunks == -(-s // p.chunk)
         assert 1 <= p.cluster <= min(p.chunks, kvk.MAX_CLUSTER)
         assert p.mode == ("walk" if p.cluster == 1 else "cluster")
-        if row == 8:
-            assert p.mode == "walk"
-        else:
-            assert p.cluster == min(p.chunks, kvk.MAX_CLUSTER)
+        assert p.cluster == min(p.chunks, kvk.MAX_CLUSTER)
+        if row == 8:      # row 3's rule, at every block, also where a block spans chunks
+            for block in (8, 16, 32, 48, 64, 128):
+                assert kvk.attend_plan(kernel, s, block) == kvk.attend_plan(ROWS[3], s, block)
         # the ranks' chunks partition the chunks; the chunks partition [0, S)
         taken = sorted(c for r in range(p.cluster) for c in p.rank_chunks(r))
         assert taken == list(range(p.chunks))

@@ -16,7 +16,9 @@ decode steps and the speculative engine against the non-speculative one,
 the fake-quant forward and STE backward bit for bit at odd shapes, with
 row-wise scales, a zero column and infinite upstream gradients, row 8
 (the projection-fused step) bit for bit against the launches it replaces,
-at chip_smoke.py's geometry and at an odd one, and in a reduced f32 engine,
+at chip_smoke.py's geometry and at an odd one, in its plan's cluster against
+one CTA walking the same chunks (S 512 to 2048, B 1 to 8, two kv heads, a
+block that spans chunks), and in a reduced f32 engine,
 the GEMV against the CPU mirror of its arithmetic with its bits independent
 of M and N, and the burst append against the appends one position at a
 time and the plain version, dense and paged.
@@ -617,6 +619,106 @@ def test_f32_engine_takes_row8_and_matches_the_unfused_engine(cuda):
     for a, b in zip(*states):
         for f in ("k_packed", "k_scale", "v_packed", "v_scale"):
             assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+#: row 8 split over S: (d, n_kv, g, hd): gemma-2b's heads at d 512 (160
+#: tiles a kv head: 20 a rank at a cluster of 8, 10 at 16), and two kv heads of
+#: two queries at hd 32 (8 tiles a head: at a cluster of 16 half the ranks
+#: project nothing)
+PROJ_SPLIT_GEOMS = {"gemma": (512, 1, 8, 256), "two_heads": (64, 2, 2, 32)}
+#: (w_bits, k_bits, v_bits), taken in turn by the position sets of a case
+PROJ_SPLIT_BITS = [(4, 8, 4), (8, 4, 2), (2, 8, 8), (6, 6, 6)]
+
+
+def _proj_positions(s: int, b: int) -> list[tuple[int, ...]]:
+    """Write positions of b slots, in sets that together visit 0, block (16)
+    and chunk (64) edges, the middle, S - 1 and S (outside: writes nothing)."""
+    cands = [0, 15, 16, 63, 64, 127, 128, s // 2 + 3, s - 1, s]
+    return [tuple(cands[(i + j) % len(cands)] for j in range(b))
+            for i in range(0, len(cands), b)]
+
+
+def _proj_three_ways(cuda, geom, s, block, plist, w_bits, k_bits, v_bits, seed):
+    """Row 8 with its plan, row 8 walked by one CTA, and the composition it
+    replaces (the GEMV, the torch rotary, row 3), each on its own copy of one
+    cache.  Returns the plan, the outputs (B, hq, hd) and the caches."""
+    from repro_torch.kernels.quant_kv import kernel as kvk
+    from repro_torch.models.layers import _qkv, decode_attend_one, rope_freqs
+
+    d, n_kv, g, hd = PROJ_SPLIT_GEOMS[geom]
+    b, hq = len(plist), n_kv * g
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    wq = quantize_tensor(torch.randn((d, (hq + 2 * n_kv) * hd), generator=gen, device=cuda)
+                         / d ** 0.5, w_bits)
+    base = tcache.init_kv_layer(b, s, n_kv, hd, k_bits=k_bits, v_bits=v_bits, block=block,
+                                device=cuda)
+    rows = torch.randn((2, b, s, n_kv, hd), generator=gen, device=cuda)
+    pos = torch.tensor(plist, dtype=torch.int32, device=cuda)
+    base = tcache.insert_rows(base, torch.arange(b, device=cuda), rows[0], rows[1],
+                              valid_len=pos.clamp(max=s))
+    x = torch.randn((b, d), generator=gen, device=cuda)
+    mask = torch.where(torch.arange(s, device=cuda)[None, :] <= pos[:, None], 0.0, -1e30).float()
+    ang = pos[:, None].float() * rope_freqs(hd, 10_000.0, device=cuda)
+    p = kvk.attend_plan("quant_kv_decode_step_proj", s, block)
+    outs, lays = {}, {}
+    for mode, lp in (("plan", p), ("walk", kvk.walk_plan(p))):
+        lay = lays[mode] = _copy(base)
+        outs[mode] = kvk.quant_kv_decode_step_proj_cuda(
+            pos, x, wq.packed, wq.scale.reshape(1, -1), torch.cos(ang), torch.sin(ang),
+            lay.k_packed, lay.k_scale, lay.v_packed, lay.v_scale, mask, w_bits=w_bits,
+            k_bits=k_bits, v_bits=v_bits, n_heads=hq, hd=hd, block=block,
+            launch=lp).reshape(b, hq, hd)
+    cfg = type("Cfg", (), dict(n_heads=hq, n_kv_heads=n_kv, resolved_head_dim=hd,
+                               rope="default", rope_theta=10_000.0, qk_norm=False))
+    lay = lays["composition"] = _copy(base)
+    q, kn, vn = _qkv({"wqkv": wq}, x[:, None], cfg, pos[:, None])
+    outs["composition"] = decode_attend_one(lay, q, kn, vn, pos, cfg)[0][:, 0]
+    torch.cuda.synchronize()
+    return p, outs, lays
+
+
+def _assert_three_ways_equal(outs, lays, what):
+    for mode in ("walk", "composition"):
+        assert torch.equal(outs["plan"], outs[mode]), (mode, what)
+        for f in ("k_packed", "k_scale", "v_packed", "v_scale"):
+            assert torch.equal(getattr(lays["plan"], f), getattr(lays[mode], f)), (mode, f, what)
+
+
+@pytest.mark.parametrize("b", (1, 4, 8))
+@pytest.mark.parametrize("s", (512, 1024, 2048))
+@pytest.mark.parametrize("geom", sorted(PROJ_SPLIT_GEOMS))
+def test_proj_cluster_walk_and_composition_give_the_same_bits(cuda, geom, s, b):
+    """Row 8 in its plan's cluster (8 CTAs at S 512, 16 at 1024 and at 2048,
+    whose 32 chunks fold in two rounds), walked by one CTA, and the
+    composition it replaces: outputs, cache bytes and scales bit for bit, at
+    positions on block and chunk edges, at 0, S - 1 and S (zeros out, nothing
+    written), across weight and state widths."""
+    from repro_torch.kernels.quant_kv import kernel as kvk
+
+    for i, plist in enumerate(_proj_positions(s, b)):
+        w_bits, k_bits, v_bits = PROJ_SPLIT_BITS[i % len(PROJ_SPLIT_BITS)]
+        kernels.reset_counts()
+        p, outs, lays = _proj_three_ways(cuda, geom, s, 16, plist, w_bits, k_bits, v_bits,
+                                         seed=s + 10 * b + i)
+        assert p.cluster == min(s // kvk.CHUNK, kvk.MAX_CLUSTER) and p.mode == "cluster"
+        assert kernels.LAUNCHES["quant_kv_decode_step_proj"] == 2
+        _assert_three_ways_equal(outs, lays, (plist, w_bits, k_bits, v_bits))
+        at_s = torch.tensor(plist, device=outs["plan"].device) >= s
+        assert torch.equal(outs["plan"][at_s], torch.zeros_like(outs["plan"][at_s]))
+
+
+def test_proj_walks_where_a_block_spans_chunks(cuda):
+    """Block 48 (CHUNK % block != 0) at S 1152: a block may span two chunks,
+    so the plan walks, as row 3's does, and row 8 still equals the
+    composition bit for bit; a cluster plan is refused."""
+    from repro_torch.kernels.quant_kv import kernel as kvk
+
+    p, outs, lays = _proj_three_ways(cuda, "gemma", 1152, 48, (47, 48, 600, 1151), 4, 8, 4,
+                                     seed=5)
+    assert p.mode == "walk" and p == kvk.attend_plan("quant_kv_decode_step", 1152, 48)
+    _assert_three_ways_equal(outs, lays, "block 48")
+    with pytest.raises(ValueError, match="plan for"):
+        kvk._split("quant_kv_decode_step_proj", 1152, 48, dataclasses.replace(p, cluster=16))
 
 
 # -- the attention body split over S (rows 3, 4, 6, 7): cluster and walk ------

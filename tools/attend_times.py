@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the quantized-KV kernels (rows 3-7 and 9, and the burst append) of one tree.
+"""Time the quantized-KV kernels (rows 3-9, and the burst append) of one tree.
 
-    python3 tools/attend_times.py [--src DIR] [--label NAME]
+    python3 tools/attend_times.py [--src DIR] [--label NAME] [--only proj]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``) and
 builds its kernels there, so that two trees can be timed in one session on
@@ -15,12 +15,18 @@ side``); the speculative commit's replay of one layer (``... burst``): K+1
 burst positions from ``SPEC_START`` with ``SPEC_ACC`` accepted, over
 ``SPEC_KV``'s dense cache and over the paged layer from ``PG_POS``, through
 the burst append where the tree has one, else position by position as its
-``spec.loop.commit_state`` runs them.  For each and for SDPA on the
-dequantized bf16 K/V it prints, in one JSON line, the
-CUDA-event median of one call (``call_ms``: ``time_ms``, the wrapper's host
-time included, as chip_smoke.py's ``ms``) and the device time a launch
-takes back to back (``device_ms``: ``time_batch``), beside the card's name
-and power limit.  Exits 2 without a CUDA device.
+``spec.loop.commit_state`` runs them; row 8 and the composition it replaces
+(the ``wqkv`` GEMV, the torch rotary, row 3: ``chip_smoke.proj_composition``)
+at ``PROJ``'s geometry (d 512, gemma-2b's heads, f32 x, K 8 / V 4) at B 4
+and 8, S 512 and 1024 (``PROJ_POS`` scaled to S) and w 4 and 8 bits, row 8
+in its plan's cluster and walked by one CTA where the tree's wrapper takes
+``launch=`` (else in the one mode it has, named "walk"); ``--only proj``
+times row 8 and the composition alone.  For each and for SDPA on the
+dequantized bf16 K/V it prints, in one JSON line, the CUDA-event median of
+one call (``call_ms``: ``time_ms``, the wrapper's host time included, as
+chip_smoke.py's ``ms``) and the device time a launch takes back to back
+(``device_ms``: ``time_batch``), beside the card's name and power limit.
+Exits 2 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -39,10 +45,59 @@ def _replay(loop, layer, start, acc, kb, vb) -> None:
         loop._masked_append(layer, start + j, kb[:, j:j + 1], vb[:, j:j + 1], j <= acc, "cuda")
 
 
+def _proj_fns(torch, cs, gen) -> dict:
+    """Row 8 (each mode the tree has) and its composition at PROJ's geometry."""
+    import inspect
+
+    from repro_torch.kernels.quant_kv import kernel as kvk
+    from repro_torch.kvcache.cache import init_kv_layer, insert_rows
+    from repro_torch.models.layers import rope_freqs
+    from repro_torch.quant.tensor import quantize_tensor
+
+    modal = "launch" in inspect.signature(kvk.quant_kv_decode_step_proj_cuda).parameters
+    c = cs.PROJ
+    hq = c["n_kv"] * c["g"]
+    fns = {}
+    for w_bits in (4, 8):
+        wq = quantize_tensor(torch.randn((c["d"], (hq + 2 * c["n_kv"]) * c["hd"]), generator=gen,
+                                         device="cuda") / c["d"] ** 0.5, w_bits)
+        for b in (4, 8):
+            x = torch.randn((b, c["d"]), generator=gen, device="cuda")
+            for s in (512, 1024):
+                pos = torch.tensor([p * s // c["S"] for p in cs.PROJ_POS[b]], dtype=torch.int32,
+                                   device="cuda")
+                layer = init_kv_layer(b, s, c["n_kv"], c["hd"], k_bits=8, v_bits=4,
+                                      block=c["block"], device="cuda")
+                rows = torch.randn((2, b, s, c["n_kv"], c["hd"]), generator=gen, device="cuda")
+                layer = insert_rows(layer, torch.arange(b, device="cuda"), rows[0], rows[1],
+                                    valid_len=pos.long().clamp(max=s))
+                valid = torch.arange(s, device="cuda")[None, :] <= pos[:, None].long()
+                mask = torch.where(valid, 0.0, -1e30).float()
+                ang = pos[:, None].float() * rope_freqs(c["hd"], 10_000.0, device="cuda")
+                kw = dict(w_bits=w_bits, k_bits=8, v_bits=4, n_heads=hq, hd=c["hd"],
+                          block=c["block"])
+                lk, lc = cs._clone(layer), cs._clone(layer)
+                args = (pos, x, wq.packed, wq.scale.reshape(1, -1), torch.cos(ang),
+                        torch.sin(ang), lk.k_packed, lk.k_scale, lk.v_packed, lk.v_scale, mask)
+                tag = f"w{w_bits} B={b} S={s}"
+                if modal:
+                    p = kvk.attend_plan("quant_kv_decode_step_proj", s, c["block"])
+                    for mode, lp in (("cluster", p), ("walk", kvk.walk_plan(p))):
+                        fns[f"quant_kv_decode_step_proj {mode} {tag}"] = partial(
+                            kvk.quant_kv_decode_step_proj_cuda, *args, **kw, launch=lp)
+                else:
+                    fns[f"quant_kv_decode_step_proj walk {tag}"] = partial(
+                        kvk.quant_kv_decode_step_proj_cuda, *args, **kw)
+                fns[f"composition {tag}"] = partial(cs.proj_composition, torch, x, wq, lc, pos,
+                                                    valid, n_heads=hq, step="cuda")
+    return fns
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"), help="the tree's src directory")
     ap.add_argument("--label", default="this tree")
+    ap.add_argument("--only", choices=("proj",), help="time row 8 and its composition alone")
     args = ap.parse_args()
     import torch
 
@@ -67,6 +122,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fns = {}
+    if args.only:
+        return _report(torch, cs, args, _proj_fns(torch, cs, gen))
     for kind, c, plist in (("dense", cs.KV, cs.KV_POS), ("paged", cs.PG, cs.PG_POS)):
         layer = (cs._kv_layer(torch, gen, kb, vb, dt) if kind == "dense"
                  else cs._paged_layer(torch, gen, kb, vb))
@@ -126,9 +183,14 @@ def main() -> int:
                                 impl="cuda")
         else:
             fns[name] = partial(_replay, loop, layer, st, acc, kb_, vb_)
-    times = {name: {"call_ms": cs.time_ms(torch, fn), "device_ms": cs.time_batch(torch, fn,
-                                                                                 reps=20)}
-             for name, fn in fns.items()}
+    fns.update(_proj_fns(torch, cs, gen))
+    return _report(torch, cs, args, fns)
+
+
+def _report(torch, cs, args, fns: dict) -> int:
+    times = {name: {"call_ms": cs.time_ms(torch, fn), "device_ms": cs.time_batch(
+        torch, fn, reps=20, spin=cs.COMPOSITION_SPIN if name.startswith("composition")
+        else int(2e5))} for name, fn in fns.items()}
     print(json.dumps({"label": args.label, "src": args.src, "card": cs.smi_line(),
                       "times": times}), flush=True)
     return 0

@@ -16,8 +16,17 @@ compute wrong outputs; they say what that work costs, nothing more.
   nocompute  no scores and no probabilities times V (loads, softmax, fold kept)
   noload     no tile dequantized into shared memory (the loads go with it)
   nofold     the partials are not read across the cluster (syncs kept)
-  norequant  the fused steps (rows 3 and 7) skip the touched block's
+  norequant  the fused steps (rows 3, 7 and 8) skip the touched block's
              requantization (the attention then reads a stale copy)
+  noproj     row 8 projects nothing (its weight loads and mma go; the x
+             staging, the exchange and the rest stay)
+  noexchange row 8's ranks read no rows of each other's and skip the
+             barrier before those reads (the second barrier stays)
+  noattend   row 8 skips the attention (and the cluster barriers in it)
+  lb2        row 8 compiled for two CTAs an SM (__launch_bounds__(256, 2):
+             at most 128 registers a thread); computes the right outputs
+
+Row 8's variants are timed with ``attend_times.py --only proj``.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ BODY = "repro_torch/csrc/quant_kv.cuh"
 DENSE_STEP = "repro_torch/csrc/quant_kv_decode_step.cu"
 PAGED = "repro_torch/csrc/quant_kv_paged.cu"
 PLAN = "repro_torch/kernels/quant_kv/kernel.py"
+PROJ = "repro_torch/csrc/quant_kv_proj.cu"
 
 VARIANTS = {
     "chunk128": [(BODY, "constexpr int kChunk = 64;", "constexpr int kChunk = 128;"),
@@ -46,7 +56,16 @@ VARIANTS = {
                 "for (int j0 = 0; j0 < 0; j0 += kFoldBatch) {")],
     "norequant": [(DENSE_STEP, "    requantize_kv(kp + ", "    if (0) requantize_kv(kp + "),
                   (PAGED, "    requantize_kv(reinterpret_cast",
-                   "    if (0) requantize_kv(reinterpret_cast")],
+                   "    if (0) requantize_kv(reinterpret_cast"),
+                  (PROJ, "    requantize_kv(kp_ + ", "    if (0) requantize_kv(kp_ + ")],
+    "noproj": [(PROJ, "    wr.run(xs + ", "    if (0) wr.run(xs + ")],
+    "noexchange": [(PROJ, "    cluster.sync();                                     // every rank",
+                    "    // every rank"),
+                   (PROJ, "      if (owner != rank)", "      if (0)")],
+    "lb2": [(PROJ, "__launch_bounds__(kKvThreads)\nquant_kv_decode_step_proj_kernel",
+             "__launch_bounds__(kKvThreads, 2)\nquant_kv_decode_step_proj_kernel")],
+    "noattend": [(PROJ, "  attend(static_cast<const float*>(proj)",
+                  "  if (0) attend(static_cast<const float*>(proj)")],
 }
 
 
