@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a)
-and runs nine phases; any failure raises, so the exit code is nonzero and
+and runs eleven phases; any failure raises, so the exit code is nonzero and
 the last line is not the ``ok`` line:
 
   1. environment: the card's name and power limit, torch/CUDA versions, and
@@ -93,8 +93,36 @@ the last line is not the ``ok`` line:
      6's criterion, against the logit gap the two admission paths leave on
      one cache); (c) the dense chunked engine streams through ``on_token``
      callbacks and ``poll()``, in the order of the returned streams;
-  9. one ``{"kernels": [...]}`` JSON line, the card's line, and last
+  9. prompts above 2048 tokens, full width in bf16: (a) the flash attention
+     at gemma-2b's geometry, B 1, S 4096, causal, f32 and bf16, against the
+     direct path on the card, forward and dq, dk, dv, with forward and
+     backward times beside SDPA's; (b) a 4096-token prompt and three short
+     ones (seed 20) on 4 slots of 4608 positions, whole-prompt (the flash
+     prefill, the GEMM at M = 4 x 4096) and 256-token chunked admission,
+     dense and paged, as phase 8 (b), with TTFT, step median and peak
+     memory; (c) one ``lm_loss`` forward and backward at seq 4096 through
+     the flash path and the fake-quant kernels, loss, time and peak memory;
+ 10. degradation, faults and tracing: (a) phase 6's artifact, paged over
+     40 blocks under the checker, the chat fleet at priority 0 and four
+     more at priority 2 from turn 4, one fault at each of ``nan_logit``,
+     ``nan_logit_draft``, ``append_failure`` and ``pool_exhaustion``, the
+     default shed policy: one request failed by each of the first and the
+     third, the draft's falling back, a speculation shed and a preemption,
+     no priority-2 victim, resume prefixes and untouched streams equal to
+     the same engine's fault-free run up to near-ties, no block leaked; (b)
+     ``artifact_mismatch`` refuses construction; (c) phase 4's run with
+     ``batch_admission=False`` (equal up to near-ties) and under the tracer
+     (identical streams, the Chrome trace saved under ``build/`` and
+     validated, phase shares, step medians, measured costs and calibration
+     ratios against the artifact's shift-add report; four pairs of untraced
+     and traced runs for the tracing overhead);
+ 11. one ``{"kernels": [...]}`` JSON line, the card's line, and last
      ``{"ok": true, "device": {...}}``.
+
+Phases 5, 6 and 8 and 10 (c) hold two engines' streams equal, so their
+engines pass a shed policy whose straggler shed cannot fire (it reads the
+host clock); phase 6's keeps K fixed as well (its launch counts rest on
+it).  Only phase 10 (a) walks the whole ladder.
 
 Weights are random, made from a seeded CUDA generator.  Nothing of JAX is
 imported.  Exits 2 without a CUDA device or without the package beside it.
@@ -223,6 +251,15 @@ def bound(nbytes: float, flops: float, rate: float = BF16_FLOP_S) -> tuple[float
     peak ``rate`` of their type (bf16 unless said)."""
     tb, to = nbytes / HBM_BYTES_S * 1e3, flops / rate * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def steady(*, spec_tiers: bool = True):
+    """A shed policy whose straggler shed cannot fire: that shed reads the host
+    clock, so it could lower K in one engine and not in the twin a phase holds
+    it against.  ``spec_tiers=False`` keeps K fixed under pool pressure too."""
+    from repro_torch.serve.lifecycle import ShedPolicy
+
+    return ShedPolicy(spec_tiers=spec_tiers, straggler_sheds_spec=False)
 
 
 def smi_line() -> str:
@@ -1549,7 +1586,8 @@ def check_fake_quant(torch, cfg, gen, results: dict) -> None:
     bits 2-8 and 32, f32 and bf16, forward and STE backward bytes exactly
     equal.  Times at 4 bits in bf16 (the search's dtype); the library time is
     ``torch.fake_quantize_per_channel_affine`` on the same bf16 weight, which
-    multiplies by the reciprocal scale and is not bit-equal."""
+    multiplies by the reciprocal scale and is not bit-equal, and for the STE
+    backward its autograd backward alone."""
     from repro_torch.core.quantizer import qmax, weight_scale
     from repro_torch.kernels.fake_quant.kernel import fake_quant_cuda, fake_quant_ste_bwd_cuda
     from repro_torch.kernels.fake_quant.ref import fake_quant_ref, fake_quant_ste_bwd_ref
@@ -1582,8 +1620,17 @@ def check_fake_quant(torch, cfg, gen, results: dict) -> None:
                 t_l = time_ms(torch, lambda: torch.fake_quantize_per_channel_affine(
                     w, scale.reshape(-1), zp, 0 if rowwise else 1, -q, q))
                 results["fake_quant"]["library_ms"] += t_l
+                # its autograd backward alone, the forward outside the timed window: the
+                # gradient through the mask of the rounded value in [-q, q]
+                wl = w.detach().clone().requires_grad_(True)
+                fq_l = torch.fake_quantize_per_channel_affine(wl, scale.reshape(-1), zp,
+                                                              0 if rowwise else 1, -q, q)
+                t_lb = time_ms(torch, lambda: torch.autograd.grad(fq_l, wl, g, retain_graph=True))
+                results["fake_quant_ste_bwd"]["library_ms"] += t_lb
+                del wl, fq_l
                 log(f"  fake_quant {name:12s} {tuple(shape)} bits=4 bf16: "
-                    f"torch.fake_quantize_per_channel_affine {t_l:.4f} ms (not bit-equal)")
+                    f"torch.fake_quantize_per_channel_affine {t_l:.4f} ms, its backward "
+                    f"{t_lb:.4f} ms (not bit-equal)")
                 def fwd():
                     return fake_quant_cuda(w, scale, bits, rowwise=rowwise)
 
@@ -1612,7 +1659,6 @@ def check_fake_quant(torch, cfg, gen, results: dict) -> None:
             f"bits {FQ_BITS}, f32 and bf16")
         del w32, g32, w, g
         torch.cuda.empty_cache()
-    results["fake_quant_ste_bwd"]["library_ms"] = None
     fq, ste = results["fake_quant"], results["fake_quant_ste_bwd"]
     log(f"  row 10 at bits 4 bf16, the three shapes summed: forward {fq['ms']:.4f} ms a call, "
         f"{fq['device_ms']:.4f} ms device time back to back; STE backward {ste['ms']:.4f} and "
@@ -1796,8 +1842,10 @@ def serve_paged(torch, cfg) -> dict:
     outs, stats, paged_launches = {}, {}, dict.fromkeys(kernels.KERNELS, 0)
     dense_bytes = None
     for key, kw in engines.items():
+        # the engines' streams are compared: no straggler shed (it reads the
+        # host clock), as in every phase that holds two engines equal
         eng = ServeEngine(cfg, serve, max_slots=slots, max_seq=seq,
-                          state_bits=state_policy(cfg, slots, seq), **kw)
+                          state_bits=state_policy(cfg, slots, seq), shed=steady(), **kw)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_counts()
@@ -1950,7 +1998,10 @@ def serve_speculative(torch, cfg, linear_gap: dict) -> dict:
                                                                debug_invariants=True)}
     outs, runs, rows = {}, {}, {}
     for key, kw in engines.items():
-        eng = ServeEngine(cfg, serve, max_slots=slots, max_seq=seq, **kw)
+        # K stays at SPEC_K (no shed of either kind): the launches the rounds
+        # predict and (d) = (b) rest on it; phase 10 walks the ladder
+        eng = ServeEngine(cfg, serve, max_slots=slots, max_seq=seq,
+                          shed=steady(spec_tiers=False), **kw)
         collect = record_logits(torch, eng) if key[0] in "ab" else None
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2040,7 +2091,7 @@ def serve_speculative(torch, cfg, linear_gap: dict) -> dict:
         f"every divergence at a near-tie; every pool ends empty")
     del serve
     torch.cuda.empty_cache()
-    return runs
+    return runs, gap
 
 
 def spec_launches(cfg, st, paged: bool) -> dict:
@@ -2067,48 +2118,57 @@ def spec_launches(cfg, st, paged: bool) -> dict:
 
 def record_logits(torch, eng):
     """Wrap the engine so that the logits row behind every token it emits is
-    kept on the card: the decode step's for a plain engine, the verify
-    pass's for a speculative one.  The returned ``collect()`` maps them to
-    ``{(uid, token index): (V,) logits}``."""
+    kept on the card: the verify pass's for a speculative round, the decode
+    step's for a plain step (a speculative engine takes plain steps where
+    the shed ladder sets K to 0).  The returned ``collect()`` maps them to
+    ``{(uid, stream index): (V,) logits}``; a resumed request's index counts
+    its tokens from before its preemption."""
     calls, rounds = [], []
-    name = "decode_verify" if eng.speculate else "decode_step"
-    fn = getattr(eng.api, name)
+    in_decode = [False]
+    api = eng.api
 
-    def keep(*args, **kw):
-        out = fn(*args, **kw)
-        calls.append(out[0])                                    # (B, T, V)
-        return out
+    def keep(fn, always):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            if always or in_decode[0]:
+                calls.append(out[0])                            # (B, T, V)
+            return out
+        return wrapped
 
     def where(active):
-        return {i: (eng.slots[i].req.uid, len(eng.slots[i].generated)) for i in active}
+        out = {}
+        for i in active:
+            s = eng.slots[i]
+            lc = eng.lifecycles.get(s.req.uid)
+            out[i] = (s.req.uid, len(s.generated) + (len(lc.resume_tokens) if lc else 0))
+        return out
 
-    if eng.speculate:
-        spec_step = eng._spec_step
+    spec_step, decode = eng._spec_step, eng._decode
 
-        def note_round(active, tokens_h, pos_h, k):
-            at = where(active)
-            out = spec_step(active, tokens_h, pos_h, k)
-            rounds.append({i: (uid, start, len(out[i])) for i, (uid, start) in at.items()})
-            return out
+    def note_round(active, *args):
+        at = where(active)
+        out = spec_step(active, *args)
+        rounds.append({i: (uid, start, len(out[0][i])) for i, (uid, start) in at.items()})
+        return out
 
-        eng._spec_step = note_round
-    else:
-        decode = eng._decode
-
-        def note_step(tokens_h, pos_h):
-            at = where(eng._decode_active())
-            out = decode(tokens_h, pos_h)
-            rounds.append({i: (uid, start, 1) for i, (uid, start) in at.items()})
-            return out
-
-        eng._decode = note_step
+    def note_step(*args):
+        at = where(eng._decode_active())
+        in_decode[0] = True
+        try:
+            out = decode(*args)
+        finally:
+            in_decode[0] = False
+        rounds.append({i: (uid, start, 1) for i, (uid, start) in at.items()})
+        return out
 
     def collect() -> dict:
         return {(uid, start + j): logits[i, j]
                 for logits, slots in zip(calls, rounds)
                 for i, (uid, start, n) in slots.items() for j in range(n)}
 
-    eng.api = dataclasses.replace(eng.api, **{name: keep})
+    eng._spec_step, eng._decode = note_round, note_step
+    eng.api = dataclasses.replace(api, decode_step=keep(api.decode_step, False),
+                                  decode_verify=keep(api.decode_verify, True))
     return collect
 
 
@@ -2453,7 +2513,7 @@ def serve_row8(torch, cfg) -> dict:
                     max_new_tokens=new) for i, n in enumerate(lens)]
     runs = {}
     for fuse in (True, False):
-        eng = ServeEngine(cfg512, serve, max_slots=slots, max_seq=seq,
+        eng = ServeEngine(cfg512, serve, max_slots=slots, max_seq=seq, shed=steady(),
                           state_bits=state_policy(cfg512, slots, seq), fuse_projections=fuse)
         torch.cuda.synchronize()
         kernels.reset_counts()
@@ -2562,18 +2622,43 @@ def prefill_gap(torch, cfg, serve, reqs, slots: int, seq: int, state) -> float:
     return gap
 
 
-def serve_chunked(torch, cfg) -> dict:
-    """Phase 8 (b) and (c): the long x short burst through whole-prompt and
-    chunked admission, dense and paged; engine (c) streams its tokens."""
+def near_ties(a: dict, b: dict, rows_a: dict, rows_b: dict, gap: float, what: str, uids=None,
+              upto=None) -> int:
+    """Hold stream set ``b`` against ``a`` where they part: at each first
+    divergence (token t of a uid) ``a``'s logits prefer its token by m_a and
+    ``b``'s prefer its own by m_b, so the two paths moved that pair of logits
+    by m_a + m_b, which must stay within 2 x ``gap`` (each logit may move by
+    the gap the two paths leave on one cache).  ``upto`` limits a uid's
+    comparison to its first tokens.  Returns how many streams parted."""
+    parted = 0
+    for uid in sorted(a if uids is None else uids):
+        n = None if upto is None else upto[uid]
+        t = next((i for i, (x, y) in enumerate(zip(a[uid][:n], b[uid][:n])) if x != y), None)
+        if t is None:
+            continue
+        parted += 1
+        xa, xb = a[uid][t], b[uid][t]
+        la, lb = rows_a[(uid, t)].float(), rows_b[(uid, t)].float()
+        m_a, m_b = float(la[xa] - la[xb]), float(lb[xb] - lb[xa])
+        log(f"    stream {uid}: {what} at token {t} ({xa} -> {xb}): one prefers {xa} by "
+            f"{m_a:.4g}, the other {xb} by {m_b:.4g}, pair moved {m_a + m_b:.4g}")
+        if m_a < 0 or m_b < 0 or not m_a + m_b <= 2 * gap:
+            raise AssertionError(f"stream {uid} parts at token {t}: the pair moved "
+                                 f"{m_a + m_b:.4g} > 2 x {gap:.4g}, not a near-tie")
+    return parted
+
+
+def admission_paths(torch, cfg, serve, reqs, slots: int, seq: int, new: int, *,
+                    stream: bool) -> float:
+    """Phases 8 (b) and 9 (b): ``reqs`` through whole-prompt and chunked
+    admission, dense and paged (a-d); with ``stream`` engine (c) also streams
+    its tokens (phase 8 (c)).  The paged streams must equal the dense ones,
+    and chunked ones leave whole-prompt ones only at near-ties against the
+    logit gap the two admission paths leave on one cache.  Returns that gap."""
     from repro_torch import kernels
     from repro_torch.serve.engine import ServeEngine
 
-    slots, seq, new = 4, 2048, 16
-    serve, _ = packed_model(torch, cfg, SEED + 12)
-    reqs = burst_requests(torch, cfg, new)
     state = state_policy(cfg, slots, seq)
-    log(f"  {len(reqs)} requests submitted at once, prompts {list(BURST_LENS)} tokens, {new} new "
-        f"each, {slots} slots, max_seq {seq}, K 8 / V 4 state")
     engines = {"a dense, whole-prompt": {},
                "b paged 512, whole-prompt": dict(paged=True, pool_blocks=512),
                "c dense, chunked": dict(prefill_chunk=BURST_CHUNK),
@@ -2584,17 +2669,19 @@ def serve_chunked(torch, cfg) -> dict:
     for key, kw in engines.items():
         gc.collect()         # record_logits ties an engine into a cycle: free the last one
         torch.cuda.empty_cache()
-        eng = ServeEngine(cfg, serve, max_slots=slots, max_seq=seq, state_bits=state, **kw)
+        eng = ServeEngine(cfg, serve, max_slots=slots, max_seq=seq, state_bits=state,
+                          shed=steady(), **kw)
         collect = record_logits(torch, eng) if key[0] in "ac" else None
         polled = []
-        if key[0] == "c":
+        streams = stream and key[0] == "c"
+        if streams:
             for r in reqs:
                 eng.submit(r, on_token=lambda uid, tok: streamed.setdefault(uid, []).append(tok))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_counts()
         t0 = time.perf_counter()
-        if key[0] == "c":
+        if streams:
             out = eng.run(step_hook=lambda e, step: polled.extend(e.poll()))
         else:
             out = eng.run(reqs)
@@ -2602,10 +2689,14 @@ def serve_chunked(torch, cfg) -> dict:
         wall = time.perf_counter() - t0
         polled.extend(eng.poll())
         st = eng.stats()
-        if sorted(out) != list(range(len(reqs))) or any(len(v) != new for v in out.values()):
+        launches = st["launches"]
+        step_kernel = "quant_kv_decode_step_paged" if eng.paged else "quant_kv_decode_step"
+        if sorted(out) != [r.uid for r in reqs] or any(len(v) != new for v in out.values()):
             raise AssertionError(f"{key}: incomplete streams {[len(v) for v in out.values()]}")
         if any(st["plain_calls"].values()):
             raise AssertionError(f"{key}: plain calls {st['plain_calls']}")
+        if not (launches["quant_matmul"] and launches["quant_gemv"] and launches[step_kernel]):
+            raise AssertionError(f"{key}: launches {launches}")
         if eng.paged and (eng.pool.allocated or eng.pool.reserved):
             raise AssertionError(f"{key}: the pool ends with {eng.pool.allocated} blocks "
                                  f"allocated, {eng.pool.reserved} reserved")
@@ -2627,7 +2718,7 @@ def serve_chunked(torch, cfg) -> dict:
             line += (f"; budget {sc['step_token_budget']}, most tokens in a turn "
                      f"{sc['max_step_tokens']}, {sc['planned_turns']} planned turns")
         log(line)
-        if key[0] == "c":
+        if streams:
             stream_order = {}
             for uid, tok in polled:
                 stream_order.setdefault(uid, []).append(tok)
@@ -2646,26 +2737,376 @@ def serve_chunked(torch, cfg) -> dict:
         raise AssertionError("paged streams differ from the dense engine's with the same "
                              "admission")
     gap = prefill_gap(torch, cfg, serve, reqs, slots, seq, state)
-    parted = 0
-    for uid in sorted(a):
-        t = next((i for i, (x, y) in enumerate(zip(a[uid], c[uid])) if x != y), None)
-        if t is None:
-            continue
-        parted += 1
-        xa, xc = a[uid][t], c[uid][t]
-        la, lc = rows["a"][(uid, t)].float(), rows["c"][(uid, t)].float()
-        m_a, m_c = float(la[xa] - la[xc]), float(lc[xc] - lc[xa])
-        log(f"    stream {uid}: chunked leaves whole-prompt at token {t} ({xa} -> {xc}): "
-            f"whole prefers {xa} by {m_a:.4g}, chunked prefers {xc} by {m_c:.4g}, pair moved "
-            f"{m_a + m_c:.4g}")
-        if m_a < 0 or m_c < 0 or not m_a + m_c <= 2 * gap:
-            raise AssertionError(f"stream {uid} parts at token {t}: the pair moved "
-                                 f"{m_a + m_c:.4g} > 2 x {gap:.4g}, not a near-tie")
+    parted = near_ties(a, c, rows["a"], rows["c"], gap, "chunked leaves whole-prompt")
     log(f"  ok streams (b) = (a), (d) = (c); chunked = whole-prompt in {len(a) - parted} of "
         f"{len(a)} streams ({parted} parted, each at a near-tie)")
+    return gap
+
+
+def serve_chunked(torch, cfg) -> float:
+    """Phase 8 (b) and (c): the long x short burst through whole-prompt and
+    chunked admission, dense and paged; engine (c) streams its tokens."""
+    slots, seq, new = 4, 2048, 16
+    serve, _ = packed_model(torch, cfg, SEED + 12)
+    reqs = burst_requests(torch, cfg, new)
+    log(f"  {len(reqs)} requests submitted at once, prompts {list(BURST_LENS)} tokens, {new} new "
+        f"each, {slots} slots, max_seq {seq}, K 8 / V 4 state")
+    gap = admission_paths(torch, cfg, serve, reqs, slots, seq, new, stream=True)
     del serve
     torch.cuda.empty_cache()
-    return {"parted": parted}
+    return gap
+
+
+# ---------------------------------------------------------------------------
+# phase 9: prompts above 2048 tokens
+# ---------------------------------------------------------------------------
+
+#: phase 9: a prompt past the direct path (gemma-2b's context is 8192)
+LONG_S = 4096
+#: phase 9 (b): the long prompt beside three short ones, and max_seq
+LONG_SEED, LONG_SEQ = 20, 4608
+
+
+def check_flash(torch, cfg) -> None:
+    """Phase 9 (a): ``_flash_attention`` at gemma-2b's attention geometry (B 1,
+    S 4096, 8 query heads over 1 KV head of 256, causal) against
+    ``_direct_attention`` on the card, the forward and dq, dk, dv through
+    autograd, in f32 and bf16; each path's forward and backward timed, and
+    SDPA's on the same q, k, v as a library yardstick (not used by the port)."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers
+
+    hq, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    # rel = max |difference| / max |reference|: f32 at the CPU tests' 3e-5 (9e-5 on the
+    # gradients), bf16 at 2e-2 (p and ds are rounded to bf16 before their products)
+    limits = {torch.float32: (3e-5, 9e-5), torch.bfloat16: (2e-2, 2e-2)}
+    for dtype, (lim_o, lim_g) in limits.items():
+        base = [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for shape in ((1, LONG_S, hq, hd), (1, LONG_S, n_kv, hd), (1, LONG_S, n_kv, hd))]
+        do = torch.randn((1, LONG_S, hq, hd), generator=gen, device="cuda").to(dtype)
+        sdpa_in = [base[0].transpose(1, 2)] + [t.transpose(1, 2).repeat_interleave(
+            hq // n_kv, dim=1) for t in base[1:]]
+        paths = {"flash": lambda q, k, v: layers._flash_attention(q, k, v, n_kv, causal=True),
+                 "direct": lambda q, k, v: layers._direct_attention(q, k, v, n_kv, causal=True),
+                 "sdpa": lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True)}
+        got, times = {}, {}
+        for name, fn in paths.items():
+            leaves = [t.clone().requires_grad_(True) for t in (sdpa_in if name == "sdpa"
+                                                                else base)]
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*leaves)
+            out.backward(do.transpose(1, 2) if name == "sdpa" else do)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            got[name] = [t.detach() for t in (out, *(x.grad for x in leaves))]
+            with torch.no_grad():
+                fwd = time_ms(torch, lambda: fn(*leaves), reps=10)
+
+            def both():
+                o = fn(*leaves)
+                torch.autograd.grad(o, leaves, do.transpose(1, 2) if name == "sdpa" else do)
+            times[name] = (fwd, time_ms(torch, both, reps=10) - fwd, peak)
+        errs = [rel(x, y) for x, y in zip(got["flash"], got["direct"])]
+        finite = all(bool(torch.isfinite(t).all()) for t in got["flash"])
+        if not (finite and errs[0] <= lim_o and max(errs[1:]) <= lim_g):
+            raise AssertionError(f"flash vs direct at S {LONG_S} {dtype}: out rel {errs[0]:.3g} "
+                                 f"(limit {lim_o:g}), dq/dk/dv rel {errs[1:]} (limit {lim_g:g})")
+        sd = rel(got["sdpa"][0].transpose(1, 2), got["direct"][0])
+        log(f"  ok flash vs direct, B 1 S {LONG_S} {hq} heads over {n_kv} of {hd}, causal, "
+            f"{str(dtype)[6:]}: out rel {errs[0]:.3g} (limit {lim_o:g}), dq {errs[1]:.3g}, "
+            f"dk {errs[2]:.3g}, dv {errs[3]:.3g} (limit {lim_g:g}); SDPA's out rel {sd:.3g}")
+        log("    " + "; ".join(f"{name} forward {f:.4f} ms, backward {b:.4f} ms, peak "
+                                f"{p / 1e9:.3f} GB" for name, (f, b, p) in times.items()))
+        del got, base, do, sdpa_in
+        torch.cuda.empty_cache()
+
+
+def serve_long(torch, cfg) -> None:
+    """Phase 9 (b): a 4096-token prompt and three of 16-48 tokens, 16 new
+    each, on 4 slots of 4608 positions, through whole-prompt admission (the
+    flash prefill, the GEMM at M = 4 x 4096) and 256-token chunks, dense and
+    paged, as phase 8 (b)."""
+    from repro_torch.serve.engine import Request
+
+    slots, new = 4, 16
+    serve, _ = packed_model(torch, cfg, SEED + 13)
+    gen = torch.Generator().manual_seed(LONG_SEED)
+    lens = [LONG_S] + torch.randint(16, 49, (3,), generator=gen).tolist()
+    reqs = [Request(uid=i, prompt=torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist(),
+                    max_new_tokens=new) for i, n in enumerate(lens)]
+    log(f"  {len(reqs)} requests submitted at once, prompts {lens} tokens, {new} new each, "
+        f"{slots} slots, max_seq {LONG_SEQ}, K 8 / V 4 state (seed {LONG_SEED})")
+    admission_paths(torch, cfg, serve, reqs, slots, LONG_SEQ, new, stream=False)
+    del serve
+    torch.cuda.empty_cache()
+
+
+def long_loss(torch, cfg) -> None:
+    """Phase 9 (c): one ``lm_loss`` forward and backward at full width, batch 1,
+    seq 4096, through the flash path and the fake-quant kernels (the
+    "mixed" policy's QAT bits); the longest seq above 2048 that fits if 4096
+    does not."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import TokenTask, global_batch
+    from repro_torch.launch.dryrun import dryrun_policy
+    from repro_torch.models import decoder
+    from repro_torch.quant import apply as qapply
+    from repro_torch.train.train_step import value_and_grad
+
+    params = decoder.init(cfg, torch.Generator(device="cuda").manual_seed(SEED + 21),
+                          device="cuda")
+    specs = qapply.layer_specs(params, cfg)
+    bits = qapply.bits_for_scan(dryrun_policy(specs, "mixed"), params, cfg)
+    per_fwd = _fq_per_forward(cfg, specs)
+    for seq in (LONG_S, 3072, 2560):
+        batch = {k: v.to("cuda") for k, v in global_batch(
+            TokenTask(cfg.vocab_size), cfg, ShapeSpec("long", "train", seq, 1), 0).items()}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        try:
+            # the loss in two chunks of the sequence (lm_loss's chunk must divide it)
+            loss, grads = value_and_grad(
+                lambda p, b, bb: decoder.lm_loss(p, cfg, b["tokens"], b["labels"], bits=bb,
+                                                 loss_chunk=seq // 2), params, batch, bits)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            log(f"  seq {seq} does not fit in the card's memory; trying a shorter one")
+            continue
+        dt = time.perf_counter() - t0
+        got = (kernels.LAUNCHES["fake_quant"], kernels.LAUNCHES["fake_quant_ste_bwd"])
+        plain = (kernels.PLAIN_CALLS["fake_quant"], kernels.PLAIN_CALLS["fake_quant_ste_bwd"])
+        want = per_fwd + 1          # the tied head fake-quantizes once a loss chunk: two here
+        if got != (want, want) or any(plain):
+            raise AssertionError(f"phase 9 (c): fake-quant launches {got} (want {want} each), "
+                                 f"plain calls {plain}")
+        if not (torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)):
+            raise AssertionError("phase 9 (c): non-finite loss or gradient")
+        cut = "" if seq == LONG_S else f" (not {LONG_S}: it did not fit)"
+        log(f"  ok lm_loss at seq {seq}{cut}, batch 1: loss {float(loss):.6f}, forward + "
+            f"backward {dt:.3f} s (the first call), peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, fake-quant launches {got}")
+        break
+    else:
+        raise AssertionError("phase 9 (c): no seq above 2048 fits")
+    del params, grads, loss
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 10: degradation, faults and tracing
+# ---------------------------------------------------------------------------
+
+#: phase 10: the fault sites' steps; the draft's at step 0 (the first round,
+#: before the pool's pressure sheds K to 0), the pool's at the first admission
+#: turn with free slots and a queue after it, the others once the fleet decodes
+FAULTS = {"nan_logit_draft": (0,), "pool_exhaustion": (1,), "nan_logit": (5,),
+          "append_failure": (7,)}
+LATE_AT, LATE_N, LATE_PRIORITY = 4, 4, 2
+
+
+def degradation(torch, cfg, gap: float) -> None:
+    """Phase 10 (a): phase 6's artifact served paged over 40 blocks under the
+    checker, the chat fleet at priority 0 and, at turn 4, four more requests
+    at priority 2, with one fault at each of four sites (``FAULTS``), the
+    default shed policy (the straggler shed too), against the same engine
+    without faults and with the late requests at priority 0 (so that it
+    preempts nothing)."""
+    from repro_torch import kernels
+    from repro_torch.core.policy import PolicyArtifact
+    from repro_torch.runtime.resilience import FailureInjector
+    from repro_torch.serve.engine import ServeEngine
+
+    slots, seq, new = SERVE_SLOTS, 1024, 32
+    art = PolicyArtifact.load(str(ROOT / "build" / "phase6_policy.json"))
+    serve, _ = packed_model(torch, cfg, 7)
+    fleet = chat_requests(torch, cfg, 16 + LATE_N, new)
+    early, late = fleet[:16], fleet[16:]
+    log(f"  {len(early)} chat requests at priority 0, {LATE_N} more at turn {LATE_AT}; paged over "
+        f"40 blocks, {slots} slots, K {art.draft_k} with a {art.draft_policy.mean_bits():.0f}-bit "
+        f"draft; faults {FAULTS}")
+    runs = {}
+    for key, priority, inj in (("fault-free", 0, None),
+                               ("faults", LATE_PRIORITY, FailureInjector(schedule=FAULTS))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = ServeEngine(cfg, serve, max_slots=slots, max_seq=seq, artifact=art,
+                          pool_blocks=40, debug_invariants=True, fault_injector=inj)
+        collect = record_logits(torch, eng)
+
+        def hook(e, step, priority=priority):
+            if step == LATE_AT and late[0].uid not in e.lifecycles:
+                for r in late:
+                    e.submit(dataclasses.replace(r, priority=priority))
+
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        out = eng.run(early, step_hook=hook)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        if any(st["plain_calls"].values()) or not st["launches"]["quant_kv_decode_step_paged"]:
+            raise AssertionError(f"{key}: launches {st['launches']}, plain {st['plain_calls']}")
+        if eng.pool.allocated or eng.pool.reserved or sorted(out) != [r.uid for r in fleet]:
+            raise AssertionError(f"{key}: pool ends with {eng.pool.allocated} allocated, "
+                                 f"{eng.pool.reserved} reserved; streams {sorted(out)}")
+        acts = [e["action"] for e in st["shed_events"]]
+        log(f"  ok ({key}): {st['decode_steps']} steps ({st['spec_steps']} speculative), "
+            f"{st['completed']} done, {st['failed']} failed, {st['preemptions']} preempted, "
+            f"{st['nan_quarantined']} quarantined, {st['nan_draft_fallbacks']} draft fallbacks; "
+            f"shed events {acts}; median step {st['decode_step_median_s'] * 1e3:.3f} ms over "
+            f"{wall:.3f} s; pool peak {st['pool_peak_allocated']} blocks, ends empty")
+        runs[key] = (eng, out, collect(), inj)
+        del eng
+    (ref_eng, ref, ref_rows, _), (eng, out, rows, inj) = runs["fault-free"], runs["faults"]
+    st, lcs = eng.stats(), eng.lifecycles
+    if not inj.exhausted:
+        raise AssertionError(f"faults fired {inj.fired}, scheduled {FAULTS}")
+    if ref_eng.stats()["preemptions"] or ref_eng.stats()["failed"]:
+        raise AssertionError("the fault-free run preempted or failed a request")
+    diags = [lc.diagnostic for lc in lcs.values() if lc.state.value == "failed"]
+    nan = sum("non-finite logits" in d for d in diags)
+    append = sum("append bookkeeping" in d for d in diags)
+    if (nan, append, len(diags)) != (1, 1, 2) or st["nan_quarantined"] != 1:
+        raise AssertionError(f"failures {diags}, quarantined {st['nan_quarantined']}")
+    if st["nan_draft_fallbacks"] < 1:
+        raise AssertionError("the draft's NaN fell back nowhere")
+    acts = {e["action"] for e in st["shed_events"]}
+    if not (acts & {"spec_shed", "straggler_shed"} and "preempt" in acts):
+        raise AssertionError(f"shed events {st['shed_events']}")
+    victims = [u for u, lc in lcs.items() if lc.preemptions]
+    if any(lcs[u].priority == LATE_PRIORITY for u in victims):
+        raise AssertionError(f"a priority-{LATE_PRIORITY} request was preempted: {victims}")
+    for u in victims:
+        lc = lcs[u]
+        if lc.state.value == "done" and len(out[u]) != new:
+            raise AssertionError(f"victim {u}: {len(out[u])} tokens of {new}")
+        if out[u][: len(lc.resume_tokens)] != lc.resume_tokens:
+            raise AssertionError(f"victim {u}: the stream does not start with its resume tokens")
+    untouched = [u for u, lc in lcs.items() if lc.state.value == "done" and not lc.preemptions]
+    # a victim's tokens before its preemption, and every casualty's, against the
+    # fault-free run; untouched streams whole; all up to near-ties
+    upto = {u: len(lcs[u].resume_tokens) if lcs[u].preemptions else len(out[u]) for u in out}
+    parted = near_ties(ref, out, ref_rows, rows, gap, "the faults leave the fault-free run",
+                       uids=sorted(out), upto=upto)
+    log(f"  ok {len(victims)} victims (none at priority {LATE_PRIORITY}), every resume prefix "
+        f"and every untouched stream ({len(untouched)}) equal to the fault-free run but {parted} "
+        f"parted at near-ties (2 x gap {2 * gap:.4g}); one failure each from nan_logit and "
+        f"append_failure, the draft's fell back; no block leaked")
+    del runs, ref_eng, eng, serve
+    torch.cuda.empty_cache()
+
+
+def artifact_refusal(torch, cfg) -> None:
+    """Phase 10 (b): the ``artifact_mismatch`` fault refuses construction."""
+    from repro_torch.core.policy import PolicyArtifact
+    from repro_torch.runtime.resilience import FailureInjector
+    from repro_torch.serve.engine import ServeEngine
+
+    art = PolicyArtifact.load(str(ROOT / "build" / "phase6_policy.json"))
+    serve, _ = packed_model(torch, cfg, 7)
+    inj = FailureInjector(schedule={"artifact_mismatch": (0,)})
+    try:
+        ServeEngine(cfg, serve, max_slots=2, max_seq=1024, artifact=art, fault_injector=inj)
+    except ValueError as e:
+        if "disagree with the policy artifact" not in str(e) or not inj.exhausted:
+            raise
+        log(f"  ok artifact_mismatch refused construction: {e}")
+    else:
+        raise AssertionError("the artifact_mismatch fault did not refuse construction")
+    del serve
+    torch.cuda.empty_cache()
+
+
+#: phase 10 (c): untraced and traced runs in pairs, the order swapped each pair
+TRACE_PAIRS = 4
+
+
+def phase4_repeats(torch, cfg, gap: float) -> None:
+    """Phase 10 (c): phase 4's dense run from an artifact that carries the
+    shift-add cost model's report: batched admission, one prefill a request
+    (``batch_admission=False``: equal streams, or near-ties), and then
+    ``TRACE_PAIRS`` pairs of an untraced and a traced batched run, the order
+    swapped each pair (streams identical, the last Chrome trace saved and
+    validated, its phase shares, the step medians of both sides, measured
+    costs and calibration ratios)."""
+    from repro_torch.core.policy import PolicyArtifact
+    from repro_torch.cost.shift_add import ShiftAddCostModel
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    slots, seq, new, n_req = 4, 512, 16, 8
+    serve, policy = packed_model(torch, cfg, SEED + 3)
+    art = PolicyArtifact.build(policy, state_policy=state_policy(cfg, slots, seq),
+                               report=ShiftAddCostModel().report(policy).as_costs())
+    gen = torch.Generator().manual_seed(SEED + 4)
+    lens = torch.randint(8, 25, (n_req,), generator=gen).tolist()
+    reqs = [Request(uid=i, prompt=torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist(),
+                    max_new_tokens=new) for i, n in enumerate(lens)]
+
+    def serve_once(key, traced=False, record=False, **kw):
+        gc.collect()
+        eng = ServeEngine(cfg, serve, max_slots=slots, max_seq=seq, artifact=art,
+                          shed=steady(), **kw)
+        collect = record_logits(torch, eng) if record else None
+        if traced:
+            obs_trace.enable()
+        try:
+            out = eng.run(reqs)
+            torch.cuda.synchronize()
+        finally:
+            obs_trace.disable()
+        st = eng.stats()
+        if any(st["plain_calls"].values()) or sorted(out) != list(range(n_req)):
+            raise AssertionError(f"{key}: plain calls {st['plain_calls']}, streams {sorted(out)}")
+        return out, collect() if record else None, st, eng
+
+    a, rows_a, sa, _ = serve_once("batched", record=True)
+    b, rows_b, sb, _ = serve_once("per request", record=True, batch_admission=False)
+    parted = near_ties(a, b, rows_a, rows_b, gap, "one prefill a request leaves batched")
+    log(f"  ok batch_admission=False: {sb['admissions']} prefills against {sa['admissions']}; "
+        f"streams equal in {n_req - parted} of {n_req} ({parted} parted at near-ties); median "
+        f"step {sb['decode_step_median_s'] * 1e3:.3f} ms against "
+        f"{sa['decode_step_median_s'] * 1e3:.3f}")
+    medians = {False: [], True: []}
+    for i in range(TRACE_PAIRS):
+        for traced in ((False, True) if i % 2 == 0 else (True, False)):
+            out, _, st, eng = serve_once("traced" if traced else "untraced", traced=traced)
+            if out != a:
+                raise AssertionError(f"pair {i}, traced {traced}: streams differ from the "
+                                     f"first untraced run's")
+            medians[traced].append(st["decode_step_median_s"] * 1e3)
+            if traced:
+                ts, teng = st, eng
+    tr = obs_trace.get_tracer()
+    path = ROOT / "build" / "phase10_trace.json"
+    doc = tr.save(str(path))
+    obs_trace.validate_chrome_trace(doc)
+    tr.clear()
+    rep = teng.trace_report()
+    shares = ", ".join(f"{n} {p['fraction_of_step'] * 100:.1f}%" for n, p in rep["phases"].items())
+    log(f"  ok traced runs: streams identical to the untraced runs; {len(doc['traceEvents'])} "
+        f"events of the last saved to {path.relative_to(ROOT)} and validated; {rep['steps']} "
+        f"turns, {rep['attributed_fraction'] * 100:.1f}% in named phases: {shares}")
+    wins = sum(t > u for u, t in zip(medians[False], medians[True]))
+    log(f"  median decode step over {TRACE_PAIRS} pairs (order swapped each pair): traced "
+        f"{statistics.median(medians[True]):.3f} ms {[round(m, 3) for m in medians[True]]}, "
+        f"untraced {statistics.median(medians[False]):.3f} ms "
+        f"{[round(m, 3) for m in medians[False]]}; traced slower in {wins} of {TRACE_PAIRS} pairs")
+    cal = ts.get("calibration", {})
+    if "container_bytes" not in cal or "latency_s" not in cal:
+        raise AssertionError(f"calibration {cal}")
+    log(f"  measured costs {teng.measured_costs()}")
+    log("  calibration against the artifact's shift-add report: " + "; ".join(
+        f"{m} predicted {r['predicted']:.6g}, measured {r['measured']:.6g}, ratio "
+        f"{r['ratio']:.6g}" for m, r in cal.items()))
+    del teng, serve
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2738,7 +3179,7 @@ def main() -> int:
 
     log(f"== 6. {cfg.name} full width, {cfg.dtype}: speculative ServeEngine from a v6 artifact")
     t_phase = time.perf_counter()
-    runs = serve_speculative(torch, cfg, results["gemv_gemm_gap"])
+    runs, spec_gap = serve_speculative(torch, cfg, results["gemv_gemm_gap"])
     launches["quant_kv_append"] = runs["b dense, speculative"]["quant_kv_append"]
     launches["quant_kv_append_paged"] = sum(           # engines (c) and (d)'s commit replays
         r["quant_kv_append_paged"] for k, r in runs.items() if k[0] in "cd")
@@ -2756,10 +3197,24 @@ def main() -> int:
     t_phase = time.perf_counter()
     row8 = serve_row8(torch, cfg)
     launches["quant_kv_decode_step_proj"] = row8["quant_kv_decode_step_proj"]
-    serve_chunked(torch, cfg)
+    admit_gap = serve_chunked(torch, cfg)
     log(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s")
 
-    log("== 9. summary")
+    log(f"== 9. {cfg.name} full width, {cfg.dtype}: prompts above 2048 tokens")
+    t_phase = time.perf_counter()
+    check_flash(torch, cfg)
+    serve_long(torch, cfg)
+    long_loss(torch, cfg)
+    log(f"  phase 9 took {time.perf_counter() - t_phase:.1f} s")
+
+    log(f"== 10. {cfg.name} full width, {cfg.dtype}: degradation, faults and tracing")
+    t_phase = time.perf_counter()
+    degradation(torch, cfg, max(spec_gap, admit_gap))
+    artifact_refusal(torch, cfg)
+    phase4_repeats(torch, cfg, admit_gap)
+    log(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
+    log("== 11. summary")
     rows = []
     for name in kernels.KERNELS:
         r = results[name]

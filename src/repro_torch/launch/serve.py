@@ -15,6 +15,10 @@ under a bit policy and run batched requests through ``ServeEngine``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --reduced \
         --policy policy_artifact.json --device cpu
 
+    # record a Chrome/Perfetto trace of the run and print the step phases
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --reduced \
+        --requests 4 --trace out.json --device cpu
+
 Weights come from a ``torch.Generator`` seeded with ``--seed``, so they are
 not the JAX command's; the requests are (numpy, same seed).  Without
 ``--device`` the engine serves on the GPU and raises where there is none.
@@ -32,6 +36,7 @@ from repro_torch.core.policy import BitPolicy, PolicyArtifact
 from repro_torch.device import resolve_device
 from repro_torch.launch.dryrun import dryrun_policy
 from repro_torch.models import registry
+from repro_torch.obs import trace as obs_trace
 from repro_torch.quant import apply as qapply
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -57,11 +62,16 @@ def main(argv=None) -> int:
     ap.add_argument("--token-budget", type=int, default=None, metavar="N",
                     help="per-step token budget shared by decode slots and prefill chunks "
                          "(default: slots + prefill-chunk); requires --prefill-chunk")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="record a Chrome/Perfetto trace of the whole serve run (open at "
+                         "https://ui.perfetto.dev) and print the per-phase step decomposition")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: cuda, which must exist)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if args.trace:
+        obs_trace.enable()
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -121,12 +131,25 @@ def main(argv=None) -> int:
     print(f"{len(results)} requests, {new_tokens} new tokens in {dt:.2f}s "
           f"({new_tokens / dt:.1f} tok/s); decode_steps={st['decode_steps']} "
           f"slot_efficiency={new_tokens / (st['decode_steps'] * args.slots):.2f} "
-          f"step_median={(st['decode_step_median_s'] or 0.0) * 1e3:.1f}ms")
+          f"step_median={(st['decode_step_median_s'] or 0.0) * 1e3:.1f}ms "
+          f"stragglers={st['health']['straggler_flagged']}")
     if st["spec_steps"]:
         print(f"speculation: K={st['speculate_live_k']} rounds={st['spec_steps']} "
               f"accepted {st['spec_accepted']} of {st['spec_proposed']} drafted")
     for uid in sorted(results)[:4]:
         print(f"  req {uid}: {results[uid][:10]}")
+    if args.trace:
+        doc = obs_trace.get_tracer().save(args.trace)
+        obs_trace.validate_chrome_trace(doc)
+        obs_trace.disable()
+        rep = eng.trace_report()
+        print(f"trace: {len(doc['traceEvents'])} events -> {args.trace} "
+              f"(open at https://ui.perfetto.dev)")
+        print(f"step phases over {rep['steps']} turns "
+              f"(attributed {rep['attributed_fraction'] * 100:.1f}%):")
+        for name, ph in rep["phases"].items():
+            print(f"  {name:<13} {ph['fraction_of_step'] * 100:5.1f}%  "
+                  f"mean={ph['mean_us']:8.1f}us  p99={ph['p99_us']:8.1f}us")
     return 0
 
 

@@ -213,16 +213,16 @@ def prefill(params: dict, cfg, tokens: torch.Tensor, *, impl: str = "auto", leng
     del lengths
     x = embed_tokens(params, tokens, cfg)
     b, s = x.shape[:2]
-    if s > layers.FLASH_THRESHOLD:
-        raise NotImplementedError("prefill above FLASH_THRESHOLD needs the chunked flash "
-                                  "attention, not ported yet")
     positions = layers.position_ids(b, s, device=x.device)
     caches = []
     for lp in params["layers"]:
         xn = layers.norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
         q, k, v = layers._qkv(lp["attn"], xn, cfg, positions, impl=impl)
         caches.append({"k": k, "v": v})
-        o = layers._direct_attention(q, k, v, cfg.n_kv_heads, causal=True)
+        if s > layers.FLASH_THRESHOLD:
+            o = layers._flash_attention(q, k, v, cfg.n_kv_heads, causal=True)
+        else:
+            o = layers._direct_attention(q, k, v, cfg.n_kv_heads, causal=True)
         h = x + layers.qdense(lp["attn"]["wo"], o.reshape(b, s, -1), impl=impl)
         hn = layers.norm(lp["ln2"], h, cfg.norm, cfg.norm_eps)
         x = h + layers.mlp(lp["mlp"], hn, cfg.mlp, impl=impl)

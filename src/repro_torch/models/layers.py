@@ -104,7 +104,9 @@ def position_ids(batch: int, seq: int, *, device) -> torch.Tensor:
 # attention
 # ---------------------------------------------------------------------------
 
-FLASH_THRESHOLD = 2_048  # the direct path below this length (the only one ported)
+FLASH_THRESHOLD = 2_048  # direct softmax up to this sequence length, flash above
+Q_CHUNK = 512
+KV_CHUNK = 1_024
 
 
 def attention_init(generator, cfg, dtype=torch.float32, *, lead=(), device) -> dict:
@@ -190,15 +192,158 @@ def _direct_attention(q, k, v, n_kv: int, *, causal: bool, window: int = 0,
     return o.reshape(b, sq, hq, hd).to(q.dtype)
 
 
+def _largest_divisor_leq(n: int, target: int) -> int:
+    """Largest divisor of n that is <= target (chunk sizes must tile exactly)."""
+    for d in range(min(target, n), 0, -1):
+        if n % d == 0:
+            return d
+    return 1
+
+
+def _pair_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+               window: int) -> torch.Tensor:
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window:
+        mask &= k_pos[None, :] > (q_pos[:, None] - window)
+    return mask
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32)
+
+
+def _flash_forward(q, k, v, n_kv: int, causal: bool, window: int, q_chunk: int,
+                   kv_chunk: int, q_offset: int | None = None):
+    """Chunked online-softmax attention -> ``(out, lse)`` (plain PyTorch, no
+    TPU kernel behind it: the reference is ``jnp`` too).
+
+    Scores per step are ``q_chunk x kv_chunk`` instead of ``S x S``; the
+    logsumexp ``(b, n_kv, g, sq)`` is the flash-2 backward's residual.  The
+    products run in f32 from the storage dtype, as ``_direct_attention``'s
+    do, and ``p`` is rounded to the storage dtype before the PV product, as
+    the reference's ``p.astype(vblk.dtype)``.  A causal block lying wholly in
+    the queries' future is skipped: with the row maximum already finite its
+    ``p`` is exactly 0 and its correction exactly 1, so the sums are the
+    reference's bit for bit.
+    """
+    b, sq, hq, hd = q.shape
+    skv = k.shape[1]
+    g = hq // n_kv
+    scale = 1.0 / math.sqrt(hd)
+    off = (skv - sq) if q_offset is None else q_offset
+    dev = q.device
+    qg = q.reshape(b, sq, n_kv, g, hd)
+    outs, lses = [], []
+    for q0 in range(0, sq, q_chunk):
+        qblk = _f32(qg[:, q0:q0 + q_chunk])
+        q_pos = torch.arange(q0, q0 + q_chunk, device=dev) + off
+        acc = torch.zeros((b, n_kv, g, q_chunk, hd), dtype=torch.float32, device=dev)
+        m = torch.full((b, n_kv, g, q_chunk), -math.inf, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, n_kv, g, q_chunk), dtype=torch.float32, device=dev)
+        for k0 in range(0, skv, kv_chunk):
+            if causal and k0 > 0 and k0 > off + q0 + q_chunk - 1:
+                break                       # every later block is in the future too
+            kblk, vblk = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
+            s = torch.einsum("bqkgh,btkh->bkgqt", qblk, _f32(kblk)) * scale
+            mask = _pair_mask(q_pos, torch.arange(k0, k0 + kv_chunk, device=dev), causal,
+                              window)
+            s = torch.where(mask, s, -1e30)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqt,btkh->bkgqh", _f32(p.to(vblk.dtype)), _f32(vblk))
+            m = m_new
+        l = l.clamp_min(1e-30)
+        outs.append(acc / l[..., None])
+        lses.append(m + torch.log(l))
+    out = torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd)
+    return out.to(q.dtype), torch.cat(lses, dim=3)
+
+
+def _flash_backward(q, k, v, out, lse, do, n_kv: int, causal: bool, window: int,
+                    kv_chunk: int, q_offset: int | None):
+    """Flash-2 backward (mirrors the reference's ``_flash_cvjp_bwd``): per kv
+    chunk the probabilities are recomputed from the saved logsumexp, so no
+    ``S x S`` residual is kept.  Under a causal mask the query rows before a
+    chunk's first key (where ``p`` is 0) are left out of that chunk's sums."""
+    b, sq, hq, hd = q.shape
+    skv = k.shape[1]
+    g = hq // n_kv
+    scale = 1.0 / math.sqrt(hd)
+    off = (skv - sq) if q_offset is None else q_offset
+    dev = q.device
+    qg = _f32(q.reshape(b, sq, n_kv, g, hd))
+    dog = _f32(do.reshape(b, sq, n_kv, g, hd))
+    delta = torch.einsum("bqkgh,bqkgh->bkgq", dog, _f32(out.reshape(b, sq, n_kv, g, hd)))
+    q_pos = torch.arange(sq, device=dev) + off
+    dq = torch.zeros((b, sq, n_kv, g, hd), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, skv, n_kv, hd), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, skv, n_kv, hd), dtype=torch.float32, device=dev)
+    for k0 in range(0, skv, kv_chunk):
+        r0 = min(max(k0 - off, 0), sq) if causal else 0
+        if r0 == sq:
+            continue
+        kblk, vblk = _f32(k[:, k0:k0 + kv_chunk]), v[:, k0:k0 + kv_chunk]
+        qr, dor = qg[:, r0:], dog[:, r0:]
+        s = torch.einsum("bqkgh,btkh->bkgqt", qr, kblk) * scale
+        mask = _pair_mask(q_pos[r0:], torch.arange(k0, k0 + kv_chunk, device=dev), causal,
+                          window)
+        p = torch.where(mask, torch.exp(s - lse[..., r0:, None]), 0.0)
+        dv[:, k0:k0 + kv_chunk] = torch.einsum("bkgqt,bqkgh->btkh", _f32(p.to(v.dtype)), dor)
+        dp = torch.einsum("bqkgh,btkh->bkgqt", dor, _f32(vblk))
+        ds = _f32((p * (dp - delta[..., r0:, None]) * scale).to(q.dtype))
+        dq[:, r0:] += torch.einsum("bkgqt,btkh->bqkgh", ds, kblk)
+        dk[:, k0:k0 + kv_chunk] = torch.einsum("bkgqt,bqkgh->btkh", ds, qr)
+    return dq.reshape(b, sq, hq, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with an O(S h) residual: the forward saves q, k, v,
+    the output and the logsumexp; the backward recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_kv, causal, window, q_chunk, kv_chunk, q_offset):
+        out, lse = _flash_forward(q, k, v, n_kv, causal, window, q_chunk, kv_chunk,
+                                  q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (n_kv, causal, window, kv_chunk, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, out, lse, do, *ctx.cfg)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def _flash_attention(q, k, v, n_kv: int, *, causal: bool, window: int = 0,
+                     q_chunk: int = Q_CHUNK, kv_chunk: int = KV_CHUNK,
+                     q_offset: int | None = None) -> torch.Tensor:
+    """Flash attention with the flash-2 backward (port of the reference's
+    ``_flash_attention``).  ``q_offset``: the global position of q row 0
+    (default: q is the trailing window of the keys).  The chunks are the
+    reference's, the largest divisors of the lengths up to ``q_chunk`` and
+    ``kv_chunk``, so the f32 sums run in its order."""
+    sq, skv = q.shape[1], k.shape[1]
+    q_chunk = _largest_divisor_leq(sq, q_chunk)
+    kv_chunk = _largest_divisor_leq(skv, kv_chunk)
+    return _FlashAttention.apply(q, k, v, n_kv, causal, window, q_chunk, kv_chunk, q_offset)
+
+
 def attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor, *, causal: bool = True,
               window: int = 0, bits=None, impl: str = "auto") -> torch.Tensor:
     """Full-sequence self-attention (training and QAT): projections, the
-    direct path, and the output projection."""
-    if x.shape[1] > FLASH_THRESHOLD:
-        raise NotImplementedError("attention above FLASH_THRESHOLD needs the chunked flash "
-                                  "attention, not ported yet")
+    direct path up to ``FLASH_THRESHOLD`` or the flash path above it, and the
+    output projection."""
     q, k, v = _qkv(p, x, cfg, positions, bits=bits, impl=impl)
-    o = _direct_attention(q, k, v, cfg.n_kv_heads, causal=causal, window=window)
+    if max(x.shape[1], k.shape[1]) > FLASH_THRESHOLD and x.shape[1] > 1:
+        o = _flash_attention(q, k, v, cfg.n_kv_heads, causal=causal, window=window)
+    else:
+        o = _direct_attention(q, k, v, cfg.n_kv_heads, causal=causal, window=window)
     b, s, _, _ = o.shape
     return qdense(p["wo"], o.reshape(b, s, -1), bits=_b(bits, "wo"), impl=impl)
 

@@ -30,9 +30,8 @@ The minimal port of ``repro/serve/engine.py``:
     bits proposes K tokens, ``decode_verify`` checks all K+1 positions in
     one weight pass, and ``spec/loop.py`` rewinds the quantized cache to
     the accepted prefix.  Greedy streams equal the non-speculative ones.
-    The burst K is the configured K throughout (the JAX engine's shed
-    ladder, which lowers it under pool pressure, is not ported), shrunk
-    only near ``max_seq``.
+    The burst K is the live K of the shed ladder (below), shrunk near
+    ``max_seq``.
   * ``prefill_chunk=C`` admits a prompt in the PREFILLING state and
     prefills its head in ``C``-token chunks interleaved with decode turns
     under a per-step token budget (``serve/scheduler.py``): decode slots are
@@ -43,11 +42,29 @@ The minimal port of ``repro/serve/engine.py``:
     PREFILL -> DECODE -> DONE, CANCELLED (``cancel``) or TIMED_OUT
     (``Request.deadline_s`` / ``ttft_budget_s``), finalized exactly once.
     ``submit(req, on_token=)`` streams each committed token to a callback
-    and to the ``poll()`` ring; ``metrics`` holds the TTFT (first committed
-    token) and inter-token histograms.
+    and to the ``poll()`` ring; ``metrics`` holds the counters behind
+    ``stats()``, the loop-turn time and the TTFT (first committed token) and
+    inter-token histograms.
+  * Admission is priority-first, FIFO within a priority class.  Under pool
+    pressure the engine walks a shed ladder (``ShedPolicy``): the live
+    speculation K steps down (K -> K//2 -> ... -> 0), releasing the bursts'
+    block reservations, and then the lowest-priority resident strictly below
+    the best waiting priority is preempted: its generated tokens ride back to
+    the queue as prompt suffix (``RequestLifecycle.resume_tokens``).  A
+    pressure-free turn climbs back one tier; a dispatch slower than 3 x the
+    rolling median (``StragglerMonitor``) sheds one tier, never below K 1.
+  * Non-finite logits are flagged per slot on the device, in the step that
+    samples them, and the flags come back in the tokens' own transfer: a
+    poisoned slot samples from zeroed logits and only its request FAILS; a
+    poisoned draft falls back to the verify token for that slot.  A
+    ``FailureInjector`` drives these paths and the other serve fault sites.
+  * With the process tracer enabled, every loop turn records a ``step`` span
+    split into named phases and every request its lifecycle spans;
+    ``trace_report()`` decomposes the traced step time, ``measured_costs()``
+    feeds the calibration ratios ``stats()`` reports against an artifact's
+    predicted costs.  Tracing adds no synchronization and changes no token.
 
-Left for later slices: the shed ladder, preemption, fault injection, the
-engine's spans, NaN quarantine and the v5 kernel configs.
+Left for later slices: the v5 kernel configs (``kernels/autotune.py``).
 """
 from __future__ import annotations
 
@@ -64,12 +81,15 @@ from repro_torch.kvcache import paged as kvpaged
 from repro_torch.device import resolve_device
 from repro_torch.core.policy import PolicyArtifact
 from repro_torch.models import registry
+from repro_torch.obs import calibration as obs_calibration
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.quant import apply as qapply
+from repro_torch.runtime.resilience import FailureInjector, StepTimer, StragglerMonitor
 from repro_torch.spec import loop as spec_loop
 from repro_torch.spec.draft import build_draft_params
-from .lifecycle import TERMINAL_STATES, LifecycleError, RequestLifecycle, RequestState
+from .lifecycle import (TERMINAL_STATES, LifecycleError, RequestLifecycle, RequestState,
+                        ShedPolicy, spec_ladder)
 from .sampling import sample
 from .scheduler import ChunkScheduler, SchedulerConfig
 
@@ -80,6 +100,7 @@ class Request:
     prompt: list[int]
     max_new_tokens: int = 16
     eos_id: int = -1              # -1: never stop early
+    priority: int = 0             # higher admits first / preempts lower
     deadline_s: float | None = None      # end-to-end budget from submission
     ttft_budget_s: float | None = None   # first-token budget from submission
 
@@ -105,6 +126,19 @@ def _round_up(n: int, mult: int) -> int:
     return -(-n // mult) * mult
 
 
+#: integer counters ``stats()`` exposes (``wall_s`` rides as a float counter
+#: beside them); ``admissions`` counts batched prefill calls
+_COUNTER_KEYS = ("prefill_tokens", "prefill_chunks", "decode_steps", "loop_turns",
+                 "admissions", "completed", "spec_steps", "spec_proposed", "spec_accepted",
+                 "preemptions", "failed", "cancelled", "timed_out", "nan_quarantined",
+                 "nan_draft_fallbacks")
+
+#: step-phase span names in loop order; ``hook`` only with a ``step_hook``,
+#: ``prefill_chunk`` only under chunked prefill
+_PHASE_NAMES = ("hook", "reap", "admission", "prefill_chunk", "prep", "dispatch",
+                "device_sync", "commit", "bookkeeping")
+
+
 def _first_tensor(tree):
     if isinstance(tree, torch.Tensor):
         return tree
@@ -123,10 +157,13 @@ class ServeEngine:
     def __init__(self, cfg, params: dict, *, max_slots: int = 4, max_seq: int = 256,
                  prefill_pad: int = 32, impl: str = "auto", temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 1.0, seed: int = 0,
-                 state_dtype=torch.float32, fuse_projections: bool = True, state_bits=None,
+                 state_dtype=torch.float32, batch_admission: bool = True,
+                 fuse_projections: bool = True, state_bits=None,
                  kv_block: int | None = None, paged: bool = False, pool_blocks: int | None = None,
                  share_prefix: bool = True, speculate: int | None = None, draft_policy=None,
-                 artifact: PolicyArtifact | None = None, debug_invariants: bool = False,
+                 artifact: PolicyArtifact | None = None,
+                 shed: ShedPolicy | None = ShedPolicy(),
+                 fault_injector: FailureInjector | None = None, debug_invariants: bool = False,
                  prefill_chunk: int | None = None, step_token_budget: int | None = None,
                  device=None):
         self.device = resolve_device(device)
@@ -136,10 +173,16 @@ class ServeEngine:
                              f"{self.device}")
         self.cfg = cfg
         self.api = registry.get_api(cfg)
+        self._injector = fault_injector
         # the policy this engine claims to serve: refuse packed bits that differ
         self.artifact = artifact
         self.packed_bits = qapply.packed_policy_bits(params)
         if artifact is not None:
+            if self._fault("artifact_mismatch", step=0):
+                # the deploy-time refusal itself, with one leaf's bits tampered
+                name = next(iter(self.packed_bits), None)
+                raise ValueError(f"packed leaf bitwidths disagree with the policy artifact "
+                                 f"(injected artifact_mismatch fault): {name}=-1")
             qapply.verify_packed_bits(params, artifact)
         # fuse packed Q/K/V and gate/up groups: one kernel launch per group
         self.params = qapply.fuse_projections(params) if fuse_projections else params
@@ -167,8 +210,15 @@ class ServeEngine:
             # policy never splits a fused leaf; equal-bit groups fuse after
             draft, self.draft_bits = build_draft_params(params, draft_policy, cfg)
             self.draft_params = qapply.fuse_projections(draft) if fuse_projections else draft
-        #: the live burst length: the configured K (no shed ladder yet)
+        # graceful degradation: the live burst K walks the shed ladder under
+        # pool pressure; tier 0 is full service
+        self._shed_policy = shed
+        self._spec_ladder = spec_ladder(self.speculate)
+        self._shed_tier = 0
         self._k_live = self.speculate
+        self._straggler = StragglerMonitor()
+        self._shed_events: list[dict] = []
+        self.batch_admission = batch_admission
         self.max_slots = max_slots
         self.max_seq = max_seq
         self.prefill_pad = prefill_pad
@@ -252,11 +302,14 @@ class ServeEngine:
         self._pending_token: dict[int, int] = {}
         self.lifecycles: dict[int, RequestLifecycle] = {}
         self._cancel_requested: set[int] = set()
-        self._counts = {"decode_steps": 0, "admissions": 0, "prefill_tokens": 0,
-                        "prefill_chunks": 0, "completed": 0, "cancelled": 0, "timed_out": 0, "spec_steps": 0, "spec_proposed": 0,
-                        "spec_accepted": 0}
-        #: time to the first committed token and between committed tokens
+        # the metrics registry is the source of truth behind stats(): the
+        # counters, the whole loop turn's time, the time to the first
+        # committed token and between committed tokens
         self.metrics = obs_metrics.MetricsRegistry()
+        for name in _COUNTER_KEYS:
+            self.metrics.counter(name)
+        self.metrics.counter("wall_s")
+        self.metrics.histogram("step_time_s")
         self.metrics.histogram("ttft_s")
         self.metrics.histogram("itl_s")
         self._tracer = obs_trace.get_tracer()
@@ -266,6 +319,29 @@ class ServeEngine:
         #: host seconds of each decode step (a speculative round under
         #: speculation), the token transfer included
         self._step_s: list[float] = []
+
+    # -- observability ---------------------------------------------------------
+    def _count(self, name: str, n: int = 1) -> None:
+        self.metrics.counter(name).inc(n)
+
+    def _nsteps(self) -> int:
+        return int(self.metrics.counter("decode_steps").value)
+
+    def _span(self, name: str, **args):
+        """A step-phase span: a trace event and a ``phase/<name>`` histogram
+        sample while the tracer is enabled, the shared no-op span otherwise."""
+        tr = self._tracer
+        if not tr.enabled:
+            return obs_trace.NOOP_SPAN
+        return tr.span(name, cat="phase", track="engine",
+                       hist=self.metrics.histogram("phase/" + name), args=args or None)
+
+    # -- fault injection (runtime/resilience.py) -------------------------------
+    def _fault(self, site: str, step: int | None = None) -> bool:
+        """Consume-once poll of the injector at a serve fault site."""
+        if self._injector is None:
+            return False
+        return self._injector.fires(site, self._nsteps() if step is None else step)
 
     # -- paged block bookkeeping -------------------------------------------
     def _push_tables(self) -> None:
@@ -420,13 +496,37 @@ class ServeEngine:
                     self.pool.cow_copies += 1
                     self.pool.decref(bid)
                     self._host_tables[i, tb] = fresh
+                    self._shared_blocks.get(i, set()).discard(tb)
                     cow_src.append(bid)
                     cow_dst.append(fresh)
                     self._tables_dirty = True
         if cow_src:
             for layer in self.state:
                 kvpaged.copy_blocks(layer, cow_src, cow_dst)
+            self._settle_shares()
         self._push_tables()
+
+    def _settle_shares(self) -> None:
+        """A block mapped from a donor that is left with one holder needs no
+        split: drop it from that holder's shared set and, if it lies in the
+        holder's remaining write span, release the split's reservation.
+
+        Only a donor that leaves before its sharers' first append (a
+        preemption or an append failure between admission and dispatch), or
+        a split by one of two sharers after their donor left, leaves such a
+        block; completions never do, since every split of a shared write
+        block happens at the step after the admission that shared it."""
+        blk = self._kv_blk
+        for j, shared in self._shared_blocks.items():
+            for tb in sorted(shared):
+                if self.pool.refcount(int(self._host_tables[j, tb])) != 1:
+                    continue
+                shared.discard(tb)
+                s = self.slots[j]
+                if (not s.free and s.pos // blk <= tb
+                        <= self._last_pos(s.req, self._k_live) // blk):
+                    self.pool.unreserve(1)
+                    self._reserved[j] -= 1
 
     def _free_slot_blocks(self, slot_id: int) -> None:
         for bid in self._host_tables[slot_id]:
@@ -436,6 +536,7 @@ class ServeEngine:
         self.pool.unreserve(self._reserved.pop(slot_id, 0))
         self._shared_blocks.pop(slot_id, None)
         self._tables_dirty = True
+        self._settle_shares()
 
     def _required_growth(self, slot_id: int, k: int) -> int:
         """Blocks an active slot still needs reserved to finish under burst
@@ -451,6 +552,99 @@ class ServeEngine:
             if bid < 0 or (tb in shared and self.pool.refcount(bid) > 1):
                 need += 1
         return need
+
+    # -- graceful degradation ----------------------------------------------------
+    def _set_live_k(self, k: int) -> bool:
+        """Change the live burst K, resyncing every active slot's growth
+        reservation to the new headroom.  Shrinking always succeeds (it
+        releases reservations: the point of the ladder); growing back is
+        refused (False) when the pool cannot cover the larger headroom for
+        every active slot, so restoring speculation never strands one."""
+        if k == self._k_live:
+            return True
+        if self.paged:
+            deltas = {i: self._required_growth(i, k) - self._reserved.get(i, 0)
+                      for i, s in enumerate(self.slots) if not s.free}
+            grow = sum(d for d in deltas.values() if d > 0)
+            shrink = -sum(d for d in deltas.values() if d < 0)
+            if grow > self.pool.available + shrink:
+                return False
+            for i, d in sorted(deltas.items(), key=lambda kv: kv[1]):
+                if d < 0:                      # releases first: they free headroom
+                    self.pool.unreserve(-d)
+                elif d > 0:
+                    self.pool.reserve(d)
+                self._reserved[i] = self._reserved.get(i, 0) + d
+        self._k_live = k
+        return True
+
+    def _shed_event(self, action: str, **extra) -> None:
+        ev = {"action": action, "step": self._nsteps(), "tier": self._shed_tier,
+              "k": self._k_live, **extra}
+        self._shed_events.append(ev)
+        self._tracer.instant("shed:" + action, cat="degradation", track="engine", args=ev)
+
+    def _maybe_shed(self, waiting: list[Request]) -> bool:
+        """ONE degradation action for this turn (True if state changed): step
+        the speculation ladder down a tier, or, the ladder exhausted, preempt
+        for the best waiting priority; else plain backpressure."""
+        pol = self._shed_policy
+        if pol is None:
+            return False
+        if pol.spec_tiers and self._shed_tier < len(self._spec_ladder) - 1:
+            if self._set_live_k(self._spec_ladder[self._shed_tier + 1]):
+                self._shed_tier += 1
+                self._shed_event("spec_shed")
+                return True
+        return self._preempt_for(waiting)
+
+    def _preempt_for(self, waiting: list[Request]) -> bool:
+        """Preempt the lowest-priority resident strictly below the best waiting
+        priority (equal priorities never thrash), under pool pressure and under
+        slot pressure alike."""
+        pol = self._shed_policy
+        if pol is None or not pol.preempt or not waiting:
+            return False
+        best = max(r.priority for r in waiting)
+        victims = [i for i, s in enumerate(self.slots) if not s.free and s.req.priority < best]
+        if not victims:
+            return False
+        # lowest priority first; ties preempt the least-progressed slot
+        victim = min(victims, key=lambda i: (self.slots[i].req.priority,
+                                             len(self.slots[i].generated)))
+        self._preempt(victim)
+        return True
+
+    def _relax_shed(self) -> None:
+        """Pressure-free turn: climb back one tier if the pool can cover the
+        larger burst headroom of every active slot."""
+        pol = self._shed_policy
+        if pol is None or not pol.restore or self._shed_tier == 0:
+            return
+        if self._set_live_k(self._spec_ladder[self._shed_tier - 1]):
+            self._shed_tier -= 1
+            self._shed_event("restore")
+
+    def _preempt(self, slot_id: int) -> None:
+        """Send a victim back to QUEUED: its prompt plus its generated tokens
+        become the resumed request's prompt (replayed through the normal
+        prefill and shared-prefix path), and its token budget shrinks by what
+        it produced, so the resumed stream picks up where it stopped."""
+        s = self.slots[slot_id]
+        req = s.req
+        lc = self.lifecycles.get(req.uid)
+        if lc is not None:
+            lc.transition(RequestState.QUEUED, time.monotonic(),
+                          diagnostic="preempted under pool pressure")
+            lc.preemptions += 1
+            lc.resume_tokens.extend(s.generated)
+            lc.prefill_progress = 0          # a mid-chunk victim restarts its prefill
+        self._count("preemptions")
+        self._shed_event("preempt", uid=req.uid, at_tokens=len(s.generated))
+        resumed = dataclasses.replace(req, prompt=req.prompt + s.generated,
+                                      max_new_tokens=req.max_new_tokens - len(s.generated))
+        self._release_slot(slot_id)
+        self._queue.append(resumed)
 
     def _row_tables(self, with_head: list[tuple[int, list[int]]], pad: int) -> np.ndarray:
         """Physical write destination per (prefill row, logical block); -1 skips
@@ -483,7 +677,7 @@ class ServeEngine:
         if not tr.enabled:
             self._lc_marks.pop(lc.uid, None)
             return
-        t = time.perf_counter()
+        t = tr.now()
         track = f"req/{lc.uid}"
         t0 = self._lc_marks.pop(lc.uid, None)
         if t0 is not None:
@@ -491,16 +685,18 @@ class ServeEngine:
                         args={"uid": lc.uid})
         if new in TERMINAL_STATES:
             tr.instant(new.value, cat="request", track=track,
-                       args={"uid": lc.uid, "diagnostic": diagnostic or lc.diagnostic})
+                       args={"uid": lc.uid, "diagnostic": diagnostic or lc.diagnostic,
+                             "preemptions": lc.preemptions})
         else:
-            if new is RequestState.QUEUED:   # admission rollback
+            if new is RequestState.QUEUED:   # preemption or admission rollback
                 tr.instant("requeued", cat="request", track=track,
                            args={"uid": lc.uid, "diagnostic": diagnostic})
             self._lc_marks[lc.uid] = t
 
     def submit(self, req: Request, on_token=None) -> RequestLifecycle:
         """Enqueue a request (usable mid-``run`` from a step hook) and create
-        its lifecycle record; admission is FIFO.
+        its lifecycle record; admission is priority-first, FIFO within a
+        priority class.
 
         ``on_token(uid, token)``: an optional streaming callback, fired for
         every token the moment it commits (a speculative burst's tokens one
@@ -510,14 +706,15 @@ class ServeEngine:
         if existing is not None and not existing.terminal:
             raise LifecycleError(f"request uid {req.uid} is already live "
                                  f"({existing.state.value})")
-        lc = RequestLifecycle(uid=req.uid, deadline_s=req.deadline_s,
+        lc = RequestLifecycle(uid=req.uid, priority=req.priority, deadline_s=req.deadline_s,
                               ttft_budget_s=req.ttft_budget_s, enqueued_t=time.monotonic())
         lc.observer = self._observe_transition
         tr = self._tracer
         if tr.enabled:
-            self._lc_marks[req.uid] = time.perf_counter()
+            self._lc_marks[req.uid] = tr.now()
             tr.instant("submit", cat="request", track=f"req/{req.uid}",
-                       args={"uid": req.uid, "prompt_tokens": len(req.prompt),
+                       args={"uid": req.uid, "priority": req.priority,
+                             "prompt_tokens": len(req.prompt),
                              "max_new_tokens": req.max_new_tokens})
         self.lifecycles[req.uid] = lc
         if on_token is not None:
@@ -564,8 +761,9 @@ class ServeEngine:
         if slot_id is not None:
             self._release_slot(slot_id)
         self._on_token.pop(req.uid, None)
-        self._counts[{RequestState.DONE: "completed", RequestState.CANCELLED: "cancelled",
-                      RequestState.TIMED_OUT: "timed_out"}[state]] += 1
+        self._count({RequestState.DONE: "completed", RequestState.FAILED: "failed",
+                     RequestState.CANCELLED: "cancelled",
+                     RequestState.TIMED_OUT: "timed_out"}[state])
 
     def _reap(self, now: float, results: dict[int, list[int]]) -> None:
         """Apply pending cancellations and deadline / TTFT expiries, queued and
@@ -670,8 +868,8 @@ class ServeEngine:
             else:
                 self.state = kvcache.insert_state_rows(self.state, [s for s, _ in with_head],
                                                        st, lengths)
-            self._counts["admissions"] += 1
-            self._counts["prefill_tokens"] += sum(len(h) for _, h in with_head)
+            self._count("admissions")
+            self._count("prefill_tokens", sum(len(h) for _, h in with_head))
         now = time.monotonic()
         for req in admitted:
             lc = self.lifecycles.get(req.uid)
@@ -690,21 +888,22 @@ class ServeEngine:
         """
         prefilling = [(i, len(s.req.prompt) - 1 - s.pos) for i, s in enumerate(self.slots)
                       if not s.free and s.prefilling]
-        plan = self._scheduler.plan(self._counts["decode_steps"], n_decode, prefilling)
+        plan = self._scheduler.plan(self._nsteps(), n_decode, prefilling)
         blk = self._kv_blk if self.paged else 0
         for slot_id, n in plan:
             s = self.slots[slot_id]
             req = s.req
             w = len(req.prompt) - 1
             p = s.pos
-            toks = np.zeros((1, self.prefill_chunk), np.int32)
-            toks[0, :n] = req.prompt[p:p + n]
-            self._scratch[slot_id] = self.api.prefill_chunk(
-                self.params, self.cfg, self._scratch[slot_id],
-                torch.tensor(toks, device=self.device), p, impl=self.impl)
+            with self._span("prefill_chunk", uid=req.uid, offset=p, n=n):
+                toks = np.zeros((1, self.prefill_chunk), np.int32)
+                toks[0, :n] = req.prompt[p:p + n]
+                self._scratch[slot_id] = self.api.prefill_chunk(
+                    self.params, self.cfg, self._scratch[slot_id],
+                    torch.tensor(toks, device=self.device), p, impl=self.impl)
             s.pos = p + n
-            self._counts["prefill_tokens"] += n
-            self._counts["prefill_chunks"] += 1
+            self._count("prefill_tokens", n)
+            self._count("prefill_chunks")
             lc = self.lifecycles.get(req.uid)
             if lc is not None:
                 lc.prefill_progress = s.pos
@@ -744,18 +943,39 @@ class ServeEngine:
             lc.transition(RequestState.DECODE, time.monotonic())
 
     # -- decode ------------------------------------------------------------
-    def _decode(self, tokens_h: np.ndarray, pos_h: np.ndarray) -> np.ndarray:
-        """One lockstep step over every slot; ONE (B,) int32 transfer to the host."""
-        logits, self.state = self.api.decode_step(
-            self.params, self.cfg, self.state, torch.tensor(tokens_h, device=self.device),
-            torch.tensor(pos_h, device=self.device), impl=self.impl)
-        return self._sample(logits[:, -1]).cpu().numpy()
+    def _guard(self, logits: torch.Tensor, inject: torch.Tensor | None, dims):
+        """Per-slot non-finite flag over ``dims`` of ``logits`` (B, ...), and the
+        logits with a flagged slot's rows zeroed, so a poisoned slot cannot
+        move its neighbours' sampling.  ``inject`` is the fault injector's
+        per-slot NaN needle, added only when an injector is set."""
+        lead = (-1,) + (1,) * (logits.dim() - 1)
+        if inject is not None:
+            logits = logits + inject.reshape(lead)
+        bad = ~torch.isfinite(logits).all(dim=dims)
+        return torch.where(bad.reshape(lead), 0.0, logits), bad
+
+    def _needle(self, inject: np.ndarray | None) -> torch.Tensor | None:
+        return None if inject is None else torch.tensor(inject, device=self.device)
+
+    def _decode(self, tokens_h: np.ndarray, pos_h: np.ndarray,
+                inject: np.ndarray | None = None) -> tuple[np.ndarray, np.ndarray]:
+        """One lockstep step over every slot -> (tokens (B,), non-finite flags
+        (B,)): ONE (B, 2) int32 transfer to the host carries both."""
+        with self._span("dispatch"):
+            logits, self.state = self.api.decode_step(
+                self.params, self.cfg, self.state, torch.tensor(tokens_h, device=self.device),
+                torch.tensor(pos_h, device=self.device), impl=self.impl)
+            last, bad = self._guard(logits[:, -1], self._needle(inject), -1)
+            out = torch.stack([self._sample(last), bad.to(torch.int32)], dim=1)
+        with self._span("device_sync"):
+            host = out.cpu().numpy()                                   # the transfer
+        return host[:, 0], host[:, 1].astype(bool)
 
     # -- speculative decode ------------------------------------------------
     def _burst_len(self, active: list[int]) -> int:
         """Burst K of this round: the live K, shrunk so no slot's burst writes
         past ``max_seq - 1`` (active slots sit at ``pos <= max_seq - 2``, so
-        it is >= 1 whenever speculation is on)."""
+        it is >= 1 whenever speculation is live)."""
         max_pos = max(self.slots[i].pos for i in active)
         return max(min(self._k_live, self.max_seq - 1 - max_pos), 0)
 
@@ -765,65 +985,108 @@ class ServeEngine:
                           top_p=self.top_p)
         return sample(logits)
 
-    def _spec_step(self, active: list[int], tokens_h: np.ndarray, pos_h: np.ndarray,
-                   k: int) -> dict[int, list[int]]:
+    def _spec_step(self, active: list[int], tokens_h: np.ndarray, pos_h: np.ndarray, k: int,
+                   inject_draft: np.ndarray | None = None,
+                   inject_verify: np.ndarray | None = None):
         """One round: snapshot -> K draft ``decode_step``s -> restore ->
         ``decode_verify`` -> ``accept_tokens`` -> ``commit_state``.  Every slot
         steps, idle ones at their last token and position as in the JAX
-        engine.  ONE host transfer: the accepted counts and the (B, K+1)
-        tokens.  Returns each active slot's emitted tokens (1..K+1: the
-        accepted draft prefix and the bonus token)."""
-        tokens = torch.tensor(tokens_h, device=self.device)
-        pos = torch.tensor(pos_h, device=self.device)
-        saved = spec_loop.snapshot_state(self.state, pos, k) if self._quant_state else None
-        tok, d_toks, d_logits = tokens, [], []
-        for j in range(k):
-            logits, self.state = self.api.decode_step(self.draft_params, self.cfg, self.state,
-                                                      tok, pos + j, impl=self.impl)
-            t = self._sample(logits[:, -1])
-            d_toks.append(t)
-            if self.temperature > 0.0:
-                d_logits.append(logits[:, -1])
-            tok = t[:, None]
-        d_toks = torch.stack(d_toks, dim=1)                                  # (B, K)
-        if saved is not None:
-            spec_loop.restore_state(self.state, saved, pos, k)
-        burst = torch.cat([tokens, d_toks], dim=1)                           # (B, K+1)
-        logits, self.state, burst_kv = self.api.decode_verify(self.params, self.cfg, self.state,
-                                                              burst, pos, impl=self.impl)
-        acc, out = spec_loop.accept_tokens(
-            logits, d_toks, torch.stack(d_logits, dim=1) if d_logits else None, self._gen,
-            temperature=self.temperature, top_k=self.top_k, top_p=self.top_p)
-        if saved is not None:
-            spec_loop.commit_state(self.state, saved, pos, acc, burst_kv, k, impl=self.impl)
-        host = torch.cat([acc[:, None], out], dim=1).cpu().numpy()           # the transfer
-        self._counts["spec_steps"] += 1
+        engine.  A slot whose draft logits go non-finite (sticky over the
+        burst) or whose verify logits do accepts nothing: with acc 0 it emits
+        the verify pass's first token, the non-speculative one.  ONE host
+        transfer: the accepted counts, the (B, K+1) tokens and both flags.
+        Returns each active slot's emitted tokens (1..K+1: the accepted draft
+        prefix and the bonus token) and the (B,) draft and verify flags."""
+        with self._span("dispatch", k=k):
+            tokens = torch.tensor(tokens_h, device=self.device)
+            pos = torch.tensor(pos_h, device=self.device)
+            saved = spec_loop.snapshot_state(self.state, pos, k) if self._quant_state else None
+            needle = self._needle(inject_draft)
+            tok, d_toks, d_logits = tokens, [], []
+            draft_bad = torch.zeros(tokens.shape[0], dtype=torch.bool, device=self.device)
+            for j in range(k):
+                logits, self.state = self.api.decode_step(self.draft_params, self.cfg,
+                                                          self.state, tok, pos + j,
+                                                          impl=self.impl)
+                last = logits[:, -1]
+                if j == 0 and needle is not None:
+                    last = last + needle[:, None]
+                # sticky over the burst: a poisoned slot's proposals stay finite
+                draft_bad = draft_bad | ~torch.isfinite(last).all(dim=-1)
+                last = torch.where(draft_bad[:, None], 0.0, last)
+                t = self._sample(last)
+                d_toks.append(t)
+                if self.temperature > 0.0:
+                    d_logits.append(last)
+                tok = t[:, None]
+            d_toks = torch.stack(d_toks, dim=1)                              # (B, K)
+            if saved is not None:
+                spec_loop.restore_state(self.state, saved, pos, k)
+            burst = torch.cat([tokens, d_toks], dim=1)                       # (B, K+1)
+            logits, self.state, burst_kv = self.api.decode_verify(
+                self.params, self.cfg, self.state, burst, pos, impl=self.impl)
+            logits, verify_bad = self._guard(logits, self._needle(inject_verify), (1, 2))
+            acc, out = spec_loop.accept_tokens(
+                logits, d_toks, torch.stack(d_logits, dim=1) if d_logits else None, self._gen,
+                temperature=self.temperature, top_k=self.top_k, top_p=self.top_p)
+            acc = torch.where(draft_bad | verify_bad, torch.zeros_like(acc), acc)
+            if saved is not None:
+                spec_loop.commit_state(self.state, saved, pos, acc, burst_kv, k, impl=self.impl)
+            flags = torch.stack([draft_bad, verify_bad], dim=1).to(out.dtype)
+            out = torch.cat([acc[:, None].to(out.dtype), out, flags], dim=1)
+        with self._span("device_sync"):
+            host = out.cpu().numpy()                                         # the transfer
+        self._count("spec_steps")
         emitted = {}
         for i in active:
             a = int(host[i, 0])
             emitted[i] = [int(t) for t in host[i, 1:a + 2]]
-            self._counts["spec_proposed"] += k
-            self._counts["spec_accepted"] += a
-        return emitted
+            self._count("spec_proposed", k)
+            self._count("spec_accepted", a)
+        return emitted, host[:, -2].astype(bool), host[:, -1].astype(bool)
 
     # -- main loop -----------------------------------------------------------
     def run(self, requests: list[Request] = (), *, step_hook=None) -> dict[int, list[int]]:
         """Continuous-batching loop until every submitted request reaches a
         terminal lifecycle state -> ``{uid: tokens}`` for every request that
-        ended during this call (partial streams for CANCELLED / TIMED_OUT;
-        ``lifecycles[uid]`` has the state and its diagnostic).
+        ended during this call (partial streams for FAILED / CANCELLED /
+        TIMED_OUT; ``lifecycles[uid]`` has the state and its diagnostic).
 
         ``step_hook(engine, step)`` fires once per loop turn before the reap
-        and the admission (mid-run ``submit``, ``cancel`` or ``poll``).
+        and the admission (mid-run ``submit``, ``cancel`` or ``poll``).  With
+        the process tracer enabled (``obs.trace.enable()``) each turn also
+        records a ``step`` span split into the named phases of ``_turn``, and
+        each request its lifecycle spans (``trace_report()``).
         """
+        t0 = time.perf_counter()
         for req in requests:
             self.submit(req)
         results: dict[int, list[int]] = {}
         self._pending_token = {}
         tokens_h = np.zeros((self.max_slots, 1), np.int32)
         pos_h = np.zeros((self.max_slots,), np.int32)
+        step_hist = self.metrics.histogram("step_time_s")
         while self._queue or self._active():
-            self._turn(results, tokens_h, pos_h, step_hook)
+            tr = self._tracer
+            step_idx = self._nsteps()
+            step_span = (tr.span("step", cat="step", track="engine",
+                                 hist=self.metrics.histogram("traced_step_s"),
+                                 args={"step": step_idx})
+                         if tr.enabled else obs_trace.NOOP_SPAN)
+            with step_span:
+                self._count("loop_turns")
+                with StepTimer() as turn:
+                    dispatch_dt = self._turn(results, tokens_h, pos_h, step_hook)
+                step_hist.observe(turn.dt)
+                with self._span("bookkeeping"):
+                    if dispatch_dt is not None:
+                        self._after_dispatch(step_idx, dispatch_dt)
+                    if tr.enabled:
+                        tr.counter("queue_depth", len(self._queue))
+                        tr.counter("active_slots", sum(not s.free for s in self.slots))
+                        if self.paged:
+                            tr.counter("pool_available", self.pool.available)
+        self.metrics.counter("wall_s").inc(time.perf_counter() - t0)
         return results
 
     def _active(self) -> list[int]:
@@ -834,22 +1097,51 @@ class ServeEngine:
         return [i for i, s in enumerate(self.slots) if not s.free and not s.prefilling]
 
     def _turn(self, results: dict[int, list[int]], tokens_h: np.ndarray, pos_h: np.ndarray,
-              step_hook) -> None:
-        """One loop turn: hook -> reap -> admission -> prefill chunks -> decode
-        (or a speculative round) -> commit."""
+              step_hook) -> float | None:
+        """One loop turn: hook -> reap -> admission (and the shed ladder) ->
+        prefill chunks -> prep -> dispatch -> device_sync -> commit.  Returns
+        the dispatch's host seconds, the transfer included (the straggler
+        signal), or None when no decode ran."""
         if step_hook is not None:
-            step_hook(self, self._counts["decode_steps"])
-        self._reap(time.monotonic(), results)
-        free = [i for i, s in enumerate(self.slots) if s.free]
-        if free and self._queue:
-            rejected = self._admit([(i, self._queue.pop(0)) for i in free[: len(self._queue)]])
-            # paged backpressure: what the pool could not cover waits at the
-            # head of the queue for completions to free blocks
-            self._queue[:0] = rejected
-            if rejected and not self._active():
-                raise RuntimeError(
-                    f"request needs more KV blocks than the whole pool holds "
-                    f"({self.pool.num_blocks}); raise pool_blocks")
+            with self._span("hook"):
+                step_hook(self, self._nsteps())
+        with self._span("reap"):
+            self._reap(time.monotonic(), results)
+        with self._span("admission"):
+            # fill free slots, highest priority first (a stable sort: FIFO
+            # within a priority class)
+            free = [i for i, s in enumerate(self.slots) if s.free]
+            pressure = False
+            if free and self._queue:
+                self._queue.sort(key=lambda r: -r.priority)
+                if self._fault("pool_exhaustion"):
+                    # injected pool pressure: refuse the whole admission turn,
+                    # so the ladder reacts as it would to a full pool
+                    pressure = True
+                else:
+                    assignments = [(i, self._queue.pop(0)) for i in free[: len(self._queue)]]
+                    if self.batch_admission:
+                        rejected = self._admit(assignments)
+                    else:                      # one padded prefill a request
+                        rejected = []
+                        for pair in assignments:
+                            rejected += self._admit([pair])
+                    # paged backpressure: what the pool could not cover waits
+                    # at the head of the queue (and the ladder sheds below)
+                    self._queue[:0] = rejected
+                    pressure = bool(rejected)
+                    if rejected and not self._active():
+                        raise RuntimeError(
+                            f"request needs more KV blocks than the whole pool holds "
+                            f"({self.pool.num_blocks}); raise pool_blocks")
+            if pressure:
+                # shrink the speculation headroom, then preempt by priority
+                self._maybe_shed(self._queue)
+            elif self._queue:
+                # slot pressure: a strictly higher-priority waiter may preempt
+                self._preempt_for(self._queue)
+            else:
+                self._relax_shed()
         act = self._decode_active()
         if self._scheduler is not None:
             # decode slots are charged first; chunks fill the rest of the
@@ -860,37 +1152,76 @@ class ServeEngine:
         if not act:
             if self._debug_invariants:
                 self.check_invariants()        # pure-prefill turns are checked too
-            return
+            return None
+        if self.paged and self._fault("append_failure"):
+            # the slot's paged append bookkeeping died: that request alone fails
+            victim = act[0]
+            self._finalize(victim, self.slots[victim].req, RequestState.FAILED, results,
+                           diagnostic="paged append bookkeeping failure (injected fault)")
+            act = self._decode_active()
+            if not act:
+                return None
         k_eff = self._burst_len(act) if self._k_live else 0
-        if self.paged:
-            # map and copy-on-write every block the round can write
-            self._ensure_append_blocks(act, span=k_eff + 1)
-        for i in act:
-            s = self.slots[i]
-            tokens_h[i, 0] = self._pending_token.get(i, s.generated[-1] if s.generated else 0)
-            pos_h[i] = s.pos
-        t0 = time.perf_counter()
-        if k_eff > 0:
-            emitted = self._spec_step(act, tokens_h, pos_h, k_eff)
-        else:
-            toks = self._decode(tokens_h, pos_h)
-            emitted = {i: [int(toks[i])] for i in act}
-        self._step_s.append(time.perf_counter() - t0)
-        self._counts["decode_steps"] += 1
-        self._commit(act, emitted, results)
-        if self._debug_invariants:
-            self.check_invariants()
+        with self._span("prep"):
+            if self.paged:
+                # map and copy-on-write every block the round can write
+                self._ensure_append_blocks(act, span=k_eff + 1)
+            for i in act:
+                s = self.slots[i]
+                tokens_h[i, 0] = self._pending_token.get(i, s.generated[-1] if s.generated
+                                                         else 0)
+                pos_h[i] = s.pos
+            # per-slot NaN needles, only with an injector (none in production)
+            inject = inj_draft = None
+            if self._injector is not None:
+                inject = np.zeros((self.max_slots,), np.float32)
+                if self._fault("nan_logit"):
+                    inject[act[0]] = np.float32("nan")
+        step = self._nsteps()
+        with StepTimer() as timer:
+            if k_eff > 0:
+                if self._injector is not None:
+                    inj_draft = np.zeros((self.max_slots,), np.float32)
+                    if self._fault("nan_logit_draft"):
+                        inj_draft[act[0]] = np.float32("nan")
+                emitted, draft_bad, verify_bad = self._spec_step(act, tokens_h, pos_h, k_eff,
+                                                                 inj_draft, inject)
+            else:
+                toks, verify_bad = self._decode(tokens_h, pos_h, inject)
+                draft_bad = None
+                emitted = {i: [int(toks[i])] for i in act}
+        self._step_s.append(timer.dt)
+        self._count("decode_steps")
+        with self._span("commit"):
+            self._commit(act, emitted, draft_bad, verify_bad, step, results)
+        return timer.dt
 
-    def _commit(self, act: list[int], emitted: dict[int, list[int]],
-                results: dict[int, list[int]]) -> None:
-        """Apply one step's (or round's) tokens: record TTFT and inter-token
-        gaps, stream each token, finalize completed requests."""
+    def _commit(self, act: list[int], emitted: dict[int, list[int]], draft_bad, verify_bad,
+                step: int, results: dict[int, list[int]]) -> None:
+        """Apply one step's (or round's) tokens: quarantine poisoned slots,
+        record TTFT and inter-token gaps, stream each token, finalize
+        completed requests."""
         now = time.monotonic()
+        tr = self._tracer
         ttft_hist = self.metrics.histogram("ttft_s")
         itl_hist = self.metrics.histogram("itl_s")
         for i in act:
             s = self.slots[i]
             self._pending_token.pop(i, None)
+            if verify_bad[i]:
+                # numerical quarantine: only the poisoned request fails (its
+                # sampling saw zeroed logits, its neighbours' streams did not move)
+                self._count("nan_quarantined")
+                if tr.enabled:
+                    tr.instant("nan_quarantine", cat="anomaly", track=f"req/{s.req.uid}",
+                               args={"uid": s.req.uid, "step": step})
+                self._finalize(i, s.req, RequestState.FAILED, results,
+                               diagnostic=f"non-finite logits at decode step {step}")
+                continue
+            if draft_bad is not None and draft_bad[i]:
+                # poisoned draft, healthy verify: this round already fell back
+                # to the non-speculative token for this slot
+                self._count("nan_draft_fallbacks")
             lc = self.lifecycles.get(s.req.uid)
             first_of_turn = True
             for tok in emitted[i]:
@@ -898,6 +1229,9 @@ class ServeEngine:
                     # TTFT is the first COMMITTED token, not a chunk landing
                     lc.first_token_t = now
                     ttft_hist.observe(now - lc.enqueued_t)
+                    if tr.enabled:
+                        tr.instant("first_token", cat="request", track=f"req/{lc.uid}",
+                                   args={"uid": lc.uid, "ttft_s": now - lc.enqueued_t})
                 if s.last_token_t is not None:
                     # a burst's tokens land together: only the first gap of
                     # the turn is a real inter-token wait
@@ -916,6 +1250,20 @@ class ServeEngine:
                     # dropped and the slot frees this very step
                     self._finalize(i, s.req, RequestState.DONE, results)
                     break
+
+    def _after_dispatch(self, step: int, dt: float) -> None:
+        """After a dispatch: a straggler step sheds one speculation tier (never
+        below K 1: only pool pressure turns speculation off), then the
+        invariant sweep under ``debug_invariants``."""
+        if (self._straggler.observe(step, dt)
+                and self._shed_policy is not None
+                and self._shed_policy.straggler_sheds_spec
+                and self._k_live > 1
+                and self._set_live_k(self._spec_ladder[self._shed_tier + 1])):
+            self._shed_tier += 1
+            self._shed_event("straggler_shed", dt=dt)
+        if self._debug_invariants:
+            self.check_invariants()
 
     def generate(self, prompts: list[list[int]], max_new_tokens: int = 16) -> list[list[int]]:
         reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new_tokens)
@@ -985,17 +1333,34 @@ class ServeEngine:
                                          f"offset {off} (stale bytes would leak)")
 
     def stats(self) -> dict:
-        """Engine counters, the median decode step time (a whole round under
-        speculation), the process-wide kernel launch and plain-call counts,
-        the speculation counters and, when paged, the pool's.  ``admissions``
-        counts batched prefill calls; ``spec_proposed``/``spec_accepted`` sum
-        K and the accepted draft tokens over the active slots of each round.
-        Under chunked prefill ``scheduler`` sums the planner's records;
-        ``latency`` summarizes the TTFT and inter-token histograms."""
-        median = statistics.median(self._step_s) if self._step_s else None
-        out = {**self._counts, "decode_step_median_s": median,
-               "launches": dict(kernels.LAUNCHES), "plain_calls": dict(kernels.PLAIN_CALLS),
-               "draft_bits": dict(self.draft_bits), "speculate_live_k": self._k_live}
+        """A view over ``self.metrics``: the counters (``admissions`` counts
+        batched prefill calls; ``spec_proposed``/``spec_accepted`` sum K and
+        the accepted draft tokens over the active slots of each round), the
+        median decode step (a whole round under speculation, the tokens'
+        transfer included), the process-wide kernel launch and plain-call
+        counts, the shed ladder's events and tier, a ``health`` section as the
+        JAX engine's, and, where they apply, the scheduler's records, the
+        TTFT and inter-token summaries, the pool's counters and the
+        calibration ratios against the artifact's predicted costs."""
+        out = {k: int(self.metrics.counter(k).value) for k in _COUNTER_KEYS}
+        out.update(wall_s=self.metrics.counter("wall_s").value,
+                   decode_step_median_s=(statistics.median(self._step_s) if self._step_s
+                                         else None),
+                   launches=dict(kernels.LAUNCHES), plain_calls=dict(kernels.PLAIN_CALLS),
+                   draft_bits=dict(self.draft_bits), speculate_live_k=self._k_live,
+                   shed_tier=self._shed_tier, shed_events=[dict(e) for e in self._shed_events])
+        step_hist = self.metrics.histogram("step_time_s")
+        out["health"] = {
+            "step_time_median_s": step_hist.percentile(50) if step_hist.count else 0.0,
+            "dispatch_time_median_s": self._straggler.median(),
+            "straggler_flagged": len(self._straggler.flagged),
+            "shed_tier": self._shed_tier,
+            "speculate_live_k": self._k_live,
+            "queue_depth": len(self._queue),
+            "active_slots": sum(not s.free for s in self.slots),
+            "prefilling_slots": sum(s.prefilling for s in self.slots),
+            "pool_available": self.pool.available if self.paged else None,
+        }
         if self._scheduler is not None:
             recs = self._scheduler.records
             out["scheduler"] = {
@@ -1014,6 +1379,59 @@ class ServeEngine:
             out.update(pool_allocated=self.pool.allocated,
                        pool_peak_allocated=self.pool.peak_allocated,
                        cow_copies=self.pool.cow_copies, shared_maps=self.pool.shared_maps)
+        if self.artifact is not None and self.artifact.report:
+            cal = obs_calibration.calibration_ratios(self.artifact.report,
+                                                     self.measured_costs())
+            if cal:
+                out["calibration"] = cal
+        return out
+
+    def trace_report(self) -> dict:
+        """Decompose the traced loop-turn time into the named phases, from the
+        ``phase/*`` histograms the spans feed while the tracer is enabled, over
+        the ``traced_step_s`` parent spans.  ``attributed_fraction`` is the
+        share of the turns' time inside named phases (the rest is loop glue
+        between spans)."""
+        total_hist = self.metrics.histogram("traced_step_s")
+        total = total_hist.sum
+        phases = {}
+        attributed = 0.0
+        for name in _PHASE_NAMES:
+            h = self.metrics.get("phase/" + name)
+            if h is None or h.count == 0:
+                continue
+            phases[name] = {"total_s": h.sum, "count": h.count, "mean_us": h.mean * 1e6,
+                            "p99_us": h.percentile(99) * 1e6,
+                            "fraction_of_step": (h.sum / total) if total else 0.0}
+            attributed += h.sum
+        report = {
+            "steps": total_hist.count,
+            "total_s": total,
+            "phases": dict(sorted(phases.items(), key=lambda kv: -kv[1]["total_s"])),
+            "attributed_s": attributed,
+            "attributed_fraction": (attributed / total) if total else 0.0,
+            "unattributed_fraction": (1.0 - attributed / total) if total else 0.0,
+        }
+        if total_hist.count == 0:
+            report["note"] = ("no traced steps recorded: enable the tracer "
+                              "(repro_torch.obs.trace.enable()) before run()")
+        return report
+
+    def measured_costs(self) -> dict:
+        """Deployment-side measurements of the artifact's predicted metrics,
+        the calibration input: ``container_bytes`` from the packed weights,
+        ``state_bytes`` from the cache (only for a quantized state: an fp
+        cache is not what the search priced), and ``latency_s`` as the mean
+        traced dispatch + device_sync time a decode step, once traced steps
+        exist."""
+        out = {"container_bytes": float(self.weight_container_bytes())}
+        if self._quant_state:
+            out["state_bytes"] = float(self.state_container_bytes())
+        disp = self.metrics.get("phase/dispatch")
+        sync = self.metrics.get("phase/device_sync")
+        if disp is not None and disp.count:
+            out["latency_s"] = float(disp.mean + (sync.mean if sync is not None and sync.count
+                                                  else 0.0))
         return out
 
     def weight_container_bytes(self) -> int:

@@ -27,9 +27,8 @@ accounting rides on), and preemption snapshots the generated prefix in
 ``resume_tokens`` so the re-queued request replays it through the normal
 prefill/shared-prefix machinery.
 
-``ShedPolicy`` configures the tiered degradation ladder the JAX engine
-walks under pool pressure instead of waiting indefinitely (the port's
-engine keeps it as data; the ladder itself is not ported yet):
+``ShedPolicy`` configures the tiered degradation ladder the engine walks
+under pool pressure instead of waiting indefinitely:
 
   tier 0          full service (configured speculation K)
   tier 1..n-1     speculation shed K -> K//2 -> ... -> off; each step

@@ -1013,3 +1013,61 @@ def test_burst_kernel_equals_the_appends_one_at_a_time(cuda, paged, k_bits, v_bi
     if paged:                                     # the kernels never write the trash block
         for f in fields:
             assert torch.equal(getattr(lb, f)[0], getattr(base, f)[0]), f
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_flash_attention_matches_direct_on_the_card(cuda, dtype):
+    """The flash path (prompts above 2048) against the direct path on the
+    card at a mid size, gemma-2b's head geometry: forward and dq, dk, dv
+    through autograd.  f32 within 3e-5 (9e-5 on the gradients), the CPU
+    tests' tolerance against the JAX package; bf16 within 2e-2."""
+    from repro_torch.models import layers
+
+    g = torch.Generator(device=cuda).manual_seed(21)
+    b, s, hq, n_kv, hd = 1, 2560, 8, 1, 256
+    base = [torch.randn(shape, generator=g, device=cuda).to(dtype)
+            for shape in ((b, s, hq, hd), (b, s, n_kv, hd), (b, s, n_kv, hd))]
+    res = []
+    for fn in (layers._flash_attention, layers._direct_attention):
+        q, k, v = (t.clone().requires_grad_(True) for t in base)
+        out = fn(q, k, v, n_kv, causal=True)
+        (out.float().sum() * 1e-2).backward()
+        res.append([t.detach().float() for t in (out, q.grad, k.grad, v.grad)])
+    torch.cuda.synchronize()
+    tol = 3e-5 if dtype is torch.float32 else 2e-2
+    for i, (a, r) in enumerate(zip(*res)):
+        assert torch.isfinite(a).all()
+        lim = tol * (3 if i and dtype is torch.float32 else 1)
+        assert torch.allclose(a, r, atol=lim, rtol=lim), (i, float((a - r).abs().max()))
+
+
+def test_nan_flags_ride_the_token_copy_on_the_card(cuda, monkeypatch):
+    """An injected NaN in one slot's logits fails that request alone, and the
+    per-slot flags come back in the tokens' own copy: one device-to-host
+    ``.cpu()`` a decode step, nothing else synchronizes."""
+    from repro_torch.runtime.resilience import FailureInjector
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.lifecycle import RequestState, ShedPolicy
+
+    cfg, serve, state = _reduced_model(cuda, 14)
+    prompts = [[5, 6, 7, 8], [9] * 11, [2, 3], [1, 2, 9, 4, 7, 3]]
+    # two engines' streams are compared: no straggler shed (it reads the host clock)
+    kw = dict(max_slots=3, max_seq=64, state_bits=state,
+              shed=ShedPolicy(straggler_sheds_spec=False))
+    ref = ServeEngine(cfg, serve, **kw).generate(prompts, max_new_tokens=8)
+    copies, syncs = [], []
+    real_cpu, real_sync = torch.Tensor.cpu, torch.cuda.synchronize
+    monkeypatch.setattr(torch.Tensor, "cpu", lambda t, *a, **k: copies.append(t.device.type)
+                        or real_cpu(t, *a, **k))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: syncs.append(1)
+                        or real_sync(*a, **k))
+    eng = ServeEngine(cfg, serve, fault_injector=FailureInjector(schedule={"nan_logit": (2,)}),
+                      **kw)
+    out = eng.run([Request(uid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)])
+    st = eng.stats()
+    assert copies.count("cuda") == st["decode_steps"] and not syncs
+    failed = [u for u, lc in eng.lifecycles.items() if lc.state is RequestState.FAILED]
+    assert len(failed) == 1 and st["nan_quarantined"] == 1
+    for u in range(len(prompts)):
+        if u not in failed:
+            assert out[u] == ref[u]

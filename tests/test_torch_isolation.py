@@ -28,7 +28,9 @@ def test_every_submodule_imports_without_jax():
             "repro_torch.spec.loop", "repro_torch.launch.serve", "repro_torch.launch.search",
             "repro_torch.core.controller", "repro_torch.kernels.fake_quant.ops",
             "repro_torch.train.optimizer", "repro_torch.obs.metrics",
-            "repro_torch.serve.scheduler", "repro_torch.serve.lifecycle"} <= set(mods)
+            "repro_torch.serve.scheduler", "repro_torch.serve.lifecycle",
+            "repro_torch.runtime", "repro_torch.runtime.resilience",
+            "repro_torch.obs.calibration", "repro_torch.obs.trace"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -88,3 +90,16 @@ def test_kernel_build_is_not_started_by_imports():
         "quant_gemv.cu", "quant_matmul.cu", "quant_kv_decode_step.cu", "quant_kv_dense.cu",
         "quant_kv_paged.cu", "quant_kv.cuh", "fake_quant.cu", "quant_gemv.cuh",
         "quant_kv_proj.cu", "wgmma.cuh"}
+
+
+@pytest.mark.parametrize("port,ref", [("runtime/resilience.py", "runtime/resilience.py"),
+                                      ("obs/calibration.py", "obs/calibration.py"),
+                                      ("obs/trace.py", "obs/trace.py")])
+def test_copied_modules_keep_the_references_code(port, ref):
+    """The port keeps its own copy of these JAX-free reference modules: the
+    same code below the module docstring, so the two cannot drift apart."""
+    def body(path):
+        text = path.read_text()
+        return text[text.index('"""', 3) + 3:]
+
+    assert body(PORT / port) == body(ROOT / "src" / "repro" / ref)

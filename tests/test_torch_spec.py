@@ -506,10 +506,10 @@ def test_eos_inside_a_burst_truncates_and_frees(served):
     bursts: list[tuple[int, int, list[int]]] = []     # (uid, stream offset, tokens)
     step = probe._spec_step
 
-    def record(active, tokens_h, pos_h, k):
-        out = step(active, tokens_h, pos_h, k)
+    def record(active, *args):
+        out = step(active, *args)          # (emitted, draft flags, verify flags)
         bursts.extend((probe.slots[i].req.uid, len(probe.slots[i].generated), toks)
-                      for i, toks in out.items())
+                      for i, toks in out[0].items())
         return out
 
     probe._spec_step = record
