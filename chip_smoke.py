@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a)
-and runs eleven phases; any failure raises, so the exit code is nonzero and
+and runs twelve phases; any failure raises, so the exit code is nonzero and
 the last line is not the ``ok`` line:
 
   1. environment: the card's name and power limit, torch/CUDA versions, and
@@ -71,14 +71,26 @@ the last line is not the ``ok`` line:
      QAT step's loss and gradients through the kernels and through the
      plain versions, from the same params and batch; (b) the search's main
      path (``launch.search.run``, size_mib <= 1600, 8 pretraining steps, 3
-     refinement rounds, seq 64 x batch 8) with the controller's trace, the
-     QAT step median, a profiled step's device-busy and fake-quant shares,
-     peak memory and wall time, and fake-quant launches exactly 128 per
-     forward and STE launches 128 per training step; (c) the artifact saved,
+     refinement rounds, seq 64 x batch 8, and the state phase over 4 slots x
+     512 positions at a ``state_bytes`` limit of 60 % of the uniform 8-bit
+     state) with the controller's trace, each phase's wall time, the QAT
+     step median, a profiled step's device-busy and fake-quant shares, peak
+     memory and wall time; fake-quant launches exactly 128 per forward and
+     STE launches 128 per training step, and one fused decode step (row 3)
+     per layer for each step of the state env; (c) the artifact saved,
      loaded back, packed with ``quantize_for_serve(artifact)``, checked by
      ``verify_packed_bits`` and served (8 requests) by
-     ``ServeEngine(artifact=)``; (d) the search once more from the same
-     seed, and whether its bit vectors agree;
+     ``ServeEngine(artifact=)`` on its own searched state
+     (``verify_state_bits``); (d) the search once more from the same seed,
+     and whether its bit vectors (weights and state) agree; (e) the search
+     with ``--paged --draft --speculate-k 3``: each phase's wall time and
+     iterations, the draft
+     env's GEMM and GEMV launches as its steps predict, the v6 artifact
+     (state policy, pool, draft policy, K) saved, loaded, packed and served
+     to (c)'s requests dense and paged, speculating from the artifact:
+     launches as the rounds predict, plain calls 0, the state bits the
+     artifact's, paged streams equal to dense ones, predicted against served
+     acceptance;
   8. (a) the f32 serving path through row 8: gemma-2b with d_model cut to
      512 (the widest its gate takes), 8 requests of 8-200 prompt tokens on
      4 slots, 32 new each: row 8 launched 18 times per decode step, no
@@ -116,7 +128,20 @@ the last line is not the ``ok`` line:
      validated, phase shares, step medians, measured costs and calibration
      ratios against the artifact's shift-add report; four pairs of untraced
      and traced runs for the tracing overhead);
- 11. one ``{"kernels": [...]}`` JSON line, the card's line, and last
+ 11. the paper's CNN path: (a) row 10's forward and STE backward on every
+     conv (HWIO) and fc shape of resnet_wide, bits 2-8 and 32, f32 and bf16,
+     bytes equal to the plain versions; (b) the three committed checkpoints
+     ``artifacts/cnn_{mini,small,wide}_s0`` restored through the port's
+     ``checkpoint.restore``, shapes, dtypes and devices checked (the loader
+     only: they were trained on the JAX task's prototypes); (c)
+     ``benchmarks/table1_sigma_kl.py``'s recipe through the port: resnet_mini
+     pretrained 400 steps on the port's own image task (64 classes, noise
+     2.2, seed 1), then the controller at top-1 >= 0.88 and size <= 0.55 x
+     the int8 MiB: each layer's final bits, sigma and D_KL beside
+     ``artifacts/bench/table1.json``'s, spearman(sigma, bits), the final
+     top-1, the wall time and QAT step median, fake-quant launches exactly
+     10 a forward and STE launches 10 a training step;
+ 12. one ``{"kernels": [...]}`` JSON line, the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
 Phases 5, 6 and 8 and 10 (c) hold two engines' streams equal, so their
@@ -191,9 +216,19 @@ COMPOSITION_SPIN = int(3e6)
 #: phase 2's fake-quant bit-widths (32 is what pretraining passes)
 FQ_BITS = (2, 4, 6, 8, 32)
 #: phase 7: the search command's arguments (8-bit weights are about 2388 MiB,
-#: 4-bit about 1194, so the limit forces mixed bits)
+#: 4-bit about 1194, so the limit forces mixed bits); ``search_argv`` adds the
+#: state phase over STATE_SLOTS x STATE_SEQ, phase 7 (c)'s serving geometry
 SEARCH_ARGV = ["--arch", ARCH, "--limit", "size_mib=1600", "--pretrain-steps", "8",
                "--phase2-iters", "3", "--seq", "64", "--batch", "8", "--seed", str(SEED)]
+STATE_SLOTS, STATE_SEQ = 4, 512
+#: the state_bytes limit as a share of the uniform 8-bit state (36 entries of
+#: 4 x 512 x 256 bytes and their scales, about 18.9 MB): 6 bits pack into the
+#: 8-bit container, so only 4- and 2-bit entries pay and the phase must mix
+STATE_FRAC = 0.6
+#: phase 7 (e): the paged pool and the draft phase on top, at the search's
+#: default draft budget (0.6 of the deployed size, predicted acceptance 0.6);
+#: 8 calibration prompts keep the draft env's steps on the GEMV (M <= 8)
+DRAFT_ARGV = ["--paged", "--draft", "--speculate-k", str(SPEC_K), "--draft-calib", "8"]
 REPLACES = {
     "quant_gemv": "src/repro/kernels/quant_gemv/kernel.py:64",
     "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:68",
@@ -2016,7 +2051,7 @@ def serve_speculative(torch, cfg, linear_gap: dict) -> dict:
             raise AssertionError(f"{key}: incomplete streams {[len(v) for v in out.values()]}")
         if any(plain.values()):
             raise AssertionError(f"{key}: plain calls {plain}")
-        want = spec_launches(cfg, st, eng.paged)
+        want = spec_launches(eng, st)
         if launches != want or (eng.speculate and not st["spec_steps"]):
             raise AssertionError(f"{key}: launches {launches}, the rounds predict {want}")
         if collect is not None:
@@ -2094,23 +2129,27 @@ def serve_speculative(torch, cfg, linear_gap: dict) -> dict:
     return runs, gap
 
 
-def spec_launches(cfg, st, paged: bool) -> dict:
-    """Launches a run's structure predicts: a decode step is 4 fused linears
-    (GEMV) and one decode step kernel per layer; a speculative round at K
-    is K such draft steps, one verify (4 GEMMs per layer, one decode step
-    kernel per layer and burst position) and one burst append per layer (the
-    commit's replay of the accepted positions, both sides); an admission is
-    4 GEMMs per layer."""
+def spec_launches(eng, st) -> dict:
+    """Launches a run's structure predicts: a decode step is one GEMV per
+    packed linear of the deployed tree (4 a layer, fused) and one decode step
+    kernel per layer; a speculative round at K is K draft steps (one GEMV per
+    packed linear of the draft tree: a group whose members the draft packs
+    at different widths stays unfused), one verify (one GEMM per deployed
+    linear, one decode step kernel per layer and burst position) and one
+    burst append per layer (the commit's replay of the accepted positions,
+    both sides); an admission is one GEMM per deployed linear."""
     from repro_torch import kernels
 
-    n = cfg.n_layers
+    n = eng.cfg.n_layers
+    lin = _packed_linears(eng.params)
+    draft = _packed_linears(eng.draft_params) if eng.draft_params is not None else 0
     out = dict.fromkeys(kernels.KERNELS, 0)
-    step = "quant_kv_decode_step_paged" if paged else "quant_kv_decode_step"
-    append = "quant_kv_append_paged" if paged else "quant_kv_append"
+    step = "quant_kv_decode_step_paged" if eng.paged else "quant_kv_decode_step"
+    append = "quant_kv_append_paged" if eng.paged else "quant_kv_append"
     rounds = st["spec_steps"]
     plain_steps = st["decode_steps"] - rounds
-    out["quant_matmul"] = 4 * n * (st["admissions"] + rounds)
-    out["quant_gemv"] = 4 * n * (plain_steps + SPEC_K * rounds)
+    out["quant_matmul"] = lin * (st["admissions"] + rounds)
+    out["quant_gemv"] = lin * plain_steps + draft * SPEC_K * rounds
     out[step] = n * (plain_steps + (2 * SPEC_K + 1) * rounds)
     out[append] = n * rounds
     return out
@@ -2349,13 +2388,40 @@ def _device_shares(torch, prof, wall_s: float, step_s: float) -> str:
             f"{fq / 1e3:.3f} ms ({100 * fq / total:.1f}% of device time); top: {top}")
 
 
-def search_run(torch, cfg, *, profile: bool):
-    """Phase 7 (b) (and (d)): ``launch.search.run`` from the search command's
-    arguments, counts set to 0 just before and read just after."""
+def search_argv(cfg, extra=()) -> list[str]:
+    """``SEARCH_ARGV`` with the state phase (a ``state_bytes`` limit at
+    ``STATE_FRAC`` of the uniform 8-bit state over STATE_SLOTS x STATE_SEQ)."""
+    from repro_torch.core.policy import BitPolicy
+    from repro_torch.cost import ShiftAddCostModel
+    from repro_torch.kvcache import state_layer_infos
+
+    u8 = BitPolicy.uniform(state_layer_infos(cfg, STATE_SLOTS, STATE_SEQ), 8)
+    limit = STATE_FRAC * ShiftAddCostModel().report(u8).as_costs()["state_bytes"]
+    return SEARCH_ARGV + ["--limit", f"state_bytes={limit:.0f}", "--slots", str(STATE_SLOTS),
+                          "--kv-max-seq", str(STATE_SEQ), *extra]
+
+
+def _packed_linears(tree) -> int:
+    """Packed linears of a serve tree's layers (one GEMV or GEMM launch each)."""
+    from repro_torch.quant import apply as qapply
+    from repro_torch.quant.tensor import QuantizedTensor
+
+    return sum(1 for lp in tree["layers"] for _, leaf in qapply._walk(lp)
+               if isinstance(leaf, QuantizedTensor))
+
+
+def search_run(torch, cfg, argv, *, profile: bool):
+    """Phase 7 (b), (d) and (e): ``launch.search.run`` from ``argv``, counts
+    set to 0 just before and read just after.  The launches the run's
+    structure predicts: 128 fake-quant (and STE) launches a forward (and
+    training step) of the weight phase; one fused decode step (row 3) per
+    layer for each step of the state env on a quantized state; for the
+    draft env, one GEMM per packed linear for its calibration prefill and
+    one GEMV per packed linear for each decode step."""
     from repro_torch import kernels
     from repro_torch.launch import search
 
-    args = search.build_parser().parse_args(SEARCH_ARGV)
+    args = search.build_parser().parse_args(argv)
     record = {"steps": [], "profile_at": args.pretrain_steps + 1 if profile else -1}
     qat, make, wrapped = _step_hook(torch, record)
     qat.make_lm_qat_step = wrapped
@@ -2364,7 +2430,7 @@ def search_run(torch, cfg, *, profile: bool):
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_counts()
         t0 = time.perf_counter()
-        artifact, result, env = search.run(args, log=lambda m: log("    " + m))
+        artifact, result, env, phases = search.run(args, log=lambda m: log("    " + m))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -2374,28 +2440,52 @@ def search_run(torch, cfg, *, profile: bool):
     want = dict.fromkeys(kernels.KERNELS, 0)
     want.update(fake_quant=per_fwd * (env.train_steps + env.eval_passes),
                 fake_quant_ste_bwd=per_fwd * env.train_steps)
+    if "state_env" in phases:
+        want["quant_kv_decode_step"] = cfg.n_layers * phases["state_env"].steps
+    if "draft_env" in phases:
+        denv = phases["draft_env"]
+        n_lin = _packed_linears(denv._deployed)
+        want.update(quant_matmul=n_lin, quant_gemv=n_lin * denv.steps)
     if launches != want or any(plain.values()):
         raise AssertionError(f"phase 7 search: launches {launches} (the run's {env.train_steps} "
-                             f"training steps and {env.eval_passes} evaluations predict {want}), "
-                             f"plain calls {plain}")
+                             f"training steps, {env.eval_passes} evaluations and its state and "
+                             f"draft steps predict {want}), plain calls {plain}")
     if len(record["steps"]) != env.train_steps:
         raise AssertionError(f"{len(record['steps'])} timed steps for {env.train_steps}")
     info = dict(wall=wall, peak=torch.cuda.max_memory_allocated(), launches=launches,
                 steps=record["steps"], pretrain=args.pretrain_steps,
-                profile=record.get("profile"))
+                profile=record.get("profile"), phases=phases)
     return artifact, result, env, info
+
+
+def _phase_walls(artifact) -> str:
+    """Each search phase's wall time and controller iterations (provenance)."""
+    return "; ".join(f"{name} {ph['wall_s']:.3f} s, {ph['iterations']} iterations, "
+                     f"success={ph['success']}"
+                     for name, ph in artifact.provenance["phases"].items())
+
+
+def search_requests(torch, cfg, new: int) -> list:
+    """Phase 7 (c) and (e)'s traffic: 8 requests of 8-24 prompt tokens (seed 9)."""
+    from repro_torch.serve.engine import Request
+
+    gen = torch.Generator().manual_seed(SEED + 9)
+    lens = torch.randint(8, 25, (8,), generator=gen).tolist()
+    return [Request(uid=i, prompt=torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist(),
+                    max_new_tokens=new) for i, n in enumerate(lens)]
 
 
 def search_phase(torch, cfg) -> dict:
     """Phase 7 (b)-(d).  Returns the main path's (b) launch counts."""
     from repro_torch import kernels
     from repro_torch.core.policy import PolicyArtifact
+    from repro_torch.kvcache import state_layer_infos, verify_state_bits
     from repro_torch.models import decoder
     from repro_torch.quant import apply as qapply
     from repro_torch.quant.tensor import QuantizedTensor
-    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.engine import ServeEngine
 
-    artifact, result, env, info = search_run(torch, cfg, profile=True)
+    artifact, result, env, info = search_run(torch, cfg, search_argv(cfg), profile=True)
     r = result
     qat = info["steps"][info["pretrain"]:]
     timed = [t for i, t in enumerate(qat) if i != 1]          # step pretrain + 1 is profiled
@@ -2416,8 +2506,13 @@ def search_phase(torch, cfg) -> dict:
     per_fwd = _fq_per_forward(cfg, env.layer_infos())
     log(f"  launches {info['launches']}: {env.train_steps} training steps x {per_fwd} STE, "
         f"{env.train_steps + env.eval_passes} forwards ({env.eval_passes} evaluations) x "
-        f"{per_fwd} fake-quant, as predicted; plain calls 0")
-    bits_b = [e.bits for e in r.trace]
+        f"{per_fwd} fake-quant, {info['phases']['state_env'].steps} state steps x "
+        f"{cfg.n_layers} fused decode steps, as predicted; plain calls 0")
+    log(f"  ({smi}) search phases: {_phase_walls(artifact)}; state policy mean "
+        f"{artifact.state_policy.mean_bits():.3f} bits, state_bytes "
+        f"{artifact.report['state_bytes']:.0f} ({artifact.meta['fp_state_bytes']} fp32)")
+    bits_b = [e.bits for e in r.trace] + [artifact.state_policy.bits]
+    del info["phases"]
 
     # (c) save, load back, pack, verify, serve
     path = ROOT / "build" / "phase7_policy.json"
@@ -2435,15 +2530,13 @@ def search_phase(torch, cfg) -> dict:
     del params
     torch.cuda.empty_cache()
     qapply.verify_packed_bits(serve, art)
-    slots, seq, new, n_req = 4, 512, 16, 8
-    # the state phase is not ported: the deployment adds phase 4's K 8 / V 4 state
-    deploy = dataclasses.replace(art, state_policy=state_policy(cfg, slots, seq))
-    eng = ServeEngine(cfg, serve, max_slots=slots, max_seq=seq, artifact=deploy)
+    slots, seq, new = STATE_SLOTS, STATE_SEQ, 16
+    # the artifact deploys its own searched state policy
+    eng = ServeEngine(cfg, serve, max_slots=slots, max_seq=seq, artifact=art)
     del serve
-    gen = torch.Generator().manual_seed(SEED + 9)
-    lens = torch.randint(8, 25, (n_req,), generator=gen).tolist()
-    reqs = [Request(uid=i, prompt=torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist(),
-                    max_new_tokens=new) for i, n in enumerate(lens)]
+    verify_state_bits(eng.state, art, surface=state_layer_infos(cfg, slots, seq))
+    reqs = search_requests(torch, cfg, new)
+    n_req = len(reqs)
     torch.cuda.synchronize()
     kernels.reset_counts()
     out = eng.run(reqs)
@@ -2463,7 +2556,9 @@ def search_phase(torch, cfg) -> dict:
                              f"plain calls {st['plain_calls']}")
     log(f"  ok (c) artifact v{art.version} saved to {path.relative_to(ROOT)}, loaded, packed "
         f"({eng.weight_container_bytes() / 1e9:.3f} GB, mean {art.policy.mean_bits():.3f} bits), "
-        f"verify_packed_bits passed; served {n_req} requests x {new} tokens on {slots} slots: "
+        f"verify_packed_bits and verify_state_bits passed (searched state, mean "
+        f"{art.state_policy.mean_bits():.3f} bits); served {n_req} requests x {new} tokens on "
+        f"{slots} slots: "
         f"{st['decode_steps']} decode steps, {st['admissions']} admissions, median step "
         f"{st['decode_step_median_s'] * 1e3:.3f} ms ({packed} packed linears a step)")
     log(f"    launches {st['launches']}")
@@ -2471,16 +2566,107 @@ def search_phase(torch, cfg) -> dict:
     torch.cuda.empty_cache()
 
     # (d) the same search again: do its decisions repeat?
-    _, r2, env2, info2 = search_run(torch, cfg, profile=False)
-    del env2
+    art2, r2, env2, info2 = search_run(torch, cfg, search_argv(cfg), profile=False)
+    del env2, info2["phases"]
     torch.cuda.empty_cache()
-    bits_d = [e.bits for e in r2.trace]
+    bits_d = [e.bits for e in r2.trace] + [art2.state_policy.bits]
     parted = [i for i, (x, y) in enumerate(zip(bits_b, bits_d)) if x != y]
     same = bits_d == bits_b and r2.policy.bits == r.policy.bits
     log(f"  (d) second search from seed {SEED}: {len(bits_d)} controller entries, wall "
         f"{info2['wall']:.2f} s; bit vectors {'agree at every entry and in the final policy' if same else 'part at entries %s' % parted}; "
         f"acc {r2.acc:.6f} vs {r.acc:.6f}")
     return info["launches"]
+
+
+def search_draft_phase(torch, cfg) -> None:
+    """Phase 7 (e): the search with the state phase over a paged pool and the
+    draft phase (``DRAFT_ARGV``), its v6 artifact saved, loaded, packed and
+    served to (c)'s requests twice, dense and paged, speculating at the
+    artifact's K: the launches the rounds predict, no plain call, the state
+    bits the artifact's."""
+    from repro_torch import kernels
+    from repro_torch.core.policy import PolicyArtifact
+    from repro_torch.kvcache import state_layer_infos, verify_state_bits
+    from repro_torch.models import decoder
+    from repro_torch.quant import apply as qapply
+    from repro_torch.serve.engine import ServeEngine
+
+    smi = smi_line()
+    artifact, r, env, info = search_run(torch, cfg, search_argv(cfg, DRAFT_ARGV), profile=False)
+    phases = info.pop("phases")
+    denv, dres = phases["draft_env"], phases["draft_result"]
+    log(f"  ({smi}) (e) search with --paged --draft in {info['wall']:.2f} s: "
+        f"{_phase_walls(artifact)}; state {phases['state_env'].steps} steps, draft "
+        f"{denv.steps} steps (the probe {len(denv.layer_infos())}); peak allocated "
+        f"{info['peak'] / 1e9:.3f} GB")
+    log(f"    launches {info['launches']}, as predicted; plain calls 0")
+    if artifact.draft_policy is None or artifact.pool is None or artifact.state_policy is None:
+        raise AssertionError(f"phase 7 (e): the artifact lacks a field: draft "
+                             f"{artifact.draft_policy is not None}, pool {artifact.pool}, state "
+                             f"{artifact.state_policy is not None}; draft success "
+                             f"{dres.success}, acc {dres.acc}")
+    predicted = artifact.meta["draft_agreement"]
+    log(f"  draft policy: mean {artifact.draft_policy.mean_bits():.3f} bits at K "
+        f"{artifact.draft_k}, size {artifact.report['draft_size_mib']:.1f} MiB against the "
+        f"deployed {artifact.report['size_mib']:.1f}; predicted acceptance (one-step argmax "
+        f"agreement over {denv._ref_argmax.numel()} prompts) {predicted:.4f}, divergence "
+        f"{artifact.meta['draft_divergence']:.4f}; pool {artifact.pool} (+"
+        f"{artifact.meta['draft_pool_headroom_blocks']} burst-scratch blocks)")
+    path = ROOT / "build" / "phase7e_policy.json"
+    artifact.save(str(path))
+    art = PolicyArtifact.load(str(path))
+    art.verify_layers(env.layer_infos())
+    if art.version != 6 or art.draft_k != SPEC_K or art.pool != artifact.pool:
+        raise AssertionError(f"phase 7 (e): reloaded artifact v{art.version}, K {art.draft_k}, "
+                             f"pool {art.pool}")
+    params = env.params
+    del env, denv, phases, dres
+    torch.cuda.empty_cache()
+    serve = qapply.quantize_for_serve(decoder.unstack_layers(params, cfg), art, cfg)
+    del params
+    torch.cuda.empty_cache()
+    qapply.verify_packed_bits(serve, art)
+    slots, seq, new = STATE_SLOTS, STATE_SEQ, 16
+    reqs = search_requests(torch, cfg, new)
+    surface = state_layer_infos(cfg, slots, seq)
+    outs = {}
+    for key, deploy in (("dense", dataclasses.replace(art, pool=None)), ("paged", art)):
+        eng = ServeEngine(cfg, serve, max_slots=slots, max_seq=seq, artifact=deploy,
+                          shed=steady(spec_tiers=False))
+        verify_state_bits(eng.state, art, surface=surface)
+        if not eng.speculate or eng.paged != (key == "paged"):
+            raise AssertionError(f"phase 7 (e) {key}: speculate {eng.speculate}, paged "
+                                 f"{eng.paged}")
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        out = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        want = spec_launches(eng, st)
+        if sorted(out) != list(range(len(reqs))) or any(len(v) != new for v in out.values()):
+            raise AssertionError(f"phase 7 (e) {key}: incomplete streams")
+        if st["launches"] != want or any(st["plain_calls"].values()) or not st["spec_steps"]:
+            raise AssertionError(f"phase 7 (e) {key}: launches {st['launches']} (the rounds "
+                                 f"predict {want}), plain calls {st['plain_calls']}")
+        served = st["spec_accepted"] / st["spec_proposed"]
+        log(f"  ok (e) {key}, speculative from the artifact: {len(out)} streams of {new}, "
+            f"{st['decode_steps']} rounds, median round {st['decode_step_median_s'] * 1e3:.3f} "
+            f"ms, {len(reqs) * new / wall:.2f} tok/s over {wall:.3f} s; served acceptance "
+            f"{served:.4f} ({st['spec_accepted']} of {st['spec_proposed']}) against the "
+            f"predicted {predicted:.4f}; verify_state_bits passed"
+            + (f"; pool peak {st['pool_peak_allocated']} of {art.pool['num_blocks']} blocks"
+               if eng.paged else ""))
+        log(f"    launches {st['launches']}")
+        outs[key] = out
+        del eng
+        torch.cuda.empty_cache()
+    if outs["paged"] != outs["dense"]:
+        raise AssertionError("phase 7 (e): paged streams differ from the dense ones")
+    log("  ok (e) paged streams = dense streams")
+    del serve
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3109,6 +3295,174 @@ def phase4_repeats(torch, cfg, gap: float) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the paper's CNN path
+# ---------------------------------------------------------------------------
+
+#: benchmarks/common.py's task and stage menu; table1_sigma_kl.py's recipe
+CNN_TASK = dict(n_classes=64, noise=2.2, seed=1)
+CNN_STAGES = {"mini": ((16, 1), (32, 1), (64, 1)), "small": ((16, 2), (32, 2), (64, 2)),
+              "wide": ((24, 2), (48, 2), (96, 2))}
+CNN_PRETRAIN = 400
+TABLE1 = dict(acc_t=0.88, size_frac=0.55, acc_buffer=0.01, res_buffer=0.10,
+              cc=dict(phase1_max_iters=2, phase2_max_iters=10, phase1_qat_epochs=2,
+                      phase2_qat_epochs=1, stagnation_patience=4), steps_per_epoch=10)
+
+
+def _cnn_cfg(name: str):
+    from repro_torch.models import cnn
+
+    return cnn.CNNConfig(name=f"resnet_{name}", stages=CNN_STAGES[name],
+                         n_classes=CNN_TASK["n_classes"])
+
+
+def check_cnn_fake_quant(torch, gen) -> None:
+    """Phase 11 (a): row 10's forward and STE backward on every conv (HWIO,
+    one scale per output channel over H*W*I rows) and the fc of resnet_wide,
+    bits 2-8 and 32, f32 and bf16, bytes equal to the plain versions."""
+    from repro_torch.core.quantizer import weight_scale
+    from repro_torch.kernels.fake_quant.kernel import fake_quant_cuda, fake_quant_ste_bwd_cuda
+    from repro_torch.kernels.fake_quant.ref import fake_quant_ref, fake_quant_ste_bwd_ref
+    from repro_torch.models import cnn
+
+    cfg = _cnn_cfg("wide")
+    specs = cnn.quant_layer_specs(cnn.init(cfg, gen, device="cuda"), cfg)
+    shapes = sorted({s.shape for s in specs})
+    for shape in shapes:
+        fan_in = 1
+        for d in shape[:-1]:
+            fan_in *= d
+        w32 = torch.randn(shape, generator=gen, device="cuda") * (2.0 / fan_in) ** 0.5
+        g32 = torch.randn(shape, generator=gen, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            w, g = w32.to(dt), g32.to(dt)
+            for bits in FQ_BITS:
+                scale = weight_scale(w, bits, channel_axis=-1)
+                ok = same_bytes(torch, fake_quant_cuda(w, scale, bits),
+                                fake_quant_ref(w, scale, bits))
+                ok = ok and same_bytes(torch, fake_quant_ste_bwd_cuda(w, scale, bits, g),
+                                       fake_quant_ste_bwd_ref(w, scale, bits, g))
+                if not ok:
+                    raise AssertionError(f"fake_quant {shape} bits={bits} {dt}: kernel bytes "
+                                         f"differ from the plain version")
+    log(f"  ok (a) row 10 forward and STE backward bytes exact on resnet_wide's "
+        f"{len(shapes)} distinct conv and fc shapes {shapes}, bits {FQ_BITS}, f32 and bf16")
+
+
+def restore_checkpoints(torch) -> None:
+    """Phase 11 (b): the committed checkpoints restored through the port (the
+    loader only: they were trained on the JAX task's prototypes, which the
+    port's task does not draw)."""
+    from repro_torch.checkpoint import latest_step, restore
+    from repro_torch.models import cnn
+    from repro_torch.train.optimizer import leaves as _leaves
+
+    for name in CNN_STAGES:
+        cfg = _cnn_cfg(name)
+        root = ROOT / "artifacts" / f"cnn_{name}_s0"
+        like = cnn.init(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        tree, extra = restore(str(root), like)
+        leaves = [(a, b) for a, b in zip(_leaves(tree), _leaves(like))]
+        if any(a.shape != b.shape or a.dtype != b.dtype or a.device != b.device
+               for a, b in leaves) or not all(torch.isfinite(a).all() for a, _ in leaves):
+            raise AssertionError(f"checkpoint {name}: restored leaves differ in shape, dtype or "
+                                 f"device, or are not finite")
+        log(f"  ok (b) {root.relative_to(ROOT)} step {latest_step(str(root))}: {len(leaves)} "
+            f"leaves, {sum(a.numel() for a, _ in leaves)} values, shapes and dtypes as "
+            f"{cfg.name}'s; manifest extra {extra}")
+
+
+def spearman(a, b) -> float:
+    """Rank correlation, as benchmarks/table1_sigma_kl.py computes it."""
+    import numpy as np
+
+    ra = np.argsort(np.argsort(a)).astype(float)
+    rb = np.argsort(np.argsort(b)).astype(float)
+    ra -= ra.mean()
+    rb -= rb.mean()
+    denom = float(np.sqrt((ra ** 2).sum() * (rb ** 2).sum())) or 1.0
+    return float((ra * rb).sum() / denom)
+
+
+def table1_recipe(torch) -> None:
+    """Phase 11 (c): benchmarks/table1_sigma_kl.py's recipe through the port:
+    resnet_mini pretrained 400 steps on the port's own image task, then the
+    controller at top-1 >= 0.88 and size <= 0.55 x the int8 MiB.  Counts set
+    to 0 just before pretraining and read after the controller: 10 fake-quant
+    launches a forward, 10 STE launches a training step."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core import stats
+    from repro_torch.core.controller import ControllerConfig, SigmaQuantController
+    from repro_torch.core.policy import Targets
+    from repro_torch.data.images import ImageTask
+    from repro_torch.models import cnn
+    from repro_torch.quant.env import CNNQuantEnv
+
+    cfg = _cnn_cfg("mini")
+    params = cnn.init(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    env = CNNQuantEnv(params, cfg, ImageTask(**CNN_TASK),
+                      steps_per_epoch=TABLE1["steps_per_epoch"], seed=SEED)
+    step_fn, times = env._step_fn, []
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(*a)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    env._step_fn = timed
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    env.pretrain(CNN_PRETRAIN)
+    float_acc = env.float_accuracy()
+    t_pre = time.perf_counter() - t0
+    int8 = sum(s.n_params for s in env.layer_infos()) / 2**20
+    targets = Targets(acc_t=TABLE1["acc_t"], res_t=TABLE1["size_frac"] * int8,
+                      acc_buffer=TABLE1["acc_buffer"], res_buffer=TABLE1["res_buffer"])
+    result = SigmaQuantController(env, targets, ControllerConfig(**TABLE1["cc"])).run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(kernels.LAUNCHES), dict(kernels.PLAIN_CALLS)
+    n = len(env.layer_infos())
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(fake_quant=n * (env.train_steps + env.eval_passes),
+                fake_quant_ste_bwd=n * env.train_steps)
+    if launches != want or any(plain.values()):
+        raise AssertionError(f"phase 11 (c): launches {launches} (the run's {env.train_steps} "
+                             f"training steps and {env.eval_passes} evaluations predict {want}), "
+                             f"plain calls {plain}")
+    if not 0.5 < float_acc <= 1.0 or not 0.0 <= result.acc <= 1.0:
+        raise AssertionError(f"phase 11 (c): float top-1 {float_acc}, final {result.acc}")
+    ref = json.loads((ROOT / "artifacts" / "bench" / "table1.json").read_text())
+    sig = env.sigmas()
+    smi = smi_line()
+    log(f"  ({smi}) {cfg.name} pretrained {CNN_PRETRAIN} steps in {t_pre:.2f} s: float top-1 "
+        f"{float_acc:.4f} (the committed mini checkpoint: 0.9238 on the JAX task)")
+    log(f"  {'layer':<14}{'final':>6}{'sigma':>10}{'D_KL':>11}   table1.json: final, sigma, D_KL")
+    bits = []
+    for i, (spec, row) in enumerate(zip(env.layer_infos(), ref["rows"])):
+        b = result.policy.bits[spec.name]
+        dkl = float(stats.quantization_kl(cnn.get_weight(env.params, spec.name), b))
+        bits.append(b)
+        log(f"  {spec.name:<14}{b:>6}{sig[i]:>10.5f}{dkl:>11.6f}   {row['final_bits']}, "
+            f"{row['sigma']:.5f}, {row['d_kl']:.6f}")
+    rho = spearman(sig, np.asarray(bits, float))
+    steps = statistics.median(times)
+    log(f"  ({smi}) spearman(sigma, final bits) {rho:+.3f} (table1.json {ref['spearman_sigma_bits']:+.3f}); "
+        f"final top-1 {result.acc:.4f} ({ref['final_acc']:.4f}), size "
+        f"{result.resource:.4f} MiB ({ref['final_size_mib']:.4f}; limit {targets.res_t:.4f}), "
+        f"success={result.success}, {len(result.trace)} controller entries; wall "
+        f"{wall:.2f} s; QAT step median {steps * 1e3:.3f} ms over {len(times)} steps")
+    log(f"  launches {launches}: {env.train_steps} training steps x {n} STE, "
+        f"{env.train_steps + env.eval_passes} forwards x {n} fake-quant, as predicted; "
+        f"plain calls 0")
+
+
 def main() -> int:
     try:
         import torch
@@ -3152,6 +3506,7 @@ def main() -> int:
     # plain version failed: PERF.md section 7)
     aside = torch.Generator(device="cuda").manual_seed(SEED + 1)
     log("== 2. kernels against their plain versions")
+    t_phase = time.perf_counter()
     check_linears(torch, gen, results)
     check_gemv(torch, results)
     sweep_gemm(torch, gen, aside)
@@ -3164,18 +3519,25 @@ def main() -> int:
     check_decode_step_proj(torch, gen, results)
     cfg = configs.get_config(ARCH)
     check_fake_quant(torch, cfg, gen, results)
+    log(f"  phase 2 took {time.perf_counter() - t_phase:.1f} s")
 
     log(f"== 3. {cfg.name} full width, f32: kernels against plain versions")
+    t_phase = time.perf_counter()
     parity_f32(torch, cfg)
+    log(f"  phase 3 took {time.perf_counter() - t_phase:.1f} s")
 
     log(f"== 4. {cfg.name} full width, {cfg.dtype}: ServeEngine")
+    t_phase = time.perf_counter()
     launches = serve_bf16(torch, cfg)
+    log(f"  phase 4 took {time.perf_counter() - t_phase:.1f} s")
 
     log(f"== 5. {cfg.name} full width, {cfg.dtype}: paged ServeEngine")
+    t_phase = time.perf_counter()
     paged = serve_paged(torch, cfg)
     for name in ("quant_kv_attention_paged", "quant_kv_decode_step_paged",
                  "quant_kv_append_paged"):
         launches[name] = paged[name]        # phase 5's paged engines (b)-(d)
+    log(f"  phase 5 took {time.perf_counter() - t_phase:.1f} s")
 
     log(f"== 6. {cfg.name} full width, {cfg.dtype}: speculative ServeEngine from a v6 artifact")
     t_phase = time.perf_counter()
@@ -3191,7 +3553,11 @@ def main() -> int:
     search_launches = search_phase(torch, cfg)
     for name in ("fake_quant", "fake_quant_ste_bwd"):
         launches[name] = search_launches[name]
-    log(f"  phase 7 took {time.perf_counter() - t_phase:.1f} s")
+    log(f"  phase 7 (a)-(d) took {time.perf_counter() - t_phase:.1f} s")
+    t_e = time.perf_counter()
+    search_draft_phase(torch, cfg)
+    log(f"  phase 7 (e) took {time.perf_counter() - t_e:.1f} s; phase 7 "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
     log(f"== 8. {cfg.name}: row 8 on the f32 serving path; chunked prefill and streaming")
     t_phase = time.perf_counter()
@@ -3214,7 +3580,14 @@ def main() -> int:
     phase4_repeats(torch, cfg, admit_gap)
     log(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
-    log("== 11. summary")
+    log("== 11. the paper's CNN path: resnet_wide's convs, the checkpoints, Table I's recipe")
+    t_phase = time.perf_counter()
+    check_cnn_fake_quant(torch, gen)
+    restore_checkpoints(torch)
+    table1_recipe(torch)
+    log(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s")
+
+    log("== 12. summary")
     rows = []
     for name in kernels.KERNELS:
         r = results[name]

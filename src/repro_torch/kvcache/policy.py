@@ -7,10 +7,16 @@ The decode state is a quantizable surface like the weights: one
 """
 from __future__ import annotations
 
+from typing import Any
+
 from repro_torch.core.policy import BitPolicy, LayerInfo, PolicyArtifact, layer_registry_hash
 
 from .cache import QuantizedKVLayer
 from .paged import PagedKVLayer
+
+
+#: families whose decode state carries quantizable K/V entries
+KV_FAMILIES = ("dense", "moe", "vlm", "hybrid")
 
 
 def kv_entry_names(cfg) -> list[str]:
@@ -86,14 +92,29 @@ def resolve_state_bits(spec, cfg) -> list[tuple[int, int]] | None:
     raise TypeError(f"cannot resolve state bits from {type(spec).__name__}")
 
 
+def extract_kv_entries(state) -> list[tuple[str, Any]]:
+    """Ordered ``(entry name, node)`` pairs of a decode state's KV entries.
+
+    Works on fp states (a list of ``{"k", "v"}`` dicts) and on quantized
+    ones, dense (``QuantizedKVLayer``) or paged (``PagedKVLayer``).
+    """
+    if isinstance(state, dict) and "attn" in state:
+        raise NotImplementedError("hybrid KV entries need models/hybrid, not ported yet "
+                                  "(ROADMAP queue 1, 'Other model families')")
+    if not isinstance(state, (list, tuple)):
+        return []
+    return [(f"layer{i:03d}", e) for i, e in enumerate(state)
+            if isinstance(e, (QuantizedKVLayer, PagedKVLayer))
+            or (isinstance(e, dict) and set(e) == {"k", "v"})]
+
+
 def packed_state_bits(state) -> dict[str, int]:
     """State-entry name -> bits actually packed into a decoder's decode state."""
     out: dict[str, int] = {}
-    if isinstance(state, (list, tuple)):
-        for i, node in enumerate(state):
-            if isinstance(node, (QuantizedKVLayer, PagedKVLayer)):
-                out[f"layer{i:03d}.state.k"] = node.k_bits
-                out[f"layer{i:03d}.state.v"] = node.v_bits
+    for nm, node in extract_kv_entries(state):
+        if isinstance(node, (QuantizedKVLayer, PagedKVLayer)):
+            out[f"{nm}.state.k"] = node.k_bits
+            out[f"{nm}.state.v"] = node.v_bits
     return out
 
 

@@ -1,13 +1,14 @@
 """QuantEnv implementations: the bridge between the SigmaQuant controller
 (``core/controller.py``) and real models (port of ``repro/quant/env.py``).
 
+* ``CNNQuantEnv`` — the paper-faithful path: top-1 accuracy on the synthetic
+  image task, SGD QAT, conv/fc layers (the paper's ResNet/CIFAR-100 analogue).
 * ``LMQuantEnv`` — quality = ``-val_loss`` (the accuracy constraint sign-flips
   into a loss constraint), AdamW QAT over the synthetic token task.
 
 ``QuantEnvBase`` holds the one implementation of the sigma/KL sensitivity
 vectors (``core/stats.py``) and of resource accounting, which delegates to
-an injected ``CostModel``.  ``CNNQuantEnv`` waits for ``models/cnn.py``
-(ROADMAP queue 1).
+an injected ``CostModel``.
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ import torch
 from repro_torch.core import stats
 from repro_torch.core.policy import BitPolicy, LayerInfo
 from repro_torch.cost import CostModel, ShiftAddCostModel
+from repro_torch.data.images import ImageTask
 from repro_torch.data.pipeline import TokenTask, global_batch
+from repro_torch.models import cnn as cnn_mod
 from repro_torch.obs import search as obs_search
 from repro_torch.train import optimizer as opt_mod
 from . import apply as apply_mod
@@ -68,6 +71,83 @@ class QuantEnvBase:
 
     def resource(self, policy: BitPolicy) -> float:
         return self.costs(policy)["resource"]
+
+
+#: where a CNN env's batches come from: (step, batch size) -> (images, labels)
+ImageSource = Callable[[int, int], tuple]
+
+
+def _on(device, imgs, labels) -> tuple[torch.Tensor, torch.Tensor]:
+    return (torch.as_tensor(np.array(imgs)).to(device, torch.float32),
+            torch.as_tensor(np.array(labels)).to(device, torch.long))
+
+
+class CNNQuantEnv(QuantEnvBase):
+    """QuantEnv over the reduced ResNet and the teacher-labelled image task.
+
+    Params are updated in place.  ``batches`` replaces ``task.batch_at`` and
+    ``eval_set`` the task's held-out set (the tests feed both packages the
+    JAX draws); what they give is moved to the params' device.
+    ``train_steps`` and ``eval_passes`` count the forward passes run (each
+    fake-quantizes every conv and the fc once; each train step also runs
+    every STE backward once).
+    """
+
+    def __init__(self, params: dict, cfg: cnn_mod.CNNConfig, task: ImageTask, *,
+                 batch: int = 128, steps_per_epoch: int = 20, objective: str = "size",
+                 seed: int = 0, cost_model: CostModel | None = None,
+                 batches: ImageSource | None = None, eval_set: tuple | None = None):
+        self.params = params
+        self.cfg = cfg
+        self.task = task
+        self.batch = batch
+        self.steps_per_epoch = steps_per_epoch
+        self.objective = objective
+        self.cost_model = cost_model or ShiftAddCostModel()
+        self.device = params["stem"].device
+        self.batches = batches or task.batch_at
+        self._specs = cnn_mod.quant_layer_specs(params, cfg)
+        self._step_fn, ocfg = qat_mod.make_cnn_qat_step(cfg)
+        self._opt_state = opt_mod.init(ocfg, params)
+        self._eval_fn = qat_mod.make_cnn_eval(cfg)
+        self._eval_imgs, self._eval_labels = _on(self.device, *(eval_set or task.eval_set(512)))
+        self._data_step = seed * 1_000_003  # a disjoint stream per env
+        self.train_steps = 0
+        self.eval_passes = 0
+
+    def _weight(self, name: str):
+        return cnn_mod.get_weight(self.params, name)
+
+    def _eval(self, bits: dict) -> float:
+        self.eval_passes += 1
+        return float(self._eval_fn(self.params, self._eval_imgs, self._eval_labels, bits))
+
+    def _train(self, bits: dict, steps: int) -> float:
+        loss = float("nan")
+        for _ in range(steps):
+            batch = _on(self.device, *self.batches(self._data_step, self.batch))
+            self._data_step += 1
+            self.params, self._opt_state, loss = self._step_fn(self.params, self._opt_state,
+                                                               batch, bits)
+            self.train_steps += 1
+        return float(loss)
+
+    def evaluate(self, policy: BitPolicy) -> float:
+        with self._span("evaluate"):
+            return self._eval(qat_mod.cnn_bits_pytree(policy))
+
+    def calibrate_and_qat(self, policy: BitPolicy, epochs: int) -> None:
+        with self._span("qat", epochs=epochs):
+            self._train(qat_mod.cnn_bits_pytree(policy), epochs * self.steps_per_epoch)
+
+    # -- extras the table recipes use ----------------------------------------
+    def float_accuracy(self) -> float:
+        return self._eval({s.name: 32.0 for s in self._specs})
+
+    def pretrain(self, steps: int = 300) -> float:
+        """Float pretraining (the paper trains the FP32 baseline first)."""
+        with self._span("pretrain", steps=steps):
+            return self._train({s.name: 32.0 for s in self._specs}, steps)
 
 
 #: where an env's batches come from: (task, cfg, shape, step) -> {"tokens", "labels"}

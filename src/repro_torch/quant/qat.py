@@ -1,17 +1,65 @@
-"""Quantization-aware training, the LM half (port of ``repro/quant/qat.py``).
+"""Quantization-aware training, the controller's Calibrate+QAT inner step
+(port of ``repro/quant/qat.py``).
 
-The step takes the QAT ``bits`` tree (one float per quantizable weight and
-layer, ``quant.apply.bits_for_scan``) as an argument, so every policy the
-controller tries runs the same code.  The CNN half waits for
-``models/cnn.py`` (ROADMAP queue 1).
+Each step takes the QAT ``bits`` tree (one float per quantizable weight, or
+per weight and layer for the LM's stacked layout) as an argument, so every
+policy the controller tries runs the same code.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.policy import BitPolicy
+from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import registry
 from repro_torch.train import optimizer as opt_mod
-from repro_torch.train.train_step import TrainConfig, make_train_step
+from repro_torch.train.train_step import TrainConfig, make_train_step, value_and_grad
+
+
+# ---------------------------------------------------------------------------
+# CNN (the paper-faithful path)
+# ---------------------------------------------------------------------------
+
+
+def cnn_bits_pytree(policy: BitPolicy) -> dict[str, float]:
+    return {name: float(b) for name, b in policy.bits.items()}
+
+
+def make_cnn_qat_step(cfg: cnn_mod.CNNConfig, lr: float = 0.02):
+    """SGD-with-momentum QAT step over the synthetic image task; -> (step, ocfg).
+
+    ``step(params, opt_state, (imgs, labels), bits) -> (params, opt_state, loss)``.
+    """
+    ocfg = opt_mod.OptimizerConfig(name="sgd", lr=lr, warmup_steps=0, decay_steps=10_000,
+                                   grad_clip=1.0)
+
+    def loss_fn(params, batch, bits):
+        imgs, labels = batch
+        logits = cnn_mod.forward(params, imgs, cfg, bits=bits)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, None])[:, 0]
+        return torch.mean(logz - gold)
+
+    def step(params, opt_state, batch, bits):
+        loss, grads = value_and_grad(loss_fn, params, batch, bits)
+        params, opt_state, _ = opt_mod.apply(ocfg, grads, opt_state, params)
+        return params, opt_state, loss
+
+    return step, ocfg
+
+
+def make_cnn_eval(cfg: cnn_mod.CNNConfig):
+    @torch.no_grad()
+    def top1(params, imgs, labels, bits):
+        logits = cnn_mod.forward(params, imgs, cfg, bits=bits)
+        return torch.mean((torch.argmax(logits, -1) == labels).to(torch.float32))
+
+    return top1
+
+
+# ---------------------------------------------------------------------------
+# LM (the assigned-architecture path)
+# ---------------------------------------------------------------------------
 
 
 def make_lm_qat_step(cfg, tcfg: TrainConfig | None = None):

@@ -11,7 +11,8 @@ every step from the same params and moments (run freely, the two drift
 apart: see ``test_free_running_qat_drift_is_recorded``), and
 ``search_policy`` on shared batches gives the JAX search's per-step bit
 trace and final policy; a microbatched step accumulates as the JAX one.  The command line writes an artifact both packages
-load and the port serves, and refuses to run without a card unless asked.
+load and the port serves (with the state phase, a pool and a draft too),
+and refuses to run without a card unless asked.
 """
 import json
 
@@ -342,14 +343,43 @@ def test_search_cli_writes_an_artifact_both_packages_load_and_the_port_serves(tm
     assert "artifact" in capsys.readouterr().out
 
 
+def test_search_cli_with_state_pool_and_draft_writes_a_v6_artifact_the_port_serves(
+        tmp_path, capsys):
+    out = tmp_path / "policy.json"
+    rc = tsearch.main(["--arch", "gemma-2b", "--reduced", "--limit", "size_mib=0.25",
+                       "--limit", "state_bytes=28000", "--paged", "--draft",
+                       "--pretrain-steps", "4", "--phase2-iters", "2", "--device", "cpu",
+                       "--out", str(out)])
+    assert rc in (0, 1)
+    printed = capsys.readouterr().out
+    assert "state budget: state_bytes<=28000" in printed and "paged pool:" in printed
+    art = tpol.PolicyArtifact.load(str(out))
+    jart = jpol.PolicyArtifact.load(str(out))
+    assert json.loads(art.to_json()) == json.loads(jart.to_json())
+    assert art.version == 6 and art.state_policy is not None and art.pool["block"] == 16
+    assert set(art.provenance["phases"]) == {"weight", "state", "draft"}
+    assert art.report["state_bytes"] <= 28000 * 1.08
+    # the draft rides the artifact only where strictly cheaper; on this run it does
+    assert art.draft_policy is not None and art.draft_k == 3 and art.meta["draft_success"]
+    assert art.report["draft_size_mib"] < art.report["size_mib"]
+    assert art.meta["draft_pool_headroom_blocks"] == 4    # 4 slots x ceil(3 / 16)
+    assert tserve.main(["--arch", "gemma-2b", "--reduced", "--policy", str(out), "--requests",
+                        "2", "--max-new", "4", "--device", "cpu"]) == 0
+    assert "speculation:" in capsys.readouterr().out
+
+
 def test_search_cli_without_device_raises_when_no_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tsearch.main(["--reduced", "--limit", "size_mib=0.25", "--out",
                       str(tmp_path / "p.json")])
-    with pytest.raises(NotImplementedError, match="state phase"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tsearch.main(["--reduced", "--limit", "size_mib=0.25", "--limit", "state_bytes=1e4",
-                      "--device", "cpu"])
+                      "--paged", "--draft", "--out", str(tmp_path / "p.json")])
+    # the roofline backend (which --decode-batch parameterizes) waits for an H100 spec
+    with pytest.raises(NotImplementedError, match="roofline"):
+        tsearch.main(["--reduced", "--backend", "roofline", "--decode-batch", "4", "--limit",
+                      "size_mib=0.25", "--device", "cpu", "--out", str(tmp_path / "p.json")])
 
 
 def test_token_task_matches_the_reference_process():
