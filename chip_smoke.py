@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a)
-and runs twelve phases; any failure raises, so the exit code is nonzero and
+and runs thirteen phases; any failure raises, so the exit code is nonzero and
 the last line is not the ``ok`` line:
 
   1. environment: the card's name and power limit, torch/CUDA versions, and
@@ -141,7 +141,30 @@ the last line is not the ``ok`` line:
      ``artifacts/bench/table1.json``'s, spearman(sigma, bits), the final
      top-1, the wall time and QAT step median, fake-quant launches exactly
      10 a forward and STE launches 10 a training step;
- 12. one ``{"kernels": [...]}`` JSON line, the card's line, and last
+ 12. the rest of the search and the trainer, at gemma-2b's full width: (a)
+     ``launch.search.main`` with phase 7's settings and the state phase, the
+     latency limit (0.6 x the uniform 8-bit policy's roofline latency) in the
+     size limit's place, ``--backend roofline --decode-batch 4 --trace
+     --ckpt``: each phase's wall time, the artifact's roofline latency and
+     memory terms, the trace validated with its event count and attributed
+     share, the launches the run predicts; the checkpoint's bytes, save and
+     restore seconds, its artifact equal to ``--out``'s, its params packed
+     and served to phase 7 (c)'s requests, the measured decode step beside
+     the roofline's (a calibration ratio, not gated); the checkpoint
+     removed; (b) ``launch.report.render_report`` from that artifact alone,
+     saved under ``build/`` with its budget, policy and phase sections; (c)
+     ``launch.train.main`` on gemma-2b cut to 2 layers (the tied 256000 x
+     2048 embedding stays), 8 steps of 8 x 128 at 4 bits, a save every 4
+     (keep 1): the step median, fake-quant and STE launches 16 a step; then
+     the same run through ``TrainLoop`` failing at step 5, which restores
+     step 3 and replays: params and optimizer state bit for bit the clean
+     run's; (d) ``bop_greedy_policy`` and ``uniform_policy`` on gemma-2b's
+     registry, ``hutchinson_layer_traces`` (2 samples) on (c)'s model and
+     ``hawq_proxy_policy`` at 0.6 x its 8-bit size (time, peak memory), and
+     ``calibrate`` on layer 0's ``w_down`` input at batch 8 x 128 (2^24
+     values, ``torch.quantile``'s largest) and 8 x 129 (above it), held to
+     numpy's float64 percentile within one order statistic;
+ 13. one ``{"kernels": [...]}`` JSON line, the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
 Phases 5, 6 and 8 and 10 (c) hold two engines' streams equal, so their
@@ -218,7 +241,8 @@ FQ_BITS = (2, 4, 6, 8, 32)
 #: phase 7: the search command's arguments (8-bit weights are about 2388 MiB,
 #: 4-bit about 1194, so the limit forces mixed bits); ``search_argv`` adds the
 #: state phase over STATE_SLOTS x STATE_SEQ, phase 7 (c)'s serving geometry
-SEARCH_ARGV = ["--arch", ARCH, "--limit", "size_mib=1600", "--pretrain-steps", "8",
+SEARCH_LIMIT = ["--limit", "size_mib=1600"]
+SEARCH_ARGV = ["--arch", ARCH, *SEARCH_LIMIT, "--pretrain-steps", "8",
                "--phase2-iters", "3", "--seq", "64", "--batch", "8", "--seed", str(SEED)]
 STATE_SLOTS, STATE_SEQ = 4, 512
 #: the state_bytes limit as a share of the uniform 8-bit state (36 entries of
@@ -2388,17 +2412,17 @@ def _device_shares(torch, prof, wall_s: float, step_s: float) -> str:
             f"{fq / 1e3:.3f} ms ({100 * fq / total:.1f}% of device time); top: {top}")
 
 
-def search_argv(cfg, extra=()) -> list[str]:
-    """``SEARCH_ARGV`` with the state phase (a ``state_bytes`` limit at
-    ``STATE_FRAC`` of the uniform 8-bit state over STATE_SLOTS x STATE_SEQ)."""
+def search_argv(cfg, extra=(), base=SEARCH_ARGV) -> list[str]:
+    """``base`` (``SEARCH_ARGV``) with the state phase (a ``state_bytes`` limit
+    at ``STATE_FRAC`` of the uniform 8-bit state over STATE_SLOTS x STATE_SEQ)."""
     from repro_torch.core.policy import BitPolicy
     from repro_torch.cost import ShiftAddCostModel
     from repro_torch.kvcache import state_layer_infos
 
     u8 = BitPolicy.uniform(state_layer_infos(cfg, STATE_SLOTS, STATE_SEQ), 8)
     limit = STATE_FRAC * ShiftAddCostModel().report(u8).as_costs()["state_bytes"]
-    return SEARCH_ARGV + ["--limit", f"state_bytes={limit:.0f}", "--slots", str(STATE_SLOTS),
-                          "--kv-max-seq", str(STATE_SEQ), *extra]
+    return list(base) + ["--limit", f"state_bytes={limit:.0f}", "--slots", str(STATE_SLOTS),
+                         "--kv-max-seq", str(STATE_SEQ), *extra]
 
 
 def _packed_linears(tree) -> int:
@@ -2410,14 +2434,30 @@ def _packed_linears(tree) -> int:
                if isinstance(leaf, QuantizedTensor))
 
 
+def search_launches(cfg, env, phases) -> dict:
+    """The launches a search run's structure predicts: 128 fake-quant (and
+    STE) launches a forward (and training step) of the weight phase; one fused
+    decode step (row 3) per layer for each step of the state env on a
+    quantized state; for the draft env, one GEMM per packed linear for its
+    calibration prefill and one GEMV per packed linear for each decode step."""
+    from repro_torch import kernels
+
+    per_fwd = _fq_per_forward(cfg, env.layer_infos())
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(fake_quant=per_fwd * (env.train_steps + env.eval_passes),
+                fake_quant_ste_bwd=per_fwd * env.train_steps)
+    if "state_env" in phases:
+        want["quant_kv_decode_step"] = cfg.n_layers * phases["state_env"].steps
+    if "draft_env" in phases:
+        denv = phases["draft_env"]
+        n_lin = _packed_linears(denv._deployed)
+        want.update(quant_matmul=n_lin, quant_gemv=n_lin * denv.steps)
+    return want
+
+
 def search_run(torch, cfg, argv, *, profile: bool):
     """Phase 7 (b), (d) and (e): ``launch.search.run`` from ``argv``, counts
-    set to 0 just before and read just after.  The launches the run's
-    structure predicts: 128 fake-quant (and STE) launches a forward (and
-    training step) of the weight phase; one fused decode step (row 3) per
-    layer for each step of the state env on a quantized state; for the
-    draft env, one GEMM per packed linear for its calibration prefill and
-    one GEMV per packed linear for each decode step."""
+    set to 0 just before and read just after, held to ``search_launches``."""
     from repro_torch import kernels
     from repro_torch.launch import search
 
@@ -2436,16 +2476,7 @@ def search_run(torch, cfg, argv, *, profile: bool):
     finally:
         qat.make_lm_qat_step = make
     launches, plain = dict(kernels.LAUNCHES), dict(kernels.PLAIN_CALLS)
-    per_fwd = _fq_per_forward(cfg, env.layer_infos())
-    want = dict.fromkeys(kernels.KERNELS, 0)
-    want.update(fake_quant=per_fwd * (env.train_steps + env.eval_passes),
-                fake_quant_ste_bwd=per_fwd * env.train_steps)
-    if "state_env" in phases:
-        want["quant_kv_decode_step"] = cfg.n_layers * phases["state_env"].steps
-    if "draft_env" in phases:
-        denv = phases["draft_env"]
-        n_lin = _packed_linears(denv._deployed)
-        want.update(quant_matmul=n_lin, quant_gemv=n_lin * denv.steps)
+    want = search_launches(cfg, env, phases)
     if launches != want or any(plain.values()):
         raise AssertionError(f"phase 7 search: launches {launches} (the run's {env.train_steps} "
                              f"training steps, {env.eval_passes} evaluations and its state and "
@@ -3463,6 +3494,419 @@ def table1_recipe(torch) -> None:
         f"plain calls 0")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the rest of the search (roofline, --trace, --ckpt, the report,
+# baselines, calibration) and the trainer
+# ---------------------------------------------------------------------------
+
+
+#: phase 12 (a): the roofline backend's decode batch, and the latency limit as a
+#: share of the uniform 8-bit policy's roofline latency (8-bit weights stream
+#: about 2.5 GB a step, 4-bit half that: the limit forces mixed containers)
+ROOF_BATCH = 4
+ROOF_FRAC = 0.6
+#: phase 12 (c): the trainer's command (gemma-2b at full width, cut to 2 layers;
+#: the 256000 x 2048 tied embedding stays), its checkpoints every 4 steps, and
+#: the step the replay run fails at (it restores step 3 and replays 4-7)
+TRAIN_ARGV = ["--arch", ARCH, "--layers", "2", "--steps", "8", "--batch", "8", "--seq", "128",
+              "--wbits", "4", "--save-every", "4", "--seed", str(SEED)]
+TRAIN_FAIL_AT = 5
+#: phase 12 (d): the calibration input, layer 0's ``w_down`` input (d_ff 16384
+#: values a token) at batch 8: seq 128 gives 8 x 128 x 16384 = 2^24 values,
+#: exactly ``torch.quantile``'s largest; 129 crosses it
+CALIB_SEQ = (128, 129)
+
+
+def _nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def roofline_search(torch, cfg) -> dict:
+    """Phase 12 (a): the search's ``main`` with the roofline backend, the
+    trace and the checkpoint; the checkpoint restored, packed and served."""
+    import shutil
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import store as ck
+    from repro_torch.core.policy import BitPolicy, PolicyArtifact
+    from repro_torch.cost import RooflineCostModel
+    from repro_torch.kvcache import state_layer_infos, verify_state_bits
+    from repro_torch.launch import search
+    from repro_torch.models import decoder
+    from repro_torch.obs import calibration as obs_cal
+    from repro_torch.obs import search as obs_search
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.quant import apply as qapply
+    from repro_torch.serve.engine import ServeEngine
+
+    smi = smi_line()
+    params = decoder.init(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    specs = qapply.layer_specs(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    roof = RooflineCostModel(batch=ROOF_BATCH)
+    lat8 = roof.report(BitPolicy.uniform(specs, 8)).latency_s
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    out, trace, ckpt = (build / "phase12_policy.json", build / "phase12_trace.json",
+                        build / "phase12_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    # phase 7's command with the latency limit in the size limit's place
+    argv = search_argv(cfg, ["--backend", "roofline", "--decode-batch", str(ROOF_BATCH),
+                             "--limit", f"latency_s={ROOF_FRAC * lat8!r}", "--out", str(out),
+                             "--trace", str(trace), "--ckpt", str(ckpt)],
+                       base=[a for a in SEARCH_ARGV if a not in SEARCH_LIMIT])
+    captured, saves = {}, []
+    real_run, real_save = search.run, search.ck.save
+
+    def capture(args, **kw):
+        captured["run"] = real_run(args, **kw)
+        return captured["run"]
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        d = real_save(*a, **kw)
+        saves.append(time.perf_counter() - t0)
+        return d
+
+    search.run, search.ck.save = capture, timed_save
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        rc = search.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        search.run, search.ck.save = real_run, real_save
+    launches, plain = dict(kernels.LAUNCHES), dict(kernels.PLAIN_CALLS)
+    artifact, result, env, phases = captured.pop("run")
+    want = search_launches(cfg, env, phases)
+    if rc not in (0, 1) or launches != want or any(plain.values()):
+        raise AssertionError(f"phase 12 (a): rc {rc}, launches {launches} (the run predicts "
+                             f"{want}), plain calls {plain}")
+    del env, phases
+    torch.cuda.empty_cache()
+    tr = obs_trace.get_tracer()
+    srep = obs_search.search_trace_report(tr.events())
+    doc = json.loads(trace.read_text())
+    obs_trace.validate_chrome_trace(doc)
+    tr.clear()
+    pred = roof.report(artifact.policy)
+    log(f"  ({smi}) search --backend roofline in {wall:.2f} s (rc {rc}): {_phase_walls(artifact)}; "
+        f"mean {artifact.policy.mean_bits():.3f} bits, state mean "
+        f"{artifact.state_policy.mean_bits():.3f} bits")
+    log(f"  roofline at decode batch {ROOF_BATCH} (H100 SXM: 989 TFLOP/s, 3.35 TB/s): latency_s "
+        f"{artifact.report['latency_s']:.6g} (memory_s {pred.detail['memory_s']:.6g}, compute_s "
+        f"{pred.detail['compute_s']:.6g}) against the limit {ROOF_FRAC * lat8:.6g} "
+        f"({ROOF_FRAC} x uniform 8-bit {lat8:.6g})")
+    log(f"  trace {trace.relative_to(ROOT)}: {len(doc['traceEvents'])} events, validated; "
+        f"{srep['attributed_fraction'] * 100:.1f}% of {srep['total_s']:.2f} s attributed to env "
+        f"work")
+    log(f"    launches {launches}, as predicted; plain calls 0")
+    # the checkpoint: the artifact and the params back
+    step = ck.latest_step(str(ckpt))
+    nbytes = _dir_bytes(ckpt / f"step_{step:08d}")
+    store = ck.CheckpointStore(str(ckpt))
+    art = store.load_policy_artifact()
+    if art.to_json() != PolicyArtifact.load(str(out)).to_json():
+        raise AssertionError("phase 12 (a): the checkpoint's artifact differs from --out's")
+    like_tree = decoder.init(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, extra = store.restore_latest(like_tree)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    del like_tree
+    torch.cuda.empty_cache()
+    log(f"  ({smi}) checkpoint step {step}: {nbytes / 1e9:.3f} GB written in {saves[0]:.2f} s "
+        f"(save), restored in {t_restore:.2f} s; artifact equal to --out's; float loss "
+        f"{extra['float_loss']:.4f}")
+    shutil.rmtree(ckpt)
+    # (a) continued: pack the restored params and serve phase 7 (c)'s requests
+    serve = qapply.quantize_for_serve(decoder.unstack_layers(params, cfg), art, cfg)
+    del params
+    torch.cuda.empty_cache()
+    qapply.verify_packed_bits(serve, art)
+    slots, seq, new = STATE_SLOTS, STATE_SEQ, 16
+    eng = ServeEngine(cfg, serve, max_slots=slots, max_seq=seq, artifact=art, shed=steady())
+    del serve
+    verify_state_bits(eng.state, art, surface=state_layer_infos(cfg, slots, seq))
+    reqs = search_requests(torch, cfg, new)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    streams = eng.run(reqs)
+    torch.cuda.synchronize()
+    st = eng.stats()
+    packed = _packed_linears(eng.params)
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(quant_gemv=packed * st["decode_steps"], quant_matmul=packed * st["admissions"],
+                quant_kv_decode_step=cfg.n_layers * st["decode_steps"])
+    if sorted(streams) != list(range(len(reqs))) or any(len(v) != new for v in streams.values()):
+        raise AssertionError("phase 12 (a): incomplete streams")
+    if st["launches"] != want or any(st["plain_calls"].values()):
+        raise AssertionError(f"phase 12 (a): launches {st['launches']} (want {want}), plain "
+                             f"calls {st['plain_calls']}")
+    cal = obs_cal.calibration_ratios({"latency_s": artifact.report["latency_s"]},
+                                     {"latency_s": st["decode_step_median_s"]})
+    log(f"  ok served {len(reqs)} requests x {new} tokens on {slots} slots from the restored "
+        f"checkpoint: {st['decode_steps']} decode steps, median step "
+        f"{st['decode_step_median_s'] * 1e3:.3f} ms against the roofline's "
+        f"{artifact.report['latency_s'] * 1e3:.4f} ms (calibration ratio "
+        f"{cal['latency_s']['ratio']:.2f}, not gated: the roofline prices weights and state, "
+        f"the step pays the host, the head and attention too)")
+    log(f"    launches {st['launches']}")
+    del eng
+    torch.cuda.empty_cache()
+    return {"artifact": out, "specs": specs, "search": launches, "serve": st["launches"]}
+
+
+def render_phase_report(artifact_path: Path) -> None:
+    """Phase 12 (b): the explain report from the artifact alone."""
+    from repro_torch.core.policy import PolicyArtifact
+    from repro_torch.launch import report
+
+    md = report.render_report(PolicyArtifact.load(str(artifact_path)))
+    path = ROOT / "build" / "phase12_report.md"
+    path.write_text(md + "\n")
+    need = ("## Budget", "| latency_s |", "## Policies", "### Weight policy",
+            "### Decode-state policy", "### phase: weight", "### phase: state")
+    missing = [n for n in need if n not in md]
+    if missing:
+        raise AssertionError(f"phase 12 (b): the report lacks {missing}")
+    log(f"  ok report {path.relative_to(ROOT)}: {len(md.splitlines())} lines, budget, policy "
+        f"and phase sections present")
+
+
+def _first_difference(torch, a, b) -> str:
+    from repro_torch.core.baselines import leaf_paths
+    from repro_torch.train import optimizer as opt_mod
+
+    for path, x, y in zip(leaf_paths(a), opt_mod.leaves(a), opt_mod.leaves(b)):
+        if not isinstance(x, torch.Tensor):
+            if x != y:
+                return f"{path}: {x} != {y}"
+        elif not torch.equal(x, y):
+            return f"{path}: max rel {rel(x, y):.3g}"
+    return ""
+
+
+def trainer(torch, cfg) -> dict:
+    """Phase 12 (c): ``launch.train.main``, then the same run through
+    ``TrainLoop`` with a failure at ``TRAIN_FAIL_AT``, held to the clean run
+    bit for bit."""
+    import shutil
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import store as ck
+    from repro_torch.launch import train
+    from repro_torch.quant import apply as qapply
+    from repro_torch.runtime.loop import LoopConfig, TrainLoop
+    from repro_torch.runtime.resilience import FailureInjector
+    from repro_torch.train import optimizer as opt_mod
+
+    smi = smi_line()
+    build = ROOT / "build"
+    clean_dir, replay_dir = build / "phase12_train_clean", build / "phase12_train_replay"
+    for d in (clean_dir, replay_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    loops, times, built = [], [], []
+    real_build, real_loop, real_store = train.build, train.TrainLoop, train.CheckpointStore
+
+    def timed_build(args):
+        out = real_build(args)
+        built.append(out[0])
+        step = out[2]
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return res
+
+        return out[:2] + (timed,) + out[3:]
+
+    class Recording(real_loop):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            loops.append(self)
+
+    class KeepOne(real_store):
+        def __init__(self, root, **kw):
+            super().__init__(root, **dict(kw, keep=1))
+
+    train.build, train.TrainLoop, train.CheckpointStore = timed_build, Recording, KeepOne
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        rc = train.main(TRAIN_ARGV + ["--ckpt", str(clean_dir)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        train.build, train.TrainLoop, train.CheckpointStore = real_build, real_loop, real_store
+    launches, plain = dict(kernels.LAUNCHES), dict(kernels.PLAIN_CALLS)
+    clean = loops[0]
+    args = train.build_parser().parse_args(TRAIN_ARGV + ["--ckpt", str(replay_dir)])
+    cfg2 = built[0]
+    per_fwd = _fq_per_forward(cfg2, qapply.layer_specs(clean.state[0], cfg2))
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(fake_quant=per_fwd * args.steps, fake_quant_ste_bwd=per_fwd * args.steps)
+    if rc != 0 or launches != want or any(plain.values()) or len(times) != args.steps:
+        raise AssertionError(f"phase 12 (c): rc {rc}, launches {launches} (want {want}), plain "
+                             f"calls {plain}, {len(times)} timed steps")
+    tensors = [x for x in opt_mod.leaves(clean.state) if isinstance(x, torch.Tensor)]
+    n_params = sum(p.numel() for p in opt_mod.leaves(clean.state[0]))
+    state_bytes = sum(x.numel() * x.element_size() for x in tensors)
+    log(f"  ({smi}) launch.train.main: {cfg2.name}, d_model {cfg2.d_model}, vocabulary "
+        f"{cfg2.vocab_size}, {cfg2.n_layers} layers ({n_params / 1e6:.1f} M params, state "
+        f"{state_bytes / 1e9:.3f} GB with the moments), "
+        f"{args.steps} steps of {args.batch} x {args.seq} at {args.wbits} bits in {wall:.2f} s: "
+        f"step median {statistics.median(times[1:]) * 1e3:.3f} ms (first {times[0] * 1e3:.3f}); "
+        f"losses {[round(h['loss'], 4) for h in clean.history]}")
+    log(f"    launches {launches}: {args.steps} steps x {per_fwd} fake-quant and STE, as "
+        f"predicted; plain calls 0; checkpoints kept {ck.list_steps(str(clean_dir))}")
+    shutil.rmtree(clean_dir)
+    # the same run with a failure: restore the latest save and replay
+    _, _, step, state, batch_fn = real_build(args)
+    store = ck.CheckpointStore(str(replay_dir), keep=1)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    loop = TrainLoop(step, state, batch_fn, store, LoopConfig(args.steps,
+                                                              save_every=args.save_every),
+                     injector=FailureInjector(fail_at=(TRAIN_FAIL_AT,)))
+    loop.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    replayed = args.steps + TRAIN_FAIL_AT - (TRAIN_FAIL_AT // args.save_every) * args.save_every
+    if loop.restarts != 1 or kernels.LAUNCHES["fake_quant_ste_bwd"] != per_fwd * replayed:
+        raise AssertionError(f"phase 12 (c) replay: {loop.restarts} restarts, "
+                             f"{kernels.LAUNCHES['fake_quant_ste_bwd']} STE launches (want "
+                             f"{per_fwd * replayed})")
+    diff = _first_difference(torch, loop.state, clean.state)
+    if diff:
+        raise AssertionError(f"phase 12 (c): the replayed run's state differs from the clean "
+                             f"run's; first differing leaf {diff}")
+    log(f"  ok ({smi}) TrainLoop with a failure at step {TRAIN_FAIL_AT}: restored step "
+        f"{(TRAIN_FAIL_AT // args.save_every) * args.save_every - 1}, replayed to step "
+        f"{args.steps} ({replayed} steps run) in {wall:.2f} s; final params and optimizer "
+        f"state equal the clean run's bit for bit ({len(tensors)} tensors and the step count)")
+    shutil.rmtree(replay_dir)
+    params = clean.state[0]
+    del loop, state, clean, loops
+    torch.cuda.empty_cache()
+    return {"params": params, "cfg": cfg2, "launches": launches}
+
+
+def baselines_and_calibration(torch, cfg, specs, trained: dict) -> None:
+    """Phase 12 (d): the baseline allocators on gemma-2b's registry, the
+    Hutchinson traces of (c)'s 2-layer model and the HAWQ proxy, and
+    ``calibrate`` on layer 0's ``w_down`` input."""
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import baselines
+    from repro_torch.core.policy import BitPolicy
+    from repro_torch.data.pipeline import TokenTask, global_batch
+    from repro_torch.models import decoder, layers, registry
+    from repro_torch.quant import apply as qapply
+    from repro_torch.quant import calibration
+
+    smi = smi_line()
+    t0 = time.perf_counter()
+    u8 = baselines.uniform_policy(specs, 8)
+    greedy = baselines.bop_greedy_policy(specs, 0.45 * u8.bops())
+    t_greedy = time.perf_counter() - t0
+    if greedy.bops() > 0.45 * u8.bops():
+        raise AssertionError(f"phase 12 (d): bop-greedy {greedy.bops()} over its budget")
+    log(f"  bop-greedy on {cfg.name}'s {len(specs)} layers at 0.45 x uniform 8-bit BOPs: mean "
+        f"{greedy.mean_bits():.3f} bits, {greedy.model_size_mib():.1f} MiB (uniform 8: "
+        f"{u8.model_size_mib():.1f}), {t_greedy * 1e3:.1f} ms with uniform_policy")
+    params, cfg2 = trained["params"], trained["cfg"]
+    specs2 = qapply.layer_specs(params, cfg2)
+    api = registry.get_api(cfg2)
+    batch = {k: torch.as_tensor(np.asarray(v)).to("cuda", torch.long) for k, v in global_batch(
+        TokenTask(cfg2.vocab_size, seed=SEED), cfg2, ShapeSpec("hvp", "train", 128, 8), 0).items()}
+    stacked = {l.name: (("embed",) if l.name == "embed" else
+                        ("layers",) + tuple(l.name.split(".")[1:])) for l in specs2}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    traces = baselines.hutchinson_layer_traces(lambda p: api.loss(p, cfg2, batch), params,
+                                               stacked, torch.Generator(device="cuda")
+                                               .manual_seed(SEED), n_samples=2)
+    torch.cuda.synchronize()
+    t_hvp = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(v) for v in traces.values()):
+        raise AssertionError(f"phase 12 (d): non-finite traces {traces}")
+    budget = 0.6 * BitPolicy.uniform(specs2, 8).model_size_mib()
+    hawq = baselines.hawq_proxy_policy(specs2, traces, budget)
+    log(f"  ({smi}) hutchinson_layer_traces, 2 samples on (c)'s float loss (batch 8 x 128, "
+        f"the stacked leaf's trace for each of its layers): {t_hvp:.2f} s, peak allocated "
+        f"{peak / 1e9:.3f} GB; embed {traces['embed']:.4g}, layer000.mlp.w_down "
+        f"{traces['layer000.mlp.w_down']:.4g}; hawq proxy at {budget:.1f} MiB: mean "
+        f"{hawq.mean_bits():.3f} bits, {hawq.model_size_mib():.1f} MiB, bits "
+        f"{dict(sorted(hawq.bits.items()))}")
+    # calibration on a real activation: layer 0's w_down input, caught in qdense
+    real = layers.qdense
+    caught = []
+
+    def catch(w, x, **kw):
+        if x.shape[-1] == cfg2.d_ff and not caught:
+            caught.append(x.detach())
+        return real(w, x, **kw)
+
+    layers.qdense = catch
+    try:
+        with torch.no_grad():
+            toks = global_batch(TokenTask(cfg2.vocab_size, seed=SEED), cfg2,
+                                ShapeSpec("calib", "train", max(CALIB_SEQ), 8), 1)["tokens"]
+            decoder.forward(params, cfg2, torch.as_tensor(np.asarray(toks)).to("cuda",
+                                                                                torch.long))
+    finally:
+        layers.qdense = real
+    act = caught[0]
+    for seq in CALIB_SEQ:
+        x = act[:, :seq]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = calibration.calibrate([x])
+        lo, hi = float(r.lo), float(r.hi)
+        t_cal = time.perf_counter() - t0
+        # numpy in f64 places the interpolation point exactly; the port places it
+        # in f32 as JAX does, which at 2^24 values can move it by one position:
+        # the port's value must lie between the order statistics one beyond
+        v = np.sort(x.float().reshape(-1).cpu().numpy().astype(np.float64))
+        n = v.size
+        ref = np.percentile(v, [100 - 99.9, 99.9])
+        for got, want, p in ((lo, min(ref[0], 0.0), 100 - 99.9), (hi, max(ref[1], 0.0), 99.9)):
+            q = p / 100 * (n - 1)
+            band = v[max(int(np.floor(q)) - 1, 0)], v[min(int(np.ceil(q)) + 1, n - 1)]
+            if not band[0] - 1e-12 <= got <= band[1] + 1e-12 and got != want:
+                raise AssertionError(f"phase 12 (d): calibrate at {n} values: {got} outside "
+                                     f"{band} (numpy f64 {want})")
+        try:
+            torch.quantile(x.float().reshape(-1), 0.999)
+            quantile = "takes them"
+        except RuntimeError:
+            quantile = "refuses them"
+        log(f"  ({smi}) calibrate on layer 0's w_down input, 8 x {seq} x {cfg2.d_ff} = {n} "
+            f"values ({x.dtype}; torch.quantile {quantile}): [{lo:.6g}, {hi:.6g}] in "
+            f"{t_cal * 1e3:.2f} ms; numpy f64 [{min(ref[0], 0.0):.6g}, {max(ref[1], 0.0):.6g}], "
+            f"rel {abs(lo - min(ref[0], 0.0)) / max(abs(ref[0]), 1e-30):.2e} / "
+            f"{abs(hi - max(ref[1], 0.0)) / max(abs(ref[1]), 1e-30):.2e} (held to the order "
+            f"statistics one position beyond numpy's)")
+    del params, trained["params"]
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -3483,6 +3927,7 @@ def main() -> int:
     from repro_torch import configs, kernels
     from repro_torch.kernels import _build
 
+    t_script = time.perf_counter()
     log("== 1. environment")
     smi = smi_line()
     log(f"  {smi}")
@@ -3587,7 +4032,18 @@ def main() -> int:
     table1_recipe(torch)
     log(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s")
 
-    log("== 12. summary")
+    log(f"== 12. {cfg.name}: the roofline search with --trace and --ckpt, the report, the "
+        f"trainer, baselines and calibration")
+    t_phase = time.perf_counter()
+    roof = roofline_search(torch, cfg)
+    render_phase_report(roof["artifact"])
+    trained = trainer(torch, cfg)
+    baselines_and_calibration(torch, cfg, roof["specs"], trained)
+    log(f"  phase 12 launches: the search {_nonzero(roof['search'])}; serving the restored "
+        f"checkpoint {_nonzero(roof['serve'])}; the trainer {_nonzero(trained['launches'])}")
+    log(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+    log(f"== 13. summary (the script so far: {time.perf_counter() - t_script:.1f} s)")
     rows = []
     for name in kernels.KERNELS:
         r = results[name]

@@ -1,6 +1,6 @@
 # The multi-constraint cost-model seam: one CostReport vector, swappable
-# hardware backends.  Importing the package registers the shift-add backend;
-# the roofline backend prices against a TPU spec and is not ported.
+# hardware backends.  Importing the package registers both backends (the
+# roofline one priced on the port's H100 spec).
 from .base import (  # noqa: F401
     CostModel,
     CostReport,
@@ -8,4 +8,5 @@ from .base import (  # noqa: F401
     get_cost_model,
     register_cost_model,
 )
+from .roofline import RooflineCostModel  # noqa: F401
 from .shift_add import ShiftAddCostModel  # noqa: F401

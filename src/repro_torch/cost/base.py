@@ -10,8 +10,9 @@ the allocator consumes (``CostModel``); the two shipped backends are
 
   * :class:`repro_torch.cost.shift_add.ShiftAddCostModel` — the paper-fidelity
     28 nm shift-add MAC PPA model (Table VI / Fig. 5 units);
-  * ``roofline`` — the JAX package's serving model prices against a TPU
-    spec; the port has no H100 spec for it yet, and asking for it raises.
+  * :class:`repro_torch.cost.roofline.RooflineCostModel` — the serving
+    model (HBM-bytes/FLOPs roofline over packed container bytes, seconds and
+    joules), priced on the port's H100 spec.
 
 ``Budget`` items (core/policy.py) name metrics of this vector, so one search
 can constrain any subset of memory/energy/latency/BOPs simultaneously.
@@ -78,15 +79,8 @@ def register_cost_model(name: str, factory: Callable[..., CostModel]) -> None:
     _REGISTRY[name] = factory
 
 
-#: backends of the JAX package that the port does not have, and why
-NOT_PORTED = {"roofline": "the roofline backend prices against the JAX package's TPU_V5E "
-                          "spec; it waits for an H100 spec (ROADMAP queue 1)"}
-
-
 def get_cost_model(name: str, **kwargs) -> CostModel:
-    """Instantiate a backend by name ("shift_add")."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"cost model {name!r} is not ported: {NOT_PORTED[name]}")
+    """Instantiate a backend by name ("shift_add", "roofline")."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown cost model {name!r} (have: {sorted(_REGISTRY)})")
     return _REGISTRY[name](**kwargs)

@@ -24,9 +24,14 @@ state as a block pool and records its geometry in the artifact.  ``--draft``
 adds the draft phase: a strictly cheaper draft weight policy for
 self-speculation, scored by predicted acceptance (``spec.env.DraftQuantEnv``);
 the artifact carries it and ``--speculate-k`` only where it is strictly
-cheaper than the deployed policy.  ``--device`` defaults to the card and
-raises without one.  Not ported yet (ROADMAP queue 1): the roofline backend,
-``--autotune-kernels``, ``--ckpt`` and ``--trace``.
+cheaper than the deployed policy.  ``--backend roofline`` prices each policy's
+decode step (``--decode-batch`` sequences) on the H100 roofline.
+``--trace OUT.json`` records a Chrome trace of the whole run (one root
+``search/main`` window over the controller phases, their iterations and the
+env work) and prints the share of the wall time attributed to env work;
+``--ckpt DIR`` saves the searched params with the artifact as a checkpoint
+step both packages restore.  ``--device`` defaults to the card and raises
+without one.  Not ported yet: ``--autotune-kernels`` (ROADMAP queue 3).
 """
 from __future__ import annotations
 
@@ -38,17 +43,19 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import store as ck
 from repro_torch.configs import ARCH_MODULES, get_config
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.core.controller import ControllerConfig, SigmaQuantController, SigmaQuantResult
 from repro_torch.core.packing import VALID_BITS
 from repro_torch.core.policy import COST_METRICS, Budget, PolicyArtifact
 from repro_torch.cost import get_cost_model
-from repro_torch.cost.base import NOT_PORTED, available_cost_models
+from repro_torch.cost.base import available_cost_models
 from repro_torch.device import resolve_device
 from repro_torch.kvcache import DEFAULT_BLOCK, pool_blocks_for_budget, resolve_state_bits
 from repro_torch.models import registry
 from repro_torch.obs import search as obs_search
+from repro_torch.obs import trace as obs_trace
 from repro_torch.quant.env import LMQuantEnv
 
 
@@ -189,8 +196,7 @@ def build_parser() -> argparse.ArgumentParser:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", choices=sorted(ARCH_MODULES), default="gemma-2b")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--backend", choices=sorted(set(available_cost_models()) | set(NOT_PORTED)),
-                    default="shift_add")
+    ap.add_argument("--backend", choices=available_cost_models(), default="shift_add")
     ap.add_argument("--limit", action="append", default=[],
                     help="metric=value upper bound; repeatable (e.g. size_mib=0.5)")
     ap.add_argument("--loss-slack", type=float, default=0.10,
@@ -202,6 +208,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="roofline backend: sequences per decode step")
     ap.add_argument("--phase2-iters", type=int, default=10)
     ap.add_argument("--out", default="policy_artifact.json")
+    ap.add_argument("--ckpt", default=None,
+                    help="also save the params and the artifact as a checkpoint step here")
     ap.add_argument("--seed", type=int, default=0)
     # the decode-state (KV) phase, run when --limit state_bytes=... is given
     ap.add_argument("--slots", type=int, default=4,
@@ -234,6 +242,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="calibration prompts of the acceptance proxy")
     ap.add_argument("--speculate-k", type=int, default=3,
                     help="--draft: tokens the draft proposes a verify step (in the artifact)")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="record a Chrome/Perfetto trace of the whole search (controller "
+                         "phases, iterations and env work spans) and print the wall-time "
+                         "attribution")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist; 'cpu' runs the "
                          "plain versions of the kernels)")
@@ -318,7 +330,8 @@ def run(args: argparse.Namespace, *, log=print
     searched, QAT-trained weights) and the later phases' envs and results
     (``"state_env"``, ``"draft_env"``, ``"draft_result"``, where they ran).
     Each phase's wall time and iterations are in
-    ``artifact.provenance["phases"]``."""
+    ``artifact.provenance["phases"]``; ``phases["float_loss"]`` is the
+    pretrained float model's validation loss."""
     if not args.limit:
         raise SystemExit("pass at least one --limit metric=value")
     limits = _parse_limits(args.limit)
@@ -345,7 +358,7 @@ def run(args: argparse.Namespace, *, log=print
     log(f"float val loss {float_loss:.3f}; budget: "
         + ", ".join(f"{it.metric}<={it.limit:g}" for it in budget.items))
     state_env = state_budget = state_cc = pool_req = None
-    phases: dict = {}
+    phases: dict = {"float_loss": float_loss}
     if state_limit is not None:
         state_env, state_budget, state_cc, pool_req = _state_phase(args, state_limit, cfg, api,
                                                                    env, cost_model, log)
@@ -362,9 +375,32 @@ def run(args: argparse.Namespace, *, log=print
     return artifact, result, env, phases
 
 
+def _save_trace(path: str, t0: float) -> None:
+    """One root window over the whole run (pretraining, calibration prefills,
+    every controller phase), so the attribution's denominator is the search's
+    full wall time; then save, validate and print the attribution."""
+    tracer = obs_trace.get_tracer()
+    tracer.complete("search/main", ts=t0, dur=time.perf_counter() - t0,
+                    cat=obs_search.PHASE_CAT, track=obs_search.TRACK)
+    srep = obs_search.search_trace_report(tracer.events())
+    doc = tracer.save(path, process_name="sigmaquant-search")
+    obs_trace.validate_chrome_trace(doc)
+    print(f"search trace -> {path}  ({len(doc['traceEvents'])} events, "
+          f"{srep['attributed_fraction']:.1%} of {srep['total_s']:.2f}s attributed to env work)")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    artifact, result, _, _ = run(args)
+    if args.trace:
+        obs_trace.enable()
+    t0 = time.perf_counter()
+    try:
+        artifact, result, env, phases = run(args)
+        if args.trace:
+            _save_trace(args.trace, t0)
+    finally:
+        if args.trace:
+            obs_trace.disable()
     artifact.save(args.out)
     print(f"policy artifact -> {args.out}  (success={result.success} "
           f"mean_bits={result.policy.mean_bits():.2f} backend={args.backend})")
@@ -381,6 +417,10 @@ def main(argv=None) -> int:
               f"predicted_acceptance={artifact.meta['draft_agreement']:.3f}")
     for metric, value in artifact.report.items():
         print(f"  {metric:>16} = {value:g}")
+    if args.ckpt:
+        ck.save(args.ckpt, args.pretrain_steps, env.params,
+                extra={"float_loss": phases["float_loss"]}, artifact=artifact)
+        print(f"checkpoint (+artifact) -> {args.ckpt}")
     return 0 if result.success else 1
 
 

@@ -8,9 +8,9 @@ container bytes, phase timings — whether or not the tracer is on; its
 packages for the same decisions.  :func:`build_provenance` assembles the v6
 ``PolicyArtifact`` payload.  When the process tracer is on, the controller
 and the envs add spans in :data:`PHASE_CAT` (run, phases, iterations) and
-:data:`WORK_CAT` (env work: evaluate, QAT, pretrain, statistics).  The
-trace-based wall-time attribution (``search_trace_report``) comes with the
-``--trace`` export, not ported yet.
+:data:`WORK_CAT` (env work: evaluate, QAT, pretrain, statistics), and
+:func:`search_trace_report` attributes the traced wall time to the work
+spans (``launch/search.py --trace``).
 """
 from __future__ import annotations
 
@@ -159,3 +159,70 @@ def work_span(name: str, **args):
         return trace_mod.NOOP_SPAN
     return tr.span("env/" + name, cat=WORK_CAT, track=TRACK,
                    args=args or None)
+
+
+# ---------------------------------------------------------------------------
+# Trace-based wall-time attribution
+# ---------------------------------------------------------------------------
+
+def _merged(intervals) -> list:
+    """Sorted, overlap-merged [start, end] intervals."""
+    out: list[list[float]] = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _intersect_len(a: list, b: list) -> float:
+    """Total overlap length of two merged interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        lo = max(a[i][0], b[j][0])
+        hi = min(a[i][1], b[j][1])
+        if hi > lo:
+            total += hi - lo
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def search_trace_report(events=None) -> dict:
+    """Attribute traced search wall time to named work spans.
+
+    ``total_s`` is the union of the root windows (PHASE_CAT spans named
+    ``search/...``); ``attributed_s`` is the union of WORK_CAT spans
+    clipped to those windows — overlap-safe, so nested env spans (a draft
+    sensitivity probe calling divergence, say) never double-count.  With no
+    root span recorded the work union itself is the denominator.
+    """
+    if events is None:
+        events = trace_mod.get_tracer().events()
+    roots, work = [], []
+    by_name: dict[str, dict] = {}
+    for ph, name, cat, track, ts, dur, args in events:
+        if ph != "X":
+            continue
+        if cat == PHASE_CAT and name.startswith("search/"):
+            roots.append((ts, ts + dur))
+        elif cat == WORK_CAT:
+            work.append((ts, ts + dur))
+            d = by_name.setdefault(name, {"count": 0, "total_s": 0.0})
+            d["count"] += 1
+            d["total_s"] += dur
+    mwork = _merged(work)
+    mroots = _merged(roots) if roots else mwork
+    total = sum(e - s for s, e in mroots)
+    attributed = _intersect_len(mwork, mroots)
+    return {
+        "total_s": total,
+        "attributed_s": attributed,
+        "attributed_fraction": (attributed / total) if total > 0 else 0.0,
+        "spans": dict(sorted(by_name.items(),
+                             key=lambda kv: -kv[1]["total_s"])),
+    }

@@ -29,6 +29,7 @@ from repro_torch.launch import serve as tserve_cli
 from repro_torch.launch.dryrun import dryrun_policy
 from repro_torch.models import decoder as tdecoder
 from repro_torch.quant import apply as tapply
+from repro_torch.serve.lifecycle import ShedPolicy
 
 torch.set_num_threads(2)
 
@@ -305,9 +306,19 @@ def test_verify_state_bits_agrees_with_jax(model):
                   lambda: tkvpol.verify_state_bits(tst, tart, surface=odd))
 
 
-def test_serve_cli_deploys_a_jax_written_artifact(model, tmp_path, capsys):
+def test_serve_cli_deploys_a_jax_written_artifact(model, tmp_path, capsys, monkeypatch):
     """``python -m repro_torch.launch.serve --policy`` on an artifact the JAX
-    package wrote (weight, state and draft policies, pool geometry)."""
+    package wrote (weight, state and draft policies, pool geometry).
+
+    The printed ``speculation: K=`` is the live K after the run; the CLI's
+    engine runs under a shed policy whose straggler shed (which reads the
+    host clock) cannot fire, so the load on the machine cannot lower it."""
+    engine_cls = tserve_cli.ServeEngine
+
+    def steady_engine(*args, **kwargs):
+        return engine_cls(*args, **kwargs, shed=ShedPolicy(straggler_sheds_spec=False))
+
+    monkeypatch.setattr(tserve_cli, "ServeEngine", steady_engine)
     kw = _build_kw(model, jpol)
     kw.update(draft_k=2, kernel_configs=None, pool={"block": 16, "num_blocks": 20})
     jart = jpol.PolicyArtifact.build(_jax(model["policy"]), **kw)

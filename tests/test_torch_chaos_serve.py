@@ -24,7 +24,7 @@ move a preemption or a shed to another turn, a case is held against the
 port's own fault-free run instead of the JAX engine.  These are the cases
 whose prompts share a write block: ``test_donor_fails_before_its_sharers_split``
 (the JAX engine's invariant checker fails on every copy-on-write split, and
-its ledger keeps the split a failed donor's sharers no longer need).  The five
+its ledger keeps the split a failed donor's sharers no longer need).  The six
 chaos configs' prompts share no block (no occupancy matches), so their
 ledgers agree and every other case is held against the JAX engine.
 """
@@ -71,6 +71,9 @@ CONFIGS = {
                    "speculate": 2, "draft_policy": 4},
     "paged-chunked": {"state_bits": 4, "paged": True, "pool_blocks": 10,
                       "prefill_chunk": 3},
+    # chunked prefill together with speculation
+    "paged-spec-chunked": {"state_bits": 4, "paged": True, "pool_blocks": 12,
+                           "speculate": 2, "draft_policy": 4, "prefill_chunk": 3},
 }
 
 #: the straggler shed reads the host clock: off, so twin engines stay twins

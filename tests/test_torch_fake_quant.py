@@ -223,8 +223,15 @@ def test_shift_add_costs_equal_jax(seed, impl):
 
 
 def test_roofline_backend_is_refused_with_its_reason():
-    with pytest.raises(NotImplementedError, match="H100 spec"):
-        get_cost_model("roofline")
+    """The roofline backend has its H100 spec now and is no longer refused; an
+    unknown backend is, with the names the registry has."""
+    from repro_torch.cost.roofline import RooflineCostModel
+    from repro_torch.roofline import H100_SXM
+
+    cm = get_cost_model("roofline")
+    assert isinstance(cm, RooflineCostModel) and cm.hw is H100_SXM
+    with pytest.raises(KeyError, match="roofline"):
+        get_cost_model("napkin")
 
 
 def test_classify_zone_equals_jax():

@@ -30,7 +30,12 @@ def test_every_submodule_imports_without_jax():
             "repro_torch.train.optimizer", "repro_torch.obs.metrics",
             "repro_torch.serve.scheduler", "repro_torch.serve.lifecycle",
             "repro_torch.runtime", "repro_torch.runtime.resilience",
-            "repro_torch.obs.calibration", "repro_torch.obs.trace"} <= set(mods)
+            "repro_torch.obs.calibration", "repro_torch.obs.trace",
+            "repro_torch.roofline.model", "repro_torch.cost.roofline",
+            "repro_torch.quant.calibration", "repro_torch.core.baselines",
+            "repro_torch.checkpoint.store", "repro_torch.launch.report",
+            "repro_torch.launch.train", "repro_torch.runtime.loop",
+            "repro_torch.runtime.elastic"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -93,6 +98,7 @@ def test_kernel_build_is_not_started_by_imports():
 
 
 @pytest.mark.parametrize("port,ref", [("runtime/resilience.py", "runtime/resilience.py"),
+                                      ("runtime/elastic.py", "runtime/elastic.py"),
                                       ("obs/calibration.py", "obs/calibration.py"),
                                       ("obs/trace.py", "obs/trace.py")])
 def test_copied_modules_keep_the_references_code(port, ref):

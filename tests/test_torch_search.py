@@ -15,6 +15,7 @@ load and the port serves (with the state phase, a pool and a draft too),
 and refuses to run without a card unless asked.
 """
 import json
+import time
 
 import jax
 import jax.numpy as jnp
@@ -154,6 +155,95 @@ def test_traced_controller_records_spans_and_keeps_its_decisions():
     assert {"search/weight", "weight/phase2", "weight/acc", "env/sigmas"} <= names
     assert any(n.startswith("weight/p2.") for n in names)
     assert tobs_search.work_span("sigmas") is ttrace.NOOP_SPAN
+
+
+# ---------------------------------------------------------------------------
+# trace attribution and controller tracing (twins of tests/test_search_obs.py)
+# ---------------------------------------------------------------------------
+
+
+def _ev(pkg, name, cat, ts, dur):
+    return ("X", name, getattr(pkg, cat), pkg.TRACK, ts, dur, None)
+
+
+TRACE_CASES = {
+    "work_clipped_to_root_union": lambda m: [
+        _ev(m, "search/run", "PHASE_CAT", 0.0, 10.0), _ev(m, "env/a", "WORK_CAT", 1.0, 2.0),
+        _ev(m, "env/b", "WORK_CAT", 2.0, 3.0), _ev(m, "env/c", "WORK_CAT", 20.0, 5.0)],
+    "no_root_uses_work_union": lambda m: [
+        _ev(m, "env/a", "WORK_CAT", 1.0, 4.0), _ev(m, "env/b", "WORK_CAT", 20.0, 5.0)],
+    "non_search_categories_ignored": lambda m: [
+        _ev(m, "search/run", "PHASE_CAT", 0.0, 10.0), _ev(m, "weight/p2.1", "PHASE_CAT", 0.0, 9.0),
+        ("X", "decode", "engine.phase", "engine", 0.0, 8.0, None),
+        ("i", "marker", m.WORK_CAT, m.TRACK, 1.0, 0.0, None)],
+    "empty": lambda m: [],
+}
+TRACE_WANT = {"work_clipped_to_root_union": (10.0, 4.0, 0.4),
+              "no_root_uses_work_union": (9.0, 9.0, 1.0),
+              "non_search_categories_ignored": (10.0, 0.0, 0.0), "empty": (0.0, 0.0, 0.0)}
+
+
+@pytest.mark.parametrize("case", sorted(TRACE_CASES))
+def test_search_trace_report_equals_jax(case):
+    from repro.obs import search as jobs_search
+
+    got = tobs_search.search_trace_report(TRACE_CASES[case](tobs_search))
+    assert got == jobs_search.search_trace_report(TRACE_CASES[case](jobs_search))
+    total, attributed, frac = TRACE_WANT[case]
+    assert (got["total_s"], got["attributed_s"]) == pytest.approx((total, attributed))
+    assert got["attributed_fraction"] == pytest.approx(frac)
+    if case == "work_clipped_to_root_union":
+        assert got["spans"]["env/a"] == {"count": 1, "total_s": 2.0}
+
+
+class TracedSyntheticEnv(SyntheticEnv):
+    """SyntheticEnv emitting the port's work spans with a real (tiny) duration."""
+
+    NAP = 0.002
+
+    def _napping(name):
+        def call(self, *a, **kw):
+            with tobs_search.work_span(name):
+                time.sleep(self.NAP)
+                return getattr(SyntheticEnv, name)(self, *a, **kw)
+        return call
+
+    sigmas = _napping("sigmas")
+    sensitivities = _napping("sensitivities")
+    evaluate = _napping("evaluate")
+    calibrate_and_qat = _napping("calibrate_and_qat")
+
+
+def _traced_run(seed: int = 0):
+    layers = tuple(tpol.LayerInfo(l.name, l.shape, l.macs, l.kind) for l in make_layers(12, seed))
+    env = TracedSyntheticEnv(layers, seed=seed)
+    t = env.feasible_targets()
+    targets = tpol.Targets(t.acc_t, t.res_t, t.acc_buffer, t.res_buffer, t.abandon_factor)
+    return TController(env, targets, TCC(phase2_max_iters=40), phase="weight").run()
+
+
+def test_traced_search_attributes_env_time_and_keeps_its_digest():
+    untraced = _traced_run(5)
+    tracer = ttrace.enable()
+    try:
+        res = _traced_run(5)
+        rep = tobs_search.search_trace_report()
+        evs = tracer.events()
+        doc = tracer.chrome_trace()
+    finally:
+        ttrace.disable()
+        tracer.clear()
+    assert res.search_report.digest() == untraced.search_report.digest()
+    names = {e[1] for e in evs if e[0] == "X"}
+    assert {"search/weight", "env/evaluate", "env/sigmas", "env/sensitivities",
+            "env/calibrate_and_qat"} <= names
+    it = next(e for e in evs if e[0] == "X" and e[1].startswith("weight/p0."))
+    assert it[2] == tobs_search.PHASE_CAT and set(it[6]) >= {"zone", "acc", "bits", "worst"}
+    root = next(e for e in evs if e[1] == "search/weight")
+    assert root[6]["digest"] == res.search_report.digest()
+    assert rep["attributed_fraction"] > 0.5, rep
+    assert rep["spans"]["env/evaluate"]["count"] >= 2
+    ttrace.validate_chrome_trace(doc)
 
 
 # ---------------------------------------------------------------------------
@@ -368,6 +458,55 @@ def test_search_cli_with_state_pool_and_draft_writes_a_v6_artifact_the_port_serv
     assert "speculation:" in capsys.readouterr().out
 
 
+def test_search_cli_roofline_trace_and_checkpoint_load_in_both_packages(tmp_path, capsys):
+    """``--backend roofline --decode-batch 4 --trace --ckpt``: the artifact
+    prices on the H100 roofline, the trace validates in both packages, and
+    the checkpoint (params and artifact) restores in both."""
+    from repro.checkpoint import store as jck
+    from repro.cost.roofline import RooflineCostModel as JRoofline
+    from repro.obs import trace as jtrace
+    from repro.roofline.model import HwSpec as JHwSpec
+    from repro_torch.checkpoint import store as tck
+    from repro_torch.cost import RooflineCostModel
+
+    out, trace, ckpt = tmp_path / "policy.json", tmp_path / "trace.json", tmp_path / "ck"
+    cfg = tconfigs.get_config("gemma-2b").reduced()
+    spec_params = treg.get_api(cfg).init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    lat8 = RooflineCostModel(batch=4).report(tpol.BitPolicy.uniform(
+        tapply.layer_specs(spec_params, cfg), 8)).latency_s
+    rc = tsearch.main(["--arch", "gemma-2b", "--reduced", "--backend", "roofline",
+                       "--decode-batch", "4", "--limit", f"latency_s={0.8 * lat8!r}",
+                       "--pretrain-steps", "4", "--phase2-iters", "2", "--device", "cpu",
+                       "--out", str(out), "--trace", str(trace), "--ckpt", str(ckpt)])
+    assert rc in (0, 1)
+    printed = capsys.readouterr().out
+    assert f"search trace -> {trace}" in printed and "attributed to env work" in printed
+    assert not ttrace.is_enabled()
+    art = tpol.PolicyArtifact.load(str(out))
+    assert art.backend == "roofline" and art.meta["backend"] == "roofline"
+    want = RooflineCostModel(batch=4).report(art.policy).as_costs()
+    assert {k: art.report[k] for k in want} == want
+    h100 = JHwSpec("h100_sxm", 989e12, 3.35e12, 450e9)
+    jart = jpol.PolicyArtifact.load(str(out))
+    assert JRoofline(h100, batch=4).report(jart.policy).as_costs() == want
+    doc = json.loads(trace.read_text())
+    ttrace.validate_chrome_trace(doc)
+    jtrace.validate_chrome_trace(doc)
+    names = {e["name"] for e in doc["traceEvents"]}
+    assert {"search/main", "search/weight", "env/model_init"} <= names
+    # the checkpoint: step = the pretraining steps, the artifact, the float loss
+    assert tck.list_steps(str(ckpt)) == [4]
+    assert tck.load_policy_artifact(str(ckpt)).to_json() == art.to_json()
+    assert jck.load_policy_artifact(str(ckpt)).to_json() == jart.to_json()
+    tparams, extra = tck.restore(str(ckpt), spec_params)
+    assert extra["float_loss"] > 0
+    jlike = jdec.init(jconfigs.get_config("gemma-2b").reduced(), jax.random.key(0))
+    jparams, jextra = jck.restore(str(ckpt), jlike)
+    assert jextra == extra
+    for a, b in zip(topt.leaves(tparams), jax.tree.leaves(jparams)):
+        assert a.numpy().tobytes() == np.asarray(b).tobytes()
+
+
 def test_search_cli_without_device_raises_when_no_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -376,10 +515,13 @@ def test_search_cli_without_device_raises_when_no_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tsearch.main(["--reduced", "--limit", "size_mib=0.25", "--limit", "state_bytes=1e4",
                       "--paged", "--draft", "--out", str(tmp_path / "p.json")])
-    # the roofline backend (which --decode-batch parameterizes) waits for an H100 spec
-    with pytest.raises(NotImplementedError, match="roofline"):
+    # the roofline backend, the trace and the checkpoint change nothing of that
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tsearch.main(["--reduced", "--backend", "roofline", "--decode-batch", "4", "--limit",
-                      "size_mib=0.25", "--device", "cpu", "--out", str(tmp_path / "p.json")])
+                      "latency_s=1e-7", "--trace", str(tmp_path / "t.json"), "--ckpt",
+                      str(tmp_path / "ck"), "--out", str(tmp_path / "p.json")])
+    assert not ttrace.is_enabled()
+    assert not (tmp_path / "t.json").exists() and not (tmp_path / "ck").exists()
 
 
 def test_token_task_matches_the_reference_process():
