@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a)
-and runs thirteen phases; any failure raises, so the exit code is nonzero and
+and runs fourteen phases; any failure raises, so the exit code is nonzero and
 the last line is not the ``ok`` line:
 
   1. environment: the card's name and power limit, torch/CUDA versions, and
@@ -164,10 +164,30 @@ the last line is not the ``ok`` line:
      ``calibrate`` on layer 0's ``w_down`` input at batch 8 x 128 (2^24
      values, ``torch.quantile``'s largest) and 8 x 129 (above it), held to
      numpy's float64 percentile within one order statistic;
- 13. one ``{"kernels": [...]}`` JSON line, the card's line, and last
+ 13. deepseek-moe-16b, the MoE family: (a) the expert stacks of the GEMV
+     and the GEMM (rows 1e and 2e: one launch for 64 experts) at its
+     expert linears (w_gate / w_up: K 2048, N 1408; w_down: K 1408, N
+     2048), capacities 8 (the GEMV), 16, 128 and 1280 (the GEMM), bits
+     2-8, f32 and bf16: bit for bit equal to the 2-D kernels on every
+     expert's slice, within rows 1 and 2's tolerances of the plain
+     version, a call, the device time, the plain version, ``torch.bmm``
+     on the dequantized bf16 stack and the bound; (b) the full model (28
+     layers, 16.9 B parameters, random bf16 weights from the seed) through
+     ``launch.serve.main`` under ``--wbits mixed``, packed one stacked leaf
+     at a time, a K 8 / V 4 state, phase 4's geometry: step median, TTFT,
+     peak memory while packing and serving, packed bytes, launches a
+     decode step (three expert GEMVs a layer) and the device-busy share;
+     (c) its width cut to 2 layers in f32 through five engines: the
+     kernels, the plain versions (streams equal up to near-ties of the
+     gap the two leave on one cache), paged, speculative K 2 from a 4-bit
+     draft, each run's dropped assignments counted here from the router
+     (where capacity drops, the modes may differ: capacity follows the
+     batch); (d) the kernel run again, streams and every logits row
+     bit-equal;
+ 14. one ``{"kernels": [...]}`` JSON line, the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
-Phases 5, 6 and 8 and 10 (c) hold two engines' streams equal, so their
+Phases 5, 6, 8, 10 (c) and 13 hold two engines' streams equal, so their
 engines pass a shed policy whose straggler shed cannot fire (it reads the
 host clock); phase 6's keeps K fixed as well (its launch counts rest on
 it).  Only phase 10 (a) walks the whole ladder.
@@ -265,6 +285,9 @@ REPLACES = {
     "fake_quant": "src/repro/kernels/fake_quant/kernel.py:30",
     "fake_quant_ste_bwd": "src/repro/kernels/fake_quant/ops.py:41",
     "quant_kv_decode_step_proj": "src/repro/kernels/quant_kv/kernel.py:640",
+    # quant_gemv_pallas and quant_matmul_pallas under jax.vmap over the experts
+    "quant_gemv_experts": "src/repro/kernels/quant_matmul/ops.py:66",
+    "quant_matmul_experts": "src/repro/kernels/quant_matmul/ops.py:66",
 }
 SOURCES = {
     "quant_gemv": "src/repro_torch/csrc/quant_gemv.cu",
@@ -278,6 +301,8 @@ SOURCES = {
     "fake_quant": "src/repro_torch/csrc/fake_quant.cu",
     "fake_quant_ste_bwd": "src/repro_torch/csrc/fake_quant.cu",
     "quant_kv_decode_step_proj": "src/repro_torch/csrc/quant_kv_proj.cu",
+    "quant_gemv_experts": "src/repro_torch/csrc/quant_gemv.cu",
+    "quant_matmul_experts": "src/repro_torch/csrc/quant_matmul.cu",
 }
 
 
@@ -3906,6 +3931,320 @@ def baselines_and_calibration(torch, cfg, specs, trained: dict) -> None:
     del params, trained["params"]
     torch.cuda.empty_cache()
 
+# ---------------------------------------------------------------------------
+# phase 13: deepseek-moe-16b (the MoE family, the expert axis of rows 1 and 2)
+# ---------------------------------------------------------------------------
+
+
+MOE_ARCH = "deepseek-moe-16b"
+#: deepseek-moe-16b's expert linears, (N, K): w_gate and w_up, then w_down
+MOE_LINEARS = {"w_gate": (1408, 2048), "w_down": (2048, 1408)}
+#: capacities: decode and verify (the GEMV), a small and a large admission
+#: and a long prefill (the GEMM)
+MOE_C = (8, 16, 128, 1280)
+MOE_BITS = (2, 4, 6, 8)
+#: the kernels line's rows 1e and 2e: a layer's three expert linears at 4 bits in
+#: bf16, at the decode capacity (8) and at (b)'s admissions' (16)
+MOE_ROW_C = {"quant_gemv_experts": 8, "quant_matmul_experts": 16}
+#: (b): phase 4's geometry through the serve command line
+MOE_SERVE_ARGV = ["--arch", MOE_ARCH, "--wbits", "mixed", "--requests", "8", "--max-new", "16",
+                  "--slots", "4", "--max-seq", "256", "--seed", str(SEED + 13)]
+#: (c), (d): the same width cut to 2 layers, in f32
+MOE_CUT_LAYERS = 2
+MOE_SPEC_K = 2
+
+
+def check_experts(torch, gen, results: dict) -> None:
+    """Phase 13 (a): the expert stacks of the GEMV and the GEMM at
+    deepseek-moe-16b's shapes, 64 experts: each launch bit-equal to the 2-D
+    kernels on every expert's slice, within rows 1 and 2's tolerances of the
+    plain version, and timed (a call, device, plain, ``torch.bmm`` on the
+    dequantized bf16 stack, the bound of every expert's packed bytes)."""
+    from repro_torch import configs
+    from repro_torch.kernels.quant_gemv.kernel import quant_gemv_cuda, quant_gemv_experts_cuda
+    from repro_torch.kernels.quant_gemv.ref import quant_gemv_experts_ref
+    from repro_torch.kernels.quant_matmul.kernel import (quant_matmul_cuda,
+                                                         quant_matmul_experts_cuda)
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_experts_ref
+    from repro_torch.quant.tensor import quantize_tensor
+
+    e = configs.get_config(MOE_ARCH).n_experts
+    smi = smi_line()
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    for name, (n, k) in MOE_LINEARS.items():
+        for bits in MOE_BITS:
+            w = torch.randn((e, k, n), generator=gen, device="cuda") / k ** 0.5
+            qt = quantize_tensor(w, bits)
+            del w
+            packed, scale = qt.packed, qt.scale                        # (E, N, kp), (1, 1, N)
+            wd = qt.dequantize(torch.bfloat16).contiguous()              # (E, K, N), bmm's
+            for c in MOE_C:
+                kern = "quant_gemv_experts" if c <= 8 else "quant_matmul_experts"
+                run, flat, ref = ((quant_gemv_experts_cuda, quant_gemv_cuda,
+                                   quant_gemv_experts_ref) if c <= 8 else
+                                  (quant_matmul_experts_cuda, quant_matmul_cuda,
+                                   quant_matmul_experts_ref))
+                for dt in (torch.float32, torch.bfloat16):
+                    x = torch.randn((e, c, k), generator=gen, device="cuda").to(dt)
+                    got = run(x, packed, scale, bits=bits, k=k)
+                    per = torch.stack([flat(x[i], packed[i], scale[0, 0], bits=bits, k=k)
+                                       for i in range(e)])
+                    want = ref(x, packed, scale, bits, k)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, per):
+                        bad = int((got != per).any(-1).any(-1).nonzero()[0])
+                        raise AssertionError(f"phase 13 (a): {kern} {name} bits={bits} C={c} "
+                                             f"{dt}: expert {bad} differs from the 2-D launch")
+                    err = rel(got, want)
+                    r = results[kern]
+                    r["max_abs_err"] = max(r["max_abs_err"],
+                                           float((got.float() - want.float()).abs().max()))
+                    if not err <= tol[dt]:
+                        raise AssertionError(f"phase 13 (a): {kern} {name} bits={bits} C={c} "
+                                             f"{dt}: rel {err:.3g} > {tol[dt]}")
+                    t_k = time_ms(torch, lambda: run(x, packed, scale, bits=bits, k=k), reps=10)
+                    t_d = time_batch(torch, lambda: run(x, packed, scale, bits=bits, k=k))
+                    t_p = time_ms(torch, lambda: ref(x, packed, scale, bits, k), reps=3,
+                                  warmup=1)
+                    xb = x.to(torch.bfloat16)
+                    t_l = time_ms(torch, lambda: torch.bmm(xb, wd), reps=10)
+                    act = x.element_size()
+                    nbytes = packed.numel() + 4 * n + act * e * c * (k + n)
+                    flops = 2.0 * e * c * n * k
+                    rate = F32_FLOP_S if dt is torch.float32 else BF16_FLOP_S
+                    b_ms, b_by = bound(nbytes, flops, rate)
+                    log(f"  ({smi}) {kern:20s} {name:6s} E={e} C={c:4d} N={n} K={k} bits={bits} "
+                        f"{str(dt)[6:]:8s}: a call {t_k:.4f} ms, device {t_d:.4f} ms, plain "
+                        f"{t_p:.4f} ms, torch.bmm (bf16) {t_l:.4f} ms, bound {b_ms:.4f} ms "
+                        f"({b_by}), rel {err:.2e}; = the 2-D launches bit for bit")
+                    if bits == 4 and dt is torch.bfloat16 and c == MOE_ROW_C[kern]:
+                        # the kernels line: a layer's three linears (w_gate, w_up, w_down)
+                        times = 2 if name == "w_gate" else 1
+                        for key, val in (("ms", t_k), ("device_ms", t_d), ("plain_ms", t_p),
+                                         ("library_ms", t_l), ("bytes", nbytes),
+                                         ("flops", flops)):
+                            r[key] += times * val
+                    del x, xb, got, per, want
+            del qt, packed, scale, wd
+            torch.cuda.empty_cache()
+        log(f"  ok {name}: C {MOE_C} x bits {MOE_BITS} x f32, bf16, one launch for {e} experts")
+
+
+def moe_drops(torch, cfg, record: list):
+    """Wrap ``models.moe.moe_mlp`` so that every call appends the assignments
+    capacity drops, counted here from the router: each token's top-k experts
+    by probability (ties to the lower index), then sum over experts of
+    max(0, assignments - C).  Returns the restore function."""
+    from repro_torch.models import moe
+
+    real = moe.moe_mlp
+
+    def counted(p, x, cfg_, **kw):
+        t = x.shape[0] * x.shape[1]
+        probs = torch.softmax(x.reshape(t, -1).float() @ p["router"].float(), dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :cfg_.top_k]
+        per_expert = torch.bincount(top.reshape(-1), minlength=cfg_.n_experts)
+        cap = int(t * cfg_.top_k / cfg_.n_experts * cfg_.moe_capacity_factor) + 1
+        cap += -cap % 8
+        record.append((t, cap, int((per_expert - cap).clamp_min(0).sum())))
+        return real(p, x, cfg_, **kw)
+
+    moe.moe_mlp = counted
+
+    def restore():
+        moe.moe_mlp = real
+
+    return restore
+
+
+def serve_moe(torch, cfg) -> dict:
+    """Phase 13 (b): full-width, full-depth deepseek-moe-16b in bf16 through
+    ``launch.serve.main`` (packed leaf by leaf under ``dryrun_policy("mixed")``,
+    a K 8 / V 4 state): step median, TTFT, peak memory, device-busy share,
+    launches a decode step and the packed bytes."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import Request
+
+    smi = smi_line()
+    engines, marks = [], {}
+    real_engine = serve.ServeEngine
+
+    class Recording(real_engine):
+        def __init__(self, cfg_, params, **kw):
+            torch.cuda.synchronize()
+            marks["pack_peak"] = torch.cuda.max_memory_allocated()
+            marks["packed_s"] = time.perf_counter() - marks["t0"]
+            torch.cuda.reset_peak_memory_stats()
+            kw["state_bits"] = state_policy(cfg_, kw["max_slots"], kw["max_seq"])
+            kw["shed"] = steady()
+            super().__init__(cfg_, params, **kw)
+            kernels.reset_counts()
+            engines.append(self)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    serve.ServeEngine = Recording
+    marks["t0"] = time.perf_counter()
+    try:
+        rc = serve.main(MOE_SERVE_ARGV)
+    finally:
+        serve.ServeEngine = real_engine
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - marks["t0"]
+    eng = engines[0]
+    st = eng.stats()
+    launches, plain = st["launches"], st["plain_calls"]
+    serve_peak = torch.cuda.max_memory_allocated()
+    layers_, steps, adm = cfg.n_layers, st["decode_steps"], st["admissions"]
+    experts = launches["quant_gemv_experts"] + launches["quant_matmul_experts"]
+    if rc != 0 or st["completed"] != 8 or any(plain.values()):
+        raise AssertionError(f"phase 13 (b): rc {rc}, completed {st['completed']}, plain {plain}")
+    if (experts != 3 * layers_ * (steps + adm)
+            or launches["quant_gemv_experts"] < 3 * layers_ * steps
+            or launches["quant_kv_decode_step"] != layers_ * steps):
+        raise AssertionError(f"phase 13 (b): launches {launches} for {steps} decode steps and "
+                             f"{adm} admissions (want 3 x {layers_} expert launches a pass, "
+                             f"the GEMV's at every decode step)")
+    ttft = st["latency"]["ttft_s"]
+    log(f"  ({smi}) launch.serve.main {' '.join(MOE_SERVE_ARGV)}: rc {rc}, {wall:.2f} s in all, "
+        f"{marks['packed_s']:.2f} s to init and pack; packed weights "
+        f"{eng.weight_container_bytes() / 1e9:.3f} GB, KV state "
+        f"{eng.state_container_bytes() / 1e6:.2f} MB; peak allocated {marks['pack_peak'] / 1e9:.3f}"
+        f" GB while packing, {serve_peak / 1e9:.3f} GB serving; depth {layers_} of {layers_} "
+        f"(no cut)")
+    log(f"  {steps} decode steps, {adm} admissions: step median "
+        f"{st['decode_step_median_s'] * 1e3:.3f} ms, TTFT p50 {ttft['p50'] * 1e3:.1f} ms, p99 "
+        f"{ttft['p99'] * 1e3:.1f} ms; launches {_nonzero(launches)}")
+    per_step = {k: v / steps for k, v in launches.items() if v and k not in (
+        "quant_matmul", "quant_matmul_experts")}
+    log(f"  launches a decode step (admissions' included in the GEMV counts where C <= 8): "
+        f"{ {k: round(v, 2) for k, v in per_step.items()} }")
+    gen = torch.Generator().manual_seed(SEED + 14)
+    reqs = [Request(uid=i, prompt=torch.randint(1, cfg.vocab_size, (12,), generator=gen).tolist(),
+                    max_new_tokens=4) for i in range(4)]
+    profile_steps(torch, eng, reqs)
+    out = {"launches": launches}
+    del eng, engines
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_cut(torch, cfg):
+    """(c)'s model: full width, MOE_CUT_LAYERS layers, f32, packed under the
+    mixed policy (layer 0 at 8 bits, layer 1 at 4)."""
+    from repro_torch.launch.dryrun import dryrun_policy
+    from repro_torch.models import decoder
+    from repro_torch.quant import apply as qapply
+
+    cut = dataclasses.replace(cfg, n_layers=MOE_CUT_LAYERS, dtype="float32")
+    params = decoder.init(cut, torch.Generator(device="cuda").manual_seed(SEED + 15),
+                          device="cuda")
+    policy = dryrun_policy(qapply.layer_specs(params, cut), "mixed")
+    serve = qapply.pack_for_serve(params, policy, cut)
+    torch.cuda.empty_cache()
+    return cut, serve
+
+
+def moe_modes(torch, cfg) -> None:
+    """Phase 13 (c) and (d): deepseek-moe-16b's width cut to 2 layers in f32
+    through the engine: the kernels against the plain versions, dense against
+    paged, speculative K 2 from a 4-bit draft against non-speculative, each
+    run's dropped assignments counted; then the kernel run again, its logits
+    bit-equal."""
+    from repro_torch import kernels
+    from repro_torch.kvcache import insert_state_rows, resolve_state_bits
+    from repro_torch.models import decoder
+    from repro_torch.quant.apply import fuse_projections
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    smi = smi_line()
+    cut, serve = _moe_cut(torch, cfg)
+    slots, seq, new = 4, 256, 16
+    gen = torch.Generator().manual_seed(SEED + 16)
+    lens = torch.randint(8, 25, (8,), generator=gen).tolist()
+    reqs = [Request(uid=i, prompt=torch.randint(1, cut.vocab_size, (n,), generator=gen).tolist(),
+                    max_new_tokens=new) for i, n in enumerate(lens)]
+    state = state_policy(cut, slots, seq)
+    base = dict(max_slots=slots, max_seq=seq, state_bits=state, shed=steady(spec_tiers=False))
+    modes = {"kernels": {}, "plain": {"impl": "torch"}, "paged": {"paged": True},
+             "speculative": {"speculate": MOE_SPEC_K, "draft_policy": 4},
+             "kernels again": {}}
+    runs = {}
+    for mode, kw in modes.items():
+        record = []
+        kernels.reset_counts()
+        restore = moe_drops(torch, cut, record)
+        try:
+            eng = ServeEngine(cut, serve, **base, **kw)
+            collect = record_logits(torch, eng)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eng.run([dataclasses.replace(r) for r in reqs])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        st = eng.stats()
+        runs[mode] = dict(out=out, rows=collect(), drops=sum(d for _, _, d in record),
+                          calls=len(record), st=st)
+        extra = (f", spec rounds {st['spec_steps']}, accepted {st['spec_accepted']} of "
+                 f"{st['spec_proposed']}" if st["spec_steps"] else "")
+        log(f"  ({smi}) {mode:13s}: {wall:.2f} s, {st['decode_steps']} decode steps, "
+            f"{st['admissions']} admissions, MoE calls {len(record)}, dropped assignments "
+            f"{runs[mode]['drops']} (largest t {max(t for t, _, _ in record)}, C "
+            f"{max(c for _, c, _ in record)}){extra}; expert launches "
+            f"{st['launches']['quant_gemv_experts']} GEMV + "
+            f"{st['launches']['quant_matmul_experts']} GEMM, plain "
+            f"{st['plain_calls']['quant_gemv_experts']} + "
+            f"{st['plain_calls']['quant_matmul_experts']}")
+        del eng
+    # the gap kernels and plain versions leave on one cache: a decode step's logits
+    params = fuse_projections(serve)
+    toks = torch.tensor([r.prompt[:8] for r in reqs[:slots]], device="cuda")
+    lens_t = torch.full((slots,), 8, dtype=torch.int32, device="cuda")
+    _, kv = decoder.prefill(params, cut, toks, logits=False)
+    bits = resolve_state_bits(state, cut)
+    cache_k = insert_state_rows(decoder.init_cache(cut, slots, seq, state_bits=bits,
+                                                   device="cuda"),
+                                torch.arange(slots, device="cuda"), kv, lens_t)
+    cache_p = insert_state_rows(decoder.init_cache(cut, slots, seq, state_bits=bits,
+                                                   device="cuda"),
+                                torch.arange(slots, device="cuda"), kv, lens_t)
+    last = toks[:, -1:]
+    a, _ = decoder.decode_step(params, cut, cache_k, last, lens_t)
+    b, _ = decoder.decode_step(params, cut, cache_p, last, lens_t, impl="torch")
+    gap = float((a - b).abs().max())
+    log(f"  kernels against plain versions on one cache, one decode step: logits rel "
+        f"{rel(a, b):.3g}, max |difference| {gap:.4g}")
+    if not rel(a, b) <= 1e-4:
+        raise AssertionError(f"phase 13 (c): decode step kernels vs plain rel {rel(a, b):.3g}")
+    del params, kv, cache_k, cache_p
+    k = runs["kernels"]
+    parted = near_ties(k["out"], runs["plain"]["out"], k["rows"], runs["plain"]["rows"], gap,
+                       "plain versions")
+    log(f"  ok kernels vs plain: {parted} of {len(reqs)} streams part, each at a near-tie")
+    for mode in ("paged", "speculative"):
+        r = runs[mode]
+        same = sum(r["out"][u] == k["out"][u] for u in k["out"])
+        if k["drops"] or r["drops"]:
+            log(f"  {mode} vs dense: {same} of {len(reqs)} streams equal; dropped assignments "
+                f"{r['drops']} against {k['drops']}: capacity follows the batch, so the modes "
+                f"may differ")
+        else:
+            parted = near_ties(k["out"], r["out"], k["rows"], r["rows"], gap, mode)
+            log(f"  ok {mode} vs dense: no assignment dropped in either; {parted} of "
+                f"{len(reqs)} streams part, each at a near-tie")
+    again = runs["kernels again"]
+    if again["out"] != k["out"] or again["rows"].keys() != k["rows"].keys() or any(
+            not torch.equal(again["rows"][key], k["rows"][key]) for key in k["rows"]):
+        raise AssertionError("phase 13 (d): two identical runs differ")
+    log(f"  ok (d) the kernel run repeated: streams and all {len(k['rows'])} logits rows "
+        f"bit-equal (the combine sums without atomics)")
+    del serve, runs
+    torch.cuda.empty_cache()
+
 
 def main() -> int:
     try:
@@ -4043,7 +4382,18 @@ def main() -> int:
         f"checkpoint {_nonzero(roof['serve'])}; the trainer {_nonzero(trained['launches'])}")
     log(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
-    log(f"== 13. summary (the script so far: {time.perf_counter() - t_script:.1f} s)")
+    moe_cfg = configs.get_config(MOE_ARCH)
+    log(f"== 13. {moe_cfg.name}: the expert kernels, full width and depth through "
+        f"launch.serve, the modes at 2 layers")
+    t_phase = time.perf_counter()
+    check_experts(torch, gen, results)
+    moe_served = serve_moe(torch, moe_cfg)
+    for name in ("quant_gemv_experts", "quant_matmul_experts"):
+        launches[name] = moe_served["launches"][name]
+    moe_modes(torch, moe_cfg)
+    log(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
+
+    log(f"== 14. summary (the script so far: {time.perf_counter() - t_script:.1f} s)")
     rows = []
     for name in kernels.KERNELS:
         r = results[name]

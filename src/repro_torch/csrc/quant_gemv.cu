@@ -36,6 +36,15 @@
 //    the cluster has started), and after a second the owner adds them from
 //    zero in rank order.  No atomics: the same bits
 //    run to run, whatever M or N.
+//
+// The expert stack (rq_quant_gemv_experts) is the same kernel with the
+// experts on grid z: the TPU kernel under jax.vmap in the MoE layer's
+// qt_matmul (repro/kernels/quant_matmul/ops.py:66-94), x (E, C, K) against
+// packed (E, N, kp), one launch for all E.  Each CTA offsets x, packed and y
+// by its expert, and the scale by `sstride` floats (0: one scale per channel
+// shared by the stack).  The split is the 2-D plan's, so an expert's
+// outputs are the 2-D kernel's on its slice, bit for bit; its bound is every
+// expert's packed bytes, read once.
 #include <cooperative_groups.h>
 
 #include "quant_gemv.cuh"
@@ -53,8 +62,13 @@ template <int CB, typename T>
 __global__ void __launch_bounds__(kGemvThreads)
 quant_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
                   const float* __restrict__ scale, T* __restrict__ y, int M, int N, int K, int kp,
-                  int splits, int tiles, int wvec, int xvec) {
+                  int splits, int tiles, int wvec, int xvec, long long sstride) {
   extern __shared__ __align__(16) uint8_t gsm[];
+  const size_t ex = blockIdx.z;                // the expert (0 for a 2-D weight)
+  x += ex * M * K;
+  packed += ex * N * kp;
+  y += ex * M * N;
+  scale += ex * sstride;
   constexpr bool XF32 = sizeof(T) == 4;
   using S = GemvShape<CB>;
   float* part = reinterpret_cast<float*>(gsm);
@@ -111,8 +125,9 @@ quant_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
 }
 
 template <int CB, typename T>
-cudaError_t launch_gemv_cb(const T* x, const uint8_t* packed, const float* scale, T* y, int M,
-                           int N, int K, int kp, int splits, int tiles, cudaStream_t stream) {
+cudaError_t launch_gemv_cb(const T* x, const uint8_t* packed, const float* scale, T* y, int E,
+                           int M, int N, int K, int kp, int splits, int tiles, long long sstride,
+                           cudaStream_t stream) {
   constexpr bool XF32 = sizeof(T) == 4;
   static bool configured = false;      // the attributes, once per instantiation
   auto kernel = quant_gemv_kernel<CB, T>;
@@ -128,7 +143,8 @@ cudaError_t launch_gemv_cb(const T* x, const uint8_t* packed, const float* scale
   }
   cudaLaunchConfig_t cfg = {};
   const int cta_channels = kGemvChannels * tiles;
-  cfg.gridDim = dim3((unsigned)splits, (unsigned)((N + cta_channels - 1) / cta_channels));
+  cfg.gridDim = dim3((unsigned)splits, (unsigned)((N + cta_channels - 1) / cta_channels),
+                     (unsigned)E);
   cfg.blockDim = dim3(kGemvThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -140,27 +156,50 @@ cudaError_t launch_gemv_cb(const T* x, const uint8_t* packed, const float* scale
   cfg.attrs = attr;
   cfg.numAttrs = splits > 1 ? 1 : 0;
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, x, packed, scale, y, M, N, K, kp, splits,
-                                       tiles, gemv_wvec(packed, kp), gemv_xvec(x, K));
+                                       tiles, gemv_wvec(packed, kp), gemv_xvec(x, K), sstride);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_gemv(const void* x, const void* packed, const void* scale, void* y, int M,
-                        int N, int K, int kp, int bits, int splits, int tiles,
-                        cudaStream_t stream) {
+cudaError_t launch_gemv(const void* x, const void* packed, const void* scale, void* y, int E,
+                        int M, int N, int K, int kp, int bits, int splits, int tiles,
+                        long long sstride, cudaStream_t stream) {
   const T* xx = static_cast<const T*>(x);
   const uint8_t* pp = static_cast<const uint8_t*>(packed);
   const float* ss = static_cast<const float*>(scale);
   T* yy = static_cast<T*>(y);
   switch (gemv_cb(bits)) {
-    case 2: return launch_gemv_cb<2, T>(xx, pp, ss, yy, M, N, K, kp, splits, tiles, stream);
-    case 4: return launch_gemv_cb<4, T>(xx, pp, ss, yy, M, N, K, kp, splits, tiles, stream);
-    default: return launch_gemv_cb<8, T>(xx, pp, ss, yy, M, N, K, kp, splits, tiles, stream);
+    case 2:
+      return launch_gemv_cb<2, T>(xx, pp, ss, yy, E, M, N, K, kp, splits, tiles, sstride, stream);
+    case 4:
+      return launch_gemv_cb<4, T>(xx, pp, ss, yy, E, M, N, K, kp, splits, tiles, sstride, stream);
+    default:
+      return launch_gemv_cb<8, T>(xx, pp, ss, yy, E, M, N, K, kp, splits, tiles, sstride, stream);
   }
 }
 
 }  // namespace rq
+
+// Both entry points: E experts of x (E, M, K) against packed (E, N, kp), the
+// scale of expert e at scale + e * sstride (sstride 0 or N).
+static int gemv_entry(const void* x, const void* packed, const void* scale, void* y, int E,
+                      int M, int N, int K, int kp, int bits, int dtype, int splits, int tiles,
+                      long long sstride, void* stream) {
+  if (E < 1 || E > 65535 || M < 1 || M > rq::kGemvMaxM || N < 1 || K < 1 ||
+      rq::bad_gemv_bits(bits) || kp != (K + rq::lanes_of(bits) - 1) / rq::lanes_of(bits) ||
+      rq::bad_gemv_split(K, splits) || tiles < 1 || tiles > rq::kGemvMaxTiles ||
+      (sstride != 0 && sstride != N))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == rq::kF32)
+    return (int)rq::launch_gemv<float>(x, packed, scale, y, E, M, N, K, kp, bits, splits, tiles,
+                                       sstride, s);
+  if (dtype == rq::kBF16)
+    return (int)rq::launch_gemv<__nv_bfloat16>(x, packed, scale, y, E, M, N, K, kp, bits, splits,
+                                               tiles, sstride, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 // y (M, N) in x's type; x (M, K); packed (N, kp) int8; scale (N,) f32;
 // splits the K ranges (kernels/quant_gemv/kernel.py plan: a function of K),
@@ -168,15 +207,15 @@ cudaError_t launch_gemv(const void* x, const void* packed, const void* scale, vo
 extern "C" int rq_quant_gemv(const void* x, const void* packed, const void* scale, void* y,
                              int M, int N, int K, int kp, int bits, int dtype, int splits,
                              int tiles, void* stream) {
-  if (M < 1 || M > rq::kGemvMaxM || N < 1 || K < 1 || rq::bad_gemv_bits(bits) ||
-      kp != (K + rq::lanes_of(bits) - 1) / rq::lanes_of(bits) ||
-      rq::bad_gemv_split(K, splits) || tiles < 1 || tiles > rq::kGemvMaxTiles)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == rq::kF32)
-    return (int)rq::launch_gemv<float>(x, packed, scale, y, M, N, K, kp, bits, splits, tiles, s);
-  if (dtype == rq::kBF16)
-    return (int)rq::launch_gemv<__nv_bfloat16>(x, packed, scale, y, M, N, K, kp, bits, splits,
-                                               tiles, s);
-  return (int)cudaErrorInvalidValue;
+  return gemv_entry(x, packed, scale, y, 1, M, N, K, kp, bits, dtype, splits, tiles, 0, stream);
+}
+
+// The expert stack: y (E, M, N); x (E, M, K); packed (E, N, kp); the scale
+// (N,) shared (sstride 0) or (E, N) (sstride N); the 2-D plan's splits.
+extern "C" int rq_quant_gemv_experts(const void* x, const void* packed, const void* scale,
+                                     void* y, int E, int M, int N, int K, int kp, int bits,
+                                     int dtype, int splits, int tiles, long long sstride,
+                                     void* stream) {
+  return gemv_entry(x, packed, scale, y, E, M, N, K, kp, bits, dtype, splits, tiles, sstride,
+                    stream);
 }

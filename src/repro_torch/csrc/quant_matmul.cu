@@ -50,6 +50,17 @@
 // The epilogue stages the tile in shared memory and writes four channels a
 // store.
 //
+// The expert stack (rq_quant_matmul_experts) is the same kernel over x
+// (E, C, K) and packed (E, N, kp): the TPU kernel under jax.vmap in the MoE
+// layer's qt_matmul (repro/kernels/quant_matmul/ops.py:66-94), C > 8 (the
+// prefill).  The experts are folded into grid y (E x the token tiles), since
+// the cluster holds z; the tensor maps run over the flattened stacks, (E C,
+// K) and (E N, kp), and a tile starts at its expert's row.  A tile that
+// reaches past C tokens or N channels reads the next expert's rows into
+// outputs it never stores (the epilogue masks token >= C and channel >= N),
+// and past the last expert TMA fills zeros.  The split is the 2-D plan's, so
+// an expert's outputs are the 2-D kernel's on its slice, bit for bit.
+//
 // What holds it back (timed on the H100 with parts of the kernel cut out,
 // PERF.md section 6): one CTA per SM, so its launch, first copies and
 // epilogue stall the tensor cores, and one CTA's MMA chain does not keep
@@ -272,8 +283,8 @@ __device__ void split_f32(const uint8_t* staged, uint8_t* pieces, int threads) {
 }
 
 // K is cut into `splits` ranges of steps, range r = [r nk / splits, (r+1) nk
-// / splits) of nk = ceil(K / 64).  grid (ceil(N / ch), ceil(M / NT),
-// cluster): with cluster = splits, rank r sums range r and the ranks meet in
+// / splits) of nk = ceil(K / 64).  grid (ceil(N / ch), E x mtiles (mtiles =
+// ceil(M / NT); E = 1 for a 2-D weight), cluster): with cluster = splits, rank r sums range r and the ranks meet in
 // distributed shared memory; with cluster = 1 the block walks the ranges
 // itself, folding each into a running sum in registers (NT <= 128).
 template <int CB, bool XF32, int NT, typename T>
@@ -281,7 +292,8 @@ __global__ void __launch_bounds__(128 * wgs_of<XF32>(), 1)
 quant_matmul_kernel(const __grid_constant__ CUtensorMap xmap,
                     const __grid_constant__ CUtensorMap wmap, const T* __restrict__ x,
                     const uint8_t* __restrict__ packed, const float* __restrict__ scale,
-                    T* __restrict__ y, int M, int N, int K, int kp, int splits, int vec) {
+                    T* __restrict__ y, int M, int N, int K, int kp, int splits, int vec,
+                    int mtiles, long long sstride) {
   using L = Layout<XF32, NT>;
   constexpr int CH = L::kCh, S = L::kStages, RB = WTile<CB>::kRowBytes, WK = WTile<CB>::kSteps;
   constexpr int R = NT / 2;                       // accumulators per thread
@@ -298,7 +310,12 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap xmap,
   const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = wg * 64 + warp * 16 + g;       // this thread's first channel row
-  const int tok0 = blockIdx.y * NT, ch0 = blockIdx.x * CH;
+  const int ex = blockIdx.y / mtiles;             // the expert (0 for a 2-D weight)
+  const int tok0 = (blockIdx.y - ex * mtiles) * NT, ch0 = blockIdx.x * CH;
+  x += (size_t)ex * M * K;
+  packed += (size_t)ex * N * kp;
+  y += (size_t)ex * M * N;
+  scale += ex * sstride;
   const int csize = gridDim.z;
   const int rank = csize > 1 ? (int)cluster.block_rank() : 0;
   const int nk = (K + kBK - 1) / kBK;
@@ -317,7 +334,7 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap xmap,
       load_x_any<XF32, NT, T>(xstage(i), x, M, K, tok0, kb + i);
     } else if (threadIdx.x == 0) {
       mbar_expect_tx(xfull + i % S, L::kX);
-      tma_load_2d(xstage(i), &xmap, (kb + i) * kBK, tok0, xfull + i % S);
+      tma_load_2d(xstage(i), &xmap, (kb + i) * kBK, ex * M + tok0, xfull + i % S);
     }
   };
   auto load_w = [&](int c) {
@@ -326,7 +343,7 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap xmap,
       load_w_any(wslot(c), packed, N, kp, ch0, CH, b0);
     } else if (threadIdx.x == 0) {
       mbar_expect_tx(wfull + c % kWSlots, L::kW);
-      tma_load_2d(wslot(c), &wmap, b0, ch0, wfull + c % kWSlots);
+      tma_load_2d(wslot(c), &wmap, b0, ex * N + ch0, wfull + c % kWSlots);
     }
   };
 
@@ -547,9 +564,9 @@ inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem, cons
 }
 
 template <int CB, bool XF32, int NT, typename T>
-cudaError_t launch_nt(const void* x, const void* packed, const void* scale, void* y, int M,
-                      int N, int K, int kp, int wgs, int splits, int csize, int vec,
-                      cudaStream_t stream) {
+cudaError_t launch_nt(const void* x, const void* packed, const void* scale, void* y, int E,
+                      int M, int N, int K, int kp, int wgs, int splits, int csize, int vec,
+                      long long sstride, cudaStream_t stream) {
   using L = Layout<XF32, NT>;
   static_assert(L::kBytes <= 232448, "a block's shared memory");
   static_assert(NT * (L::kCh + 4) * 4 <= L::kPOff,
@@ -569,16 +586,18 @@ cudaError_t launch_nt(const void* x, const void* packed, const void* scale, void
   CUtensorMap xmap = {}, wmap = {};
   if (vec) {
     // x: boxes of NT rows x 64 values (bf16 in the 128-byte swizzle wgmma
-    // reads); packed: boxes of 128 (64) rows x 128 bytes, swizzled the same way
+    // reads); packed: boxes of 128 (64) rows x 128 bytes, swizzled the same way;
+    // an expert stack as its E M and E N rows
     if (!encode_2d(&xmap, XF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                   sizeof(T), x, M, K, NT, kBK,
+                   sizeof(T), x, E * M, K, NT, kBK,
                    XF32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B) ||
-        !encode_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, packed, N, kp, L::kCh, kWChunk,
+        !encode_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, packed, E * N, kp, L::kCh, kWChunk,
                    CU_TENSOR_MAP_SWIZZLE_128B))
       return cudaErrorInvalidValue;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((N + L::kCh - 1) / L::kCh), (unsigned)((M + NT - 1) / NT),
+  const int mtiles = (M + NT - 1) / NT;
+  cfg.gridDim = dim3((unsigned)((N + L::kCh - 1) / L::kCh), (unsigned)(E * mtiles),
                      (unsigned)csize);
   cfg.blockDim = dim3(128 * wgs_of<XF32>());
   cfg.dynamicSmemBytes = L::kBytes;
@@ -592,41 +611,46 @@ cudaError_t launch_nt(const void* x, const void* packed, const void* scale, void
   cfg.numAttrs = csize > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, kernel, xmap, wmap, static_cast<const T*>(x),
                            static_cast<const uint8_t*>(packed), static_cast<const float*>(scale),
-                           static_cast<T*>(y), M, N, K, kp, splits, vec);
+                           static_cast<T*>(y), M, N, K, kp, splits, vec, mtiles, sstride);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <int CB>
-cudaError_t launch_cb(const void* x, const void* packed, const void* scale, void* y, int M,
+cudaError_t launch_cb(const void* x, const void* packed, const void* scale, void* y, int E, int M,
                       int N, int K, int kp, int dtype, int nt, int wgs, int splits, int csize,
-                      int vec, cudaStream_t s) {
+                      int vec, long long ss, cudaStream_t s) {
   using B = __nv_bfloat16;
+#define RQ_NT(XF, NTV, TT) \
+  launch_nt<CB, XF, NTV, TT>(x, packed, scale, y, E, M, N, K, kp, wgs, splits, csize, vec, ss, s)
   if (dtype == kF32) {
-    if (nt == 32) return launch_nt<CB, true, 32, float>(x, packed, scale, y, M, N, K, kp, wgs, splits, csize, vec, s);
-    if (nt == 64) return launch_nt<CB, true, 64, float>(x, packed, scale, y, M, N, K, kp, wgs, splits, csize, vec, s);
+    if (nt == 32) return RQ_NT(true, 32, float);
+    if (nt == 64) return RQ_NT(true, 64, float);
     return cudaErrorInvalidValue;
   }
-  if (nt == 32) return launch_nt<CB, false, 32, B>(x, packed, scale, y, M, N, K, kp, wgs, splits, csize, vec, s);
-  if (nt == 64) return launch_nt<CB, false, 64, B>(x, packed, scale, y, M, N, K, kp, wgs, splits, csize, vec, s);
-  if (nt == 128) return launch_nt<CB, false, 128, B>(x, packed, scale, y, M, N, K, kp, wgs, splits, csize, vec, s);
-  if (nt == 256) return launch_nt<CB, false, 256, B>(x, packed, scale, y, M, N, K, kp, wgs, splits, csize, vec, s);
+  if (nt == 32) return RQ_NT(false, 32, B);
+  if (nt == 64) return RQ_NT(false, 64, B);
+  if (nt == 128) return RQ_NT(false, 128, B);
+  if (nt == 256) return RQ_NT(false, 256, B);
+#undef RQ_NT
   return cudaErrorInvalidValue;
 }
 
 }  // namespace rq
 
-// y (M, N) in x's type; x (M, K); packed (N, kp) int8; scale (N,) f32.  The
-// launch plan (token tile nt, warpgroups wgs, K ranges splits,
-// cluster size csize: 1 or splits) comes from the wrapper; TMA is taken
-// where every row start is 16-byte aligned.
-extern "C" int rq_quant_matmul(const void* x, const void* packed, const void* scale, void* y,
-                               int M, int N, int K, int kp, int bits, int dtype, int nt, int wgs,
-                               int splits, int csize, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || (bits != 2 && bits != 4 && bits != 6 && bits != 8) ||
+// Both entry points: E experts of x (E, M, K) against packed (E, N, kp), the
+// scale of expert e at scale + e * sstride (sstride 0 or N).  The launch
+// plan (token tile nt, warpgroups wgs, K ranges splits, cluster size csize: 1
+// or splits) comes from the wrapper; TMA is taken where every row start is
+// 16-byte aligned.
+static int matmul_entry(const void* x, const void* packed, const void* scale, void* y, int E,
+                        int M, int N, int K, int kp, int bits, int dtype, int nt, int wgs,
+                        int splits, int csize, long long sstride, void* stream) {
+  if (E < 1 || M < 1 || N < 1 || K < 1 || (bits != 2 && bits != 4 && bits != 6 && bits != 8) ||
       kp != (K + rq::lanes_of(bits) - 1) / rq::lanes_of(bits) || wgs < 1 || wgs > 2 ||
       splits < 1 || splits > 8 || splits > (K + 63) / 64 ||
-      (dtype != rq::kF32 && dtype != rq::kBF16) || (M + nt - 1) / (nt < 1 ? 1 : nt) > 65535)
+      (dtype != rq::kF32 && dtype != rq::kBF16) || (sstride != 0 && sstride != N) ||
+      (long long)E * ((M + nt - 1) / (nt < 1 ? 1 : nt)) > 65535)
     return (int)cudaErrorInvalidValue;
   const int xalign = dtype == rq::kF32 ? 4 : 8;
   const int vec = K % xalign == 0 && kp % 16 == 0 &&
@@ -634,8 +658,26 @@ extern "C" int rq_quant_matmul(const void* x, const void* packed, const void* sc
                   (reinterpret_cast<uintptr_t>(packed) & 15) == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bits) {
-    case 2: return (int)rq::launch_cb<2>(x, packed, scale, y, M, N, K, kp, dtype, nt, wgs, splits, csize, vec, s);
-    case 4: return (int)rq::launch_cb<4>(x, packed, scale, y, M, N, K, kp, dtype, nt, wgs, splits, csize, vec, s);
-    default: return (int)rq::launch_cb<8>(x, packed, scale, y, M, N, K, kp, dtype, nt, wgs, splits, csize, vec, s);
+    case 2: return (int)rq::launch_cb<2>(x, packed, scale, y, E, M, N, K, kp, dtype, nt, wgs, splits, csize, vec, sstride, s);
+    case 4: return (int)rq::launch_cb<4>(x, packed, scale, y, E, M, N, K, kp, dtype, nt, wgs, splits, csize, vec, sstride, s);
+    default: return (int)rq::launch_cb<8>(x, packed, scale, y, E, M, N, K, kp, dtype, nt, wgs, splits, csize, vec, sstride, s);
   }
+}
+
+// y (M, N) in x's type; x (M, K); packed (N, kp) int8; scale (N,) f32.
+extern "C" int rq_quant_matmul(const void* x, const void* packed, const void* scale, void* y,
+                               int M, int N, int K, int kp, int bits, int dtype, int nt, int wgs,
+                               int splits, int csize, void* stream) {
+  return matmul_entry(x, packed, scale, y, 1, M, N, K, kp, bits, dtype, nt, wgs, splits, csize,
+                      0, stream);
+}
+
+// The expert stack: y (E, M, N); x (E, M, K); packed (E, N, kp); the scale
+// (N,) shared (sstride 0) or (E, N) (sstride N); the 2-D plan's splits.
+extern "C" int rq_quant_matmul_experts(const void* x, const void* packed, const void* scale,
+                                       void* y, int E, int M, int N, int K, int kp, int bits,
+                                       int dtype, int nt, int wgs, int splits, int csize,
+                                       long long sstride, void* stream) {
+  return matmul_entry(x, packed, scale, y, E, M, N, K, kp, bits, dtype, nt, wgs, splits, csize,
+                      sstride, stream);
 }

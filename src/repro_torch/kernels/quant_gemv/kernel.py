@@ -50,9 +50,12 @@ class GemvPlan:
     k: int
     splits: int
     tiles: int
+    #: weights of an expert stack, one on each z of the grid (1: a 2-D weight)
+    experts: int = 1
 
     @property
     def grid(self) -> tuple[int, int]:
+        """One expert's grid; an expert stack runs it ``experts`` times on z."""
         return (self.splits, -(-self.n // (CHANNELS * self.tiles)))
 
     def k_ranges(self) -> list[tuple[int, int]]:
@@ -84,26 +87,30 @@ def split_of(k: int) -> int:
     return s
 
 
-def tiles_of(n: int, splits: int) -> int:
-    """Tiles a CTA takes: doubled while the CTAs still make a wave
-    (``WAVE``), at most ``MAX_TILES``.  A CTA pays its launch, its first
+def tiles_of(n: int, splits: int, experts: int = 1) -> int:
+    """Tiles a CTA takes: doubled while the CTAs (of all ``experts``) still
+    make a wave (``WAVE``), at most ``MAX_TILES``.  A CTA pays its launch, its first
     load and its cluster's barriers once, so the widest linears (gemma-2b's
     w_gu: 256 tiles x 8 ranges) take 8 tiles a CTA and stream without
     stopping; the narrow ones keep one tile a CTA, to fill the card."""
     tiles, t = -(-n // CHANNELS), 1
-    while t < MAX_TILES and -(-tiles // (2 * t)) * splits >= WAVE:
+    while t < MAX_TILES and -(-tiles // (2 * t)) * splits * experts >= WAVE:
         t *= 2
     return t
 
 
 @functools.lru_cache(maxsize=256)
-def plan(m: int, n: int, k: int) -> GemvPlan:
-    """The launch for ``(M, K) x (N, K)``; its split is :func:`split_of` (K
-    alone), its tiles a CTA :func:`tiles_of` (N and the split)."""
+def plan(m: int, n: int, k: int, experts: int = 1) -> GemvPlan:
+    """The launch for ``(M, K) x (N, K)``, or ``experts`` of them in one
+    launch; its split is :func:`split_of` (K alone, so an expert's outputs
+    are the 2-D launch's), its tiles a CTA :func:`tiles_of` (N, the split
+    and the experts)."""
     if not 1 <= m <= GEMV_MAX_M:
         raise ValueError(f"GEMV is for 1 <= M <= {GEMV_MAX_M}, got M={m}")
+    if experts < 1:
+        raise ValueError(f"GEMV: {experts} experts")
     splits = split_of(k)
-    return GemvPlan(m, n, k, splits, tiles_of(n, splits))
+    return GemvPlan(m, n, k, splits, tiles_of(n, splits, experts), experts)
 
 
 def check_operands(x, packed, scale, bits: int, k: int, name: str) -> tuple[int, int]:
@@ -134,4 +141,49 @@ def quant_gemv_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, 
         _build.stream_of(x))
     LAUNCHES["quant_gemv"] += 1
     _build.check(rc, "quant_gemv")
+    return y
+
+
+def scale_stride(scale: torch.Tensor, e: int, n: int, name: str) -> int:
+    """Floats between two experts' scales: 0 for one scale per channel shared
+    by the stack (``(1, 1, N)``, as a stacked ``quantize_tensor`` gives it),
+    N for one per expert (``(E, 1, N)``)."""
+    if scale.numel() == n:
+        return 0
+    if scale.numel() == e * n and scale.shape[0] == e:
+        return n
+    raise ValueError(f"{name}: scale of shape {tuple(scale.shape)} does not broadcast to "
+                     f"({e}, 1, {n})")
+
+
+def check_expert_operands(x, packed, scale, bits: int, k: int, name: str):
+    """Validate an expert stack's operands; returns ``(E, C, N, sstride)``."""
+    _build.require(x, f"{name}: x")
+    _build.dtype_code(x, name)
+    if x.ndim != 3 or x.shape[2] != k:
+        raise ValueError(f"{name}: x must be (E, C, {k}), got {tuple(x.shape)}")
+    e, c = x.shape[0], x.shape[1]
+    if packed.ndim != 3 or packed.shape[0] != e:
+        raise ValueError(f"{name}: packed must be ({e}, N, kp), got {tuple(packed.shape)}")
+    n = packed.shape[1]
+    _build.require(packed, f"{name}: packed", dtype=torch.int8,
+                   shape=(e, n, -(-k // LANES[bits])), device=x.device)
+    _build.require(scale, f"{name}: scale", dtype=torch.float32, device=x.device)
+    return e, c, n, scale_stride(scale, e, n, name)
+
+
+def quant_gemv_experts_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *,
+                            bits: int, k: int) -> torch.Tensor:
+    """``(E, C, K)`` x against packed ``(E, N, ceil(K/lanes))`` -> ``(E, C, N)`` in x's
+    dtype, C <= GEMV_MAX_M, one launch for all E; the scale broadcasts to ``(E, 1, N)``."""
+    x = x.contiguous()
+    e, c, n, sstride = check_expert_operands(x, packed, scale, bits, k, "quant_gemv_experts")
+    p = plan(c, n, k, e)
+    y = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
+    rc = _build.lib().rq_quant_gemv_experts(
+        x.data_ptr(), packed.data_ptr(), scale.data_ptr(), y.data_ptr(), e, c, n, k,
+        packed.shape[2], bits, _build.dtype_code(x, "quant_gemv_experts"), p.splits, p.tiles,
+        sstride, _build.stream_of(x))
+    LAUNCHES["quant_gemv_experts"] += 1
+    _build.check(rc, "quant_gemv_experts")
     return y

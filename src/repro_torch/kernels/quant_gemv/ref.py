@@ -11,13 +11,21 @@ import torch
 from repro_torch.core import packing
 from repro_torch.kernels import PLAIN_CALLS
 from repro_torch.kernels.quant_gemv.kernel import k_ranges, split_of
-from repro_torch.kernels.quant_matmul.ref import dequant_matmul, split_f32
+from repro_torch.kernels.quant_matmul.ref import dequant_matmul, experts_matmul, split_f32
 
 
 def quant_gemv_ref(x, packed, scale, bits: int, k: int, *, out_dtype=None) -> torch.Tensor:
     """y = x @ dequant(packed, scale);  x ``(M, K)`` -> ``(M, N)``."""
     PLAIN_CALLS["quant_gemv"] += 1
     return dequant_matmul(x, packed, scale, bits, k, out_dtype=out_dtype)
+
+
+def quant_gemv_experts_ref(x, packed, scale, bits: int, k: int, *,
+                           out_dtype=None) -> torch.Tensor:
+    """The GEMV's expert stack, C <= 8: ``(E, C, K)`` x ``(E, N, Kp)`` -> ``(E, C, N)``,
+    each expert what :func:`quant_gemv_ref` gives on its slice."""
+    PLAIN_CALLS["quant_gemv_experts"] += 1
+    return experts_matmul(x, packed, scale, bits, k, out_dtype=out_dtype)
 
 
 def quant_gemv_mirror(x, packed, scale, bits: int, k: int, *, rows: int = 64) -> torch.Tensor:

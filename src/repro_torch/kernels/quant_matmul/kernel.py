@@ -12,7 +12,7 @@ import functools
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build
-from repro_torch.kernels.quant_gemv.kernel import check_operands
+from repro_torch.kernels.quant_gemv.kernel import check_expert_operands, check_operands
 
 #: K values per pipeline step (one 128-byte swizzled bf16 row of the x tile)
 K_STEP = 64
@@ -35,7 +35,8 @@ CLUSTER_MIN_STEPS = 16
 
 @dataclasses.dataclass(frozen=True)
 class MatmulPlan:
-    """One launch of the GEMM: grid ``(ceil(N/channels), ceil(M/nt), cluster)``.
+    """One launch of the GEMM: grid ``(ceil(N/channels), experts * ceil(M/nt),
+    cluster)``, the experts of a stack folded into y (1 for a 2-D weight).
 
     K is cut into ``splits`` ranges (``k_ranges``), each summed from zero and
     added in order.  ``cluster == splits``: a thread-block cluster of that
@@ -50,6 +51,7 @@ class MatmulPlan:
     wgs: int         # warpgroups per block
     splits: int      # K ranges
     cluster: int     # CTAs of a cluster: 1 or splits
+    experts: int = 1
 
     @property
     def channels(self) -> int:
@@ -57,7 +59,8 @@ class MatmulPlan:
 
     @property
     def grid(self) -> tuple[int, int, int]:
-        return (-(-self.n // self.channels), -(-self.m // self.nt), self.cluster)
+        return (-(-self.n // self.channels), self.experts * -(-self.m // self.nt),
+                self.cluster)
 
     @property
     def units(self) -> int:
@@ -87,15 +90,16 @@ def split_of(n: int, k: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def plan(m: int, n: int, k: int, dtype: torch.dtype) -> MatmulPlan:
-    """The launch for ``(M, K) x (N, K)``.
+def plan(m: int, n: int, k: int, dtype: torch.dtype, experts: int = 1) -> MatmulPlan:
+    """The launch for ``(M, K) x (N, K)``, or ``experts`` of them in one launch.
 
     The narrowest token tile that holds M (the widest walks M in tiles);
     two warpgroups (128 channels) for bf16 x, one for f32 x, whose split
     pieces take the shared memory.  The K ranges go to a cluster while the
     output tiles alone leave SMs idle, or while each range is long; else
     each CTA walks its ranges (at most 128 tokens then, for the running
-    sum's registers).
+    sum's registers).  The experts count toward the output tiles; the split
+    stays the 2-D one, so an expert's outputs are the 2-D launch's.
     """
     if dtype not in TOKEN_TILES:
         raise TypeError(f"quant_matmul: the CUDA kernel takes float32 or bfloat16, got {dtype}")
@@ -106,11 +110,12 @@ def plan(m: int, n: int, k: int, dtype: torch.dtype) -> MatmulPlan:
     cluster = 1
     if splits > 1:
         steps = -(-k // K_STEP) // splits
-        if -(-m // nt) * -(-n // (CHANNELS * wgs)) < SMS or steps >= CLUSTER_MIN_STEPS:
+        units = experts * -(-m // nt) * -(-n // (CHANNELS * wgs))
+        if units < SMS or steps >= CLUSTER_MIN_STEPS:
             cluster = splits
         else:
             nt = min(nt, FOLD_MAX_TOKENS)
-    return MatmulPlan(m, n, k, nt, wgs, splits, cluster)
+    return MatmulPlan(m, n, k, nt, wgs, splits, cluster, experts)
 
 
 def quant_matmul_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *,
@@ -134,4 +139,30 @@ def quant_matmul_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor
         p.cluster, _build.stream_of(x))
     LAUNCHES["quant_matmul"] += 1
     _build.check(rc, "quant_matmul")
+    return y
+
+
+def quant_matmul_experts_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *,
+                              bits: int, k: int,
+                              launch: MatmulPlan | None = None) -> torch.Tensor:
+    """``(E, C, K)`` x against packed ``(E, N, ceil(K/lanes))`` -> ``(E, C, N)`` in x's
+    dtype, one launch for all E; the scale broadcasts to ``(E, 1, N)``.
+
+    ``launch`` replaces ``plan(C, N, K, dtype, E)``.
+    """
+    x = x.contiguous()
+    e, c, n, sstride = check_expert_operands(x, packed, scale, bits, k, "quant_matmul_experts")
+    y = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
+    if c == 0:
+        return y
+    p = launch or plan(c, n, k, x.dtype, e)
+    if (p.m, p.n, p.k, p.experts) != (c, n, k, e):
+        raise ValueError(f"quant_matmul_experts: a plan for {(p.experts, p.m, p.n, p.k)} "
+                         f"given for {(e, c, n, k)}")
+    rc = _build.lib().rq_quant_matmul_experts(
+        x.data_ptr(), packed.data_ptr(), scale.data_ptr(), y.data_ptr(), e, c, n, k,
+        packed.shape[2], bits, _build.dtype_code(x, "quant_matmul_experts"), p.nt, p.wgs,
+        p.splits, p.cluster, sstride, _build.stream_of(x))
+    LAUNCHES["quant_matmul_experts"] += 1
+    _build.check(rc, "quant_matmul_experts")
     return y

@@ -28,6 +28,26 @@ def quant_matmul_ref(x, packed, scale, bits: int, k: int, *, out_dtype=None) -> 
     return dequant_matmul(x, packed, scale, bits, k, out_dtype=out_dtype)
 
 
+def experts_matmul(x, packed, scale, bits: int, k: int, *, out_dtype=None) -> torch.Tensor:
+    """Each expert's 2-D plain product: x ``(E, C, K)`` against packed ``(E, N,
+    ceil(K/lanes))`` and a scale that broadcasts to ``(E, 1, N)`` -> ``(E, C, N)``.
+
+    Expert e gets :func:`dequant_matmul` on its own slice, so its rows equal
+    the 2-D plain version's bit for bit (uncounted).
+    """
+    e, n = packed.shape[0], packed.shape[1]
+    scale = torch.broadcast_to(scale.reshape(-1, 1, n), (e, 1, n))
+    return torch.stack([dequant_matmul(x[i], packed[i], scale[i], bits, k, out_dtype=out_dtype)
+                        for i in range(e)])
+
+
+def quant_matmul_experts_ref(x, packed, scale, bits: int, k: int, *,
+                             out_dtype=None) -> torch.Tensor:
+    """The GEMM's expert stack, C > 8: ``(E, C, K)`` x ``(E, N, Kp)`` -> ``(E, C, N)``."""
+    PLAIN_CALLS["quant_matmul_experts"] += 1
+    return experts_matmul(x, packed, scale, bits, k, out_dtype=out_dtype)
+
+
 def split_f32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """f32 x as the CUDA GEMM splits it: three bf16 pieces with hi + mid + lo
     == x exactly for normal values (hi = bf16(x), mid = bf16(x - hi), lo =

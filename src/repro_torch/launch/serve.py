@@ -77,15 +77,16 @@ def main(argv=None) -> int:
         cfg = cfg.reduced()
     api = registry.get_api(cfg)
     params = api.init(cfg, torch.Generator(device=device).manual_seed(args.seed), device=device)
-    sp = api.unstack(params, cfg)
 
+    # packed one stacked leaf at a time (pack_for_serve consumes the float
+    # tree), so a large model's float and packed trees are never both whole
     artifact = None
     if args.policy is not None:
         specs = qapply.layer_specs(params, cfg)
         artifact = PolicyArtifact.load(args.policy)
         artifact.verify_layers(specs)  # refuse a foreign layer registry
         policy = artifact.policy
-        sp = qapply.quantize_for_serve(sp, artifact, cfg)
+        sp = qapply.pack_for_serve(params, artifact, cfg)
         budget = ("; ".join(f"{it.metric}<={it.limit:g}" for it in artifact.budget.items)
                   if artifact.budget else "none")
         print(f"policy artifact {args.policy}: backend={artifact.backend} "
@@ -106,10 +107,12 @@ def main(argv=None) -> int:
             policy = dryrun_policy(specs, "mixed")
         else:
             policy = BitPolicy.uniform(specs, int(args.wbits))
-        sp = qapply.quantize_for_serve(sp, policy, cfg)
+        sp = qapply.pack_for_serve(params, policy, cfg)
         print(f"quantized: mean_bits={policy.mean_bits():.2f} "
               f"size={policy.model_size_mib():.2f} MiB "
               f"(fp32 {sum(s.n_params for s in specs) * 4 / 2**20:.2f} MiB)")
+    else:
+        sp = api.unstack(params, cfg)
     del params
 
     rng = np.random.default_rng(args.seed)

@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense family (port of ``repro/models/decoder.py``).
+"""Decoder-only LM, dense and MoE families (port of ``repro/models/decoder.py``).
 
 Two parameter layouts, as in the JAX package:
   * train: per-layer params stacked ``(L, ...)`` — what ``init`` returns and
@@ -19,7 +19,7 @@ from repro_torch.kernels.fake_quant.ops import fake_quant_ste
 from repro_torch.kvcache.cache import DEFAULT_BLOCK, QuantizedKVLayer, init_kv_layer, resolve_block
 from repro_torch.kvcache.paged import PagedKVLayer, init_paged_layer
 from repro_torch.quant.tensor import QuantizedTensor
-from . import layers
+from . import layers, moe
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -33,7 +33,7 @@ def init(cfg, generator: torch.Generator | None = None, device=None) -> dict:
     ``generator`` (default: seed 0 on ``device``).
     """
     device = resolve_device(device)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
                                   "(ROADMAP queue 1, 'Other model families')")
     if generator is None:
@@ -44,7 +44,8 @@ def init(cfg, generator: torch.Generator | None = None, device=None) -> dict:
         "attn": layers.attention_init(generator, cfg, dt, lead=lead, device=device),
         "ln1": layers.norm_init(cfg.d_model, cfg.norm, dt, lead=lead, device=device),
         "ln2": layers.norm_init(cfg.d_model, cfg.norm, dt, lead=lead, device=device),
-        "mlp": layers.mlp_init(generator, cfg, dt, lead=lead, device=device),
+        "mlp": (moe.moe_init if cfg.family == "moe" else layers.mlp_init)(
+            generator, cfg, dt, lead=lead, device=device),
     }
     params = {
         "embed": layers.embed_init(generator, cfg.vocab_size, cfg.d_model, dt, device=device),
@@ -95,13 +96,20 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg, *, bits=None,
     return F.embedding(tokens.to(torch.long), emb)
 
 
+def _ffn(lp: dict, hn: torch.Tensor, cfg, impl: str, lb=None) -> torch.Tensor:
+    """The layer's feed-forward: the routed experts (MoE) or the MLP."""
+    bits = None if lb is None else lb.get("mlp")
+    if cfg.family == "moe":
+        return moe.moe_mlp(lp["mlp"], hn, cfg, bits=bits, impl=impl)
+    return layers.mlp(lp["mlp"], hn, cfg.mlp, bits=bits, impl=impl)
+
+
 def _layer_body(x, lp: dict, cfg, positions, lb, impl: str):
     h = x + layers.attention(lp["attn"], layers.norm(lp["ln1"], x, cfg.norm, cfg.norm_eps),
                              cfg, positions, causal=True,
                              bits=None if lb is None else lb.get("attn"), impl=impl)
     hn = layers.norm(lp["ln2"], h, cfg.norm, cfg.norm_eps)
-    return h + layers.mlp(lp["mlp"], hn, cfg.mlp, bits=None if lb is None else lb.get("mlp"),
-                          impl=impl)
+    return h + _ffn(lp, hn, cfg, impl, lb)
 
 
 def forward(params: dict, cfg, tokens: torch.Tensor, *, bits=None,
@@ -225,7 +233,7 @@ def prefill(params: dict, cfg, tokens: torch.Tensor, *, impl: str = "auto", leng
             o = layers._direct_attention(q, k, v, cfg.n_kv_heads, causal=True)
         h = x + layers.qdense(lp["attn"]["wo"], o.reshape(b, s, -1), impl=impl)
         hn = layers.norm(lp["ln2"], h, cfg.norm, cfg.norm_eps)
-        x = h + layers.mlp(lp["mlp"], hn, cfg.mlp, impl=impl)
+        x = h + _ffn(lp, hn, cfg, impl)
     if not logits:
         return None, caches
     hidden = layers.norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
@@ -282,7 +290,7 @@ def prefill_chunk(params: dict, cfg, scratch: list, tokens: torch.Tensor, offset
         o = layers._direct_attention(q, sk, sv, cfg.n_kv_heads, causal=True, q_offset=offset)
         h = x + layers.qdense(lp["attn"]["wo"], o.reshape(b, c, -1), impl=impl)
         hn = layers.norm(lp["ln2"], h, cfg.norm, cfg.norm_eps)
-        x = h + layers.mlp(lp["mlp"], hn, cfg.mlp, impl=impl)
+        x = h + _ffn(lp, hn, cfg, impl)
     return out
 
 
@@ -302,7 +310,7 @@ def decode_step(params: dict, cfg, caches: list, token: torch.Tensor, pos, *,
             att, _ = layers.attention_decode(lp["attn"], xn, cache, pos, cfg, impl=impl)
         h = x + att
         hn = layers.norm(lp["ln2"], h, cfg.norm, cfg.norm_eps)
-        x = h + layers.mlp(lp["mlp"], hn, cfg.mlp, impl=impl)
+        x = h + _ffn(lp, hn, cfg, impl)
     hidden = layers.norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     return logits_fn(params, hidden, cfg, impl=impl), caches
 
@@ -338,6 +346,6 @@ def decode_verify(params: dict, cfg, caches: list, tokens: torch.Tensor, pos, *,
         o = torch.cat(outs, dim=1)                                 # (B, T, hq, hd)
         h = x + layers.qdense(lp["attn"]["wo"], o.reshape(b, t, -1), impl=impl)
         hn = layers.norm(lp["ln2"], h, cfg.norm, cfg.norm_eps)
-        x = h + layers.mlp(lp["mlp"], hn, cfg.mlp, impl=impl)
+        x = h + _ffn(lp, hn, cfg, impl)
     hidden = layers.norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     return logits_fn(params, hidden, cfg, impl=impl), caches, burst_kv

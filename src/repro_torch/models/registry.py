@@ -9,8 +9,8 @@
     scratch = api.init_prefill_scratch(cfg, seq, device=device)     # chunked prefill
     scratch = api.prefill_chunk(params_serve, cfg, scratch, tokens, offset)
 
-Only the dense family is ported; the others raise and name the ROADMAP
-item that ports them.
+The dense and MoE families are ported; the others raise and name the
+ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -68,7 +68,6 @@ _DECODER_API = ModelAPI(
 )
 
 _NOT_PORTED = {
-    "moe": "ROADMAP queue 1, 'Other model families' (models/moe.py)",
     "vlm": "ROADMAP queue 1, 'Other model families' (M-RoPE)",
     "ssm": "ROADMAP queue 1, 'Other model families' (models/mamba2.py)",
     "hybrid": "ROADMAP queue 1, 'Other model families' (models/hybrid.py)",
@@ -78,7 +77,7 @@ _NOT_PORTED = {
 
 
 def get_api(cfg) -> ModelAPI:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return _DECODER_API
     where = _NOT_PORTED.get(cfg.family, "ROADMAP queue 1")
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet: {where}")

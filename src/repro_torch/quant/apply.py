@@ -149,18 +149,62 @@ def quantize_for_serve(params: dict, policy: BitPolicy | PolicyArtifact, cfg) ->
     """
     if isinstance(policy, PolicyArtifact):
         policy = policy.policy
-    def rec(tree, path):
-        if isinstance(tree, dict):
-            return {k: rec(v, path + (k,)) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [rec(v, path + (str(i),)) for i, v in enumerate(tree)]
-        name = _serve_name(path)
-        if name in policy.bits and path[-1] in QUANT_KEYS and tree.ndim >= 2:
-            bits = policy.bits[name]
-            return quantize_tensor(tree.T if path[-1] == "embed" else tree, bits)
-        return tree
+    return _serve_tree(params, (), policy)
 
-    return rec(params, ())
+
+def _serve_tree(tree, path: tuple[str, ...], policy: BitPolicy):
+    if isinstance(tree, dict):
+        return {k: _serve_tree(v, path + (k,), policy) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_serve_tree(v, path + (str(i),), policy) for i, v in enumerate(tree)]
+    return _serve_leaf(tree, path, policy)
+
+
+def _serve_leaf(leaf, path: tuple[str, ...], policy: BitPolicy):
+    """One serve-layout leaf, packed where the policy names it (a stacked
+    ``(E, d, f)`` expert leaf packs whole, one scale per channel over E)."""
+    name = _serve_name(path)
+    if name in policy.bits and path[-1] in QUANT_KEYS and leaf.ndim >= 2:
+        return quantize_tensor(leaf.T if path[-1] == "embed" else leaf, policy.bits[name])
+    return leaf
+
+
+def pack_for_serve(params: dict, policy: BitPolicy | PolicyArtifact, cfg) -> dict:
+    """Train-layout (stacked) float params -> the packed serve-layout tree,
+    consuming ``params``.
+
+    The tree ``quantize_for_serve(unstack_layers(params), policy, cfg)``
+    gives, built one stacked leaf at a time: each leaf leaves ``params`` as
+    its layers are packed, so the float tree and the packed tree are never
+    both whole on the device (deepseek-moe-16b: 33.8 GB of bf16 weights
+    against about 10 GB packed).
+    """
+    del cfg
+    if isinstance(policy, PolicyArtifact):
+        policy = policy.policy
+
+    def layers_of(tree: dict, path: tuple[str, ...], n: int) -> list[dict]:
+        out = [{} for _ in range(n)]
+        for k in list(tree):
+            leaf = tree.pop(k)
+            if isinstance(leaf, dict):
+                for o, sub in zip(out, layers_of(leaf, path + (k,), n)):
+                    o[k] = sub
+            else:
+                for i, o in enumerate(out):
+                    o[k] = _serve_leaf(leaf[i], (path[0], str(i)) + path[1:] + (k,), policy)
+            del leaf
+        return out
+
+    out = {}
+    for key in list(params):
+        tree = params.pop(key)
+        if key in STACKED_KEYS:
+            n = next(leaf for _, leaf in _walk(tree)).shape[0]
+            out[key] = layers_of(tree, (key,), n)
+        else:
+            out[key] = _serve_tree(tree, (key,), policy)
+    return out
 
 
 #: decode-path kernel-launch fusion groups: members -> fused leaf name

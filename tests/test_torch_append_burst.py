@@ -26,6 +26,7 @@ from repro.kvcache import paged as jpaged
 from repro.models import decoder as jdecoder
 from repro.quant import apply as japply
 from repro.serve.engine import ServeEngine as JServeEngine
+from repro.serve.lifecycle import ShedPolicy as JShedPolicy
 from repro.spec import loop as jloop
 from repro_torch import configs as tconfigs
 from repro_torch import kernels
@@ -40,6 +41,7 @@ from repro_torch.launch.dryrun import dryrun_policy
 from repro_torch.models import decoder as tdecoder
 from repro_torch.quant import apply as tapply
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.lifecycle import ShedPolicy
 from repro_torch.spec import loop as tloop
 
 torch.set_num_threads(2)
@@ -231,9 +233,10 @@ def test_speculative_streams_and_caches_match_jax_on_reduced_gemma(gemma):
     at a rounding edge; the commit alone is exact above)."""
     args = dict(max_slots=3, max_seq=64, prefill_pad=8, speculate=3, draft_policy=4)
     jeng = JServeEngine(gemma["jcfg"], gemma["jserve"], qimpl="xla",
-                        state_bits=JBitPolicy.from_json(gemma["state"].to_json()), **args)
+                        state_bits=JBitPolicy.from_json(gemma["state"].to_json()),
+                        shed=JShedPolicy(straggler_sheds_spec=False), **args)
     eng = ServeEngine(gemma["tcfg"], gemma["tserve"], state_bits=gemma["state"], device="cpu",
-                      **args)
+                      shed=ShedPolicy(straggler_sheds_spec=False), **args)
     prompts = [[9] * 19, [5, 6, 7, 8], [1, 2, 9, 4, 7, 3], list(range(1, 31))]
     assert eng.generate(prompts, max_new_tokens=8) == jeng.generate(prompts, max_new_tokens=8)
     assert eng.stats()["spec_accepted"] == jeng.stats()["spec_accepted"]

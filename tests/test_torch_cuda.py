@@ -20,8 +20,11 @@ at chip_smoke.py's geometry and at an odd one, in its plan's cluster against
 one CTA walking the same chunks (S 512 to 2048, B 1 to 8, two kv heads, a
 block that spans chunks), and in a reduced f32 engine,
 the GEMV against the CPU mirror of its arithmetic with its bits independent
-of M and N, and the burst append against the appends one position at a
-time and the plain version, dense and paged.
+of M and N, the burst append against the appends one position at a
+time and the plain version, dense and paged, and the expert stacks of the
+GEMV and the GEMM (one launch for all experts) against the 2-D launches bit
+for bit, with a shared and a per-expert scale, and in reduced
+deepseek-moe-16b's MoE layer.
 """
 import dataclasses
 
@@ -1071,3 +1074,84 @@ def test_nan_flags_ride_the_token_copy_on_the_card(cuda, monkeypatch):
     for u in range(len(prompts)):
         if u not in failed:
             assert out[u] == ref[u]
+
+
+#: expert stacks (E, C, K, N): the GEMV (C <= 8) and the GEMM (C 9 to 300), K
+#: on the TMA path (2048, 1408: deepseek-moe-16b's expert linears) and on the
+#: predicated one (130, 37), N ragged against the channel tiles, C not a
+#: multiple of the token tile: no tile may carry the next expert's rows into
+#: an output it keeps
+EXPERT_CASES = [(4, 8, 64, 48), (3, 5, 130, 75), (2, 8, 1408, 2048), (4, 9, 64, 40),
+                (4, 16, 2048, 1408), (5, 40, 37, 70), (3, 300, 2048, 192), (64, 16, 128, 96)]
+
+
+@pytest.mark.parametrize("bits", (2, 4, 6, 8))
+@pytest.mark.parametrize("e,c,k,n", EXPERT_CASES)
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("per_expert", (False, True), ids=("shared_scale", "expert_scale"))
+def test_expert_launch_equals_the_2d_launches(cuda, bits, e, c, k, n, dtype, per_expert):
+    """One launch over the stack equals the 2-D kernel on each expert's slice
+    bit for bit (the plans share their splits), and the plain version within
+    the 2-D kernels' tolerance."""
+    from repro_torch.kernels.quant_matmul.ops import quant_matmul_experts
+    from repro_torch.kernels.quant_matmul.ref import experts_matmul
+
+    g = torch.Generator(device=cuda).manual_seed(bits * 1000 + e * 10 + c)
+    w = torch.randn((e, k, n), generator=g, device=cuda) / k ** 0.5
+    if per_expert:
+        qts = [quantize_tensor(w[i], bits) for i in range(e)]
+        packed = torch.stack([q.packed for q in qts])
+        scale = torch.stack([q.scale for q in qts])                  # (E, 1, N)
+    else:
+        qt = quantize_tensor(w, bits)
+        packed, scale = qt.packed, qt.scale                           # (1, 1, N)
+    x = torch.randn((e, c, k), generator=g, device=cuda).to(dtype)
+    kernels.reset_counts()
+    got = quant_matmul_experts(x, packed, scale, bits, k)
+    torch.cuda.synchronize()
+    name = "quant_gemv_experts" if c <= 8 else "quant_matmul_experts"
+    assert got.shape == (e, c, n) and got.dtype == dtype
+    assert kernels.LAUNCHES[name] == 1 and sum(kernels.LAUNCHES.values()) == 1
+    for i in range(e):
+        one = quant_matmul(x[i], packed[i], scale[i if per_expert else 0], bits, k)
+        assert torch.equal(got[i], one), i
+    ref = experts_matmul(x, packed, scale, bits, k)
+    assert _rel(got, ref) <= (1e-4 if dtype is torch.float32 else 2e-2)
+
+
+def test_expert_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from repro_torch.kernels.quant_gemv.kernel import quant_gemv_experts_cuda
+    from repro_torch.kernels.quant_matmul.kernel import quant_matmul_experts_cuda
+
+    qt = quantize_tensor(torch.randn((4, 64, 16), device=cuda), 4)
+    x = torch.zeros((4, 8, 64), device=cuda)
+    for run in (quant_gemv_experts_cuda, quant_matmul_experts_cuda):
+        with pytest.raises(ValueError, match="packed must be"):
+            run(x[:3], qt.packed, qt.scale, bits=4, k=64)
+        with pytest.raises(ValueError, match="does not broadcast"):
+            run(x, qt.packed, torch.ones((2, 1, 16), device=cuda), bits=4, k=64)
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            run(x.cpu(), qt.packed, qt.scale, bits=4, k=64)
+
+
+@pytest.mark.parametrize("tokens", (4, 64))
+def test_moe_layer_launches_one_expert_kernel_a_linear(cuda, tokens):
+    """Reduced deepseek-moe-16b's MoE layer with packed experts in f32: three
+    expert launches (the GEMV at 4 tokens, the GEMM at 64) and the plain
+    path's output within rel 1e-4; two runs give the same bits."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    cfg = configs.get_config("deepseek-moe-16b").reduced()
+    g = torch.Generator(device=cuda).manual_seed(tokens)
+    p = moe.moe_init(g, cfg, torch.float32, device=cuda)
+    for name in ("w_gate", "w_up", "w_down"):
+        p[name] = quantize_tensor(p[name], 4)
+    x = torch.randn((1, tokens, cfg.d_model), generator=g, device=cuda)
+    kernels.reset_counts()
+    got = moe.moe_mlp(p, x, cfg)
+    again = moe.moe_mlp(p, x, cfg)
+    torch.cuda.synchronize()
+    name = "quant_gemv_experts" if moe.capacity(tokens, cfg) <= 8 else "quant_matmul_experts"
+    assert kernels.LAUNCHES[name] == 6 and torch.equal(got, again)
+    assert _rel(got, moe.moe_mlp(p, x, cfg, impl="torch")) <= 1e-4

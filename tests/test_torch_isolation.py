@@ -35,7 +35,7 @@ def test_every_submodule_imports_without_jax():
             "repro_torch.quant.calibration", "repro_torch.core.baselines",
             "repro_torch.checkpoint.store", "repro_torch.launch.report",
             "repro_torch.launch.train", "repro_torch.runtime.loop",
-            "repro_torch.runtime.elastic"} <= set(mods)
+            "repro_torch.runtime.elastic", "repro_torch.models.moe"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -85,6 +85,25 @@ def test_serve_cli_without_device_raises_when_no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced", "--requests", "1"])
+
+
+def test_expert_matmul_on_cpu_tensors_never_launches():
+    """The MoE expert stacks: "auto" on CPU tensors is the plain version,
+    "cuda" on them raises, and no kernel is built."""
+    from repro_torch import kernels
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.quant_matmul.ops import qt_matmul
+    from repro_torch.quant.tensor import quantize_tensor
+
+    qt = quantize_tensor(torch.randn((4, 64, 16)), 4)
+    kernels.reset_counts()
+    for c in (8, 16):
+        assert qt_matmul(torch.randn((4, c, 64)), qt).shape == (4, c, 16)
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            qt_matmul(torch.randn((4, c, 64)), qt, impl="cuda")
+    assert kernels.PLAIN_CALLS["quant_gemv_experts"] == kernels.PLAIN_CALLS[
+        "quant_matmul_experts"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 0 and _build._lib is None
 
 
 def test_kernel_build_is_not_started_by_imports():

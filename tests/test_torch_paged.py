@@ -333,7 +333,7 @@ def test_place_paged_block_and_the_cpu_dispatch():
                                impl="cuda")
     with pytest.raises(TypeError, match="PagedKVLayer"):
         kv_ops.quant_kv_attention(torch.zeros(2, 1, 16), {"k": 0}, torch.ones(2, 16, dtype=bool))
-    assert len(kernels.KERNELS) == 11 and sum(kernels.LAUNCHES.values()) == 0
+    assert len(kernels.KERNELS) == 13 and sum(kernels.LAUNCHES.values()) == 0
 
 
 def test_init_cache_paged_shares_one_table():

@@ -30,6 +30,7 @@ from repro.models import decoder as jdecoder
 from repro.quant import apply as japply
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JServeEngine
+from repro.serve.lifecycle import ShedPolicy as JShedPolicy
 from repro.serve.sampling import filtered_logits as jfiltered_logits
 from repro.spec import loop as jloop
 from repro.spec.draft import build_draft_params as jbuild_draft
@@ -46,6 +47,7 @@ from repro_torch.models import decoder as tdecoder
 from repro_torch.quant import apply as tapply
 from repro_torch.quant.tensor import QuantizedTensor
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.lifecycle import ShedPolicy
 from repro_torch.serve.sampling import filtered_logits, sample
 from repro_torch.spec import loop as tloop
 from repro_torch.spec.draft import build_draft_params
@@ -414,6 +416,10 @@ def test_decode_verify_matches_jax_and_the_decode_steps(served):
 # -- the speculative engine ----------------------------------------------------------
 
 SLOTS, SEQ, NEW = 3, 64, 10
+#: the straggler shed reads the host clock: off, so that a slow round under
+#: parallel test workers cannot drop K on one twin and not the other
+SHED = ShedPolicy(straggler_sheds_spec=False)
+JSHED = JShedPolicy(straggler_sheds_spec=False)
 #: the first wave's two [9] * 19 share their blocks, the second one's write
 #: block too (copy-on-write at the first burst)
 PROMPTS = [[9] * 19, [5, 6, 7, 8], [9] * 19, [1, 2, 9, 4, 7, 3], [2], [3, 1, 4, 1, 5],
@@ -424,7 +430,8 @@ def _engines(served, *, speculate, from_artifact=False, jax_ref=True, **kw):
     """The JAX speculative engine (None unless ``jax_ref``), the port's, and
     the port's non-speculative one, on the same weights and arguments."""
     args = dict(max_slots=SLOTS, max_seq=kw.pop("max_seq", SEQ), prefill_pad=8)
-    jkw = dict(kw)
+    jkw = dict(kw, shed=JSHED)
+    kw["shed"] = SHED
     kw.setdefault("debug_invariants", True)
     if from_artifact:
         art = PolicyArtifact.build(served["policy"], state_policy=served["state"],
@@ -438,7 +445,7 @@ def _engines(served, *, speculate, from_artifact=False, jax_ref=True, **kw):
         eng = ServeEngine(served["tcfg"], served["tserve"], artifact=art, device="cpu", **args,
                           **kw)
         base = ServeEngine(served["tcfg"], served["tserve"], artifact=dataclasses.replace(
-            art, draft_policy=None, draft_k=0), device="cpu", **args)
+            art, draft_policy=None, draft_k=0), device="cpu", shed=SHED, **args)
         return jeng, eng, base
     jstate = JBitPolicy.from_json(served["state"].to_json())
     jeng = JServeEngine(served["jcfg"], served["jserve"], qimpl="xla", state_bits=jstate,
@@ -534,7 +541,7 @@ def test_fp_cache_and_backpressure_streams(served):
     requests wait while bursts map and copy blocks, under the invariant
     checker; both equal the non-speculative streams."""
     tcfg, tserve = served["tcfg"], served["tserve"]
-    args = dict(max_slots=SLOTS, max_seq=SEQ, prefill_pad=8, device="cpu")
+    args = dict(max_slots=SLOTS, max_seq=SEQ, prefill_pad=8, device="cpu", shed=SHED)
     fp = ServeEngine(tcfg, tserve, speculate=2, draft_policy=served["hetero"], **args)
     assert not fp._quant_state
     assert fp.generate(PROMPTS, max_new_tokens=NEW) == ServeEngine(
@@ -551,7 +558,8 @@ def test_fp_cache_and_backpressure_streams(served):
 def test_stochastic_speculation_gives_valid_streams(served):
     tcfg, tserve = served["tcfg"], served["tserve"]
     kw = dict(max_slots=SLOTS, max_seq=SEQ, state_bits=served["state"], temperature=1.0,
-              top_k=40, top_p=0.95, seed=7, speculate=2, draft_policy=4, device="cpu")
+              top_k=40, top_p=0.95, seed=7, speculate=2, draft_policy=4, device="cpu",
+              shed=SHED)
     out = ServeEngine(tcfg, tserve, **kw).generate(PROMPTS, max_new_tokens=6)
     assert [len(t) for t in out] == [6] * len(PROMPTS)
     assert all(0 <= t < tcfg.vocab_size for toks in out for t in toks)
