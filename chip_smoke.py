@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a)
-and runs fourteen phases; any failure raises, so the exit code is nonzero and
+and runs seventeen phases; any failure raises, so the exit code is nonzero and
 the last line is not the ``ok`` line:
 
   1. environment: the card's name and power limit, torch/CUDA versions, and
@@ -184,7 +184,35 @@ the last line is not the ``ok`` line:
      (where capacity drops, the modes may differ: capacity follows the
      batch); (d) the kernel run again, streams and every logits row
      bit-equal;
- 14. one ``{"kernels": [...]}`` JSON line, the card's line, and last
+ 14. deepseek-moe-16b's width cut to 2 layers (about 1.6 G parameters):
+     (a) one QAT step's loss and gradients in f32 through the kernels, the
+     plain versions and the kernels again, every leaf bit-equal, row 10 on
+     the (E, K, N) expert stacks as (E*K, N) views (22 fake-quant and STE
+     launches a pass); (b) ``launch.train.main``, 8 steps of 8 x 128 at 4
+     bits (the saves skipped: phase 12 holds them), the step median and the
+     launches a step; (c) ``launch.search.main`` under ``size_mib=1250``
+     (the weight phase, the launches its steps predict), each phase's wall
+     and iterations, then its artifact through ``launch.serve.main
+     --policy``;
+ 15. qwen2-vl-2b at full width and depth (28 layers, M-RoPE, untied
+     vocabulary 151936): (a) its five packed linears through the GEMV and
+     the GEMM against the plain versions, and row 3 at 12 query heads on 2
+     KV heads of 128 (a group of 6), bytes exact; (b) ``launch.serve.main
+     --wbits mixed`` at phase 4's geometry with a K 8 / V 4 state: step
+     median, TTFT, peak memory, packed bytes, the launches a decode step
+     and an admission predict, a profiled rerun's busy share; (c)
+     ``apply_mrope`` with distinct (t, h, w) positions against its f64
+     evaluation, and the served model's prefill from ``embeds=`` equal to
+     its token prefill bit for bit;
+ 16. mamba2-2.7b at full width and depth (64 layers, the SSD scan): (a)
+     ``in_proj`` (N 10576), ``out_proj`` and the head (N 50280) against the
+     plain versions; (b) as 15 (b), with the recurrent state's bytes a
+     slot; (c) its width cut to 2 layers in f32: the kernels against the
+     plain versions and chunked admission (the prefix recomputed) against
+     whole, streams equal up to near-ties, and a length-1 prompt in a slot
+     a longer request left decoding as on a fresh engine;
+ 17. one ``{"kernels": [...]}`` JSON line (each row's launches summed over
+     the main paths that run it), the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
 Phases 5, 6, 8, 10 (c) and 13 hold two engines' streams equal, so their
@@ -2216,6 +2244,9 @@ def record_logits(torch, eng):
     api = eng.api
 
     def keep(fn, always):
+        if fn is None:              # a family without a verify pass (the SSM)
+            return None
+
         def wrapped(*args, **kw):
             out = fn(*args, **kw)
             if always or in_decode[0]:
@@ -4246,6 +4277,560 @@ def moe_modes(torch, cfg) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 14: deepseek-moe-16b's QAT, trainer and search (full width, 2 layers)
+# ---------------------------------------------------------------------------
+
+#: the MoE training model: deepseek-moe-16b's width cut to 2 layers (about 1.6 B
+#: parameters; f32 with gradients and Adam moments about 26 GB)
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_ARGV = ["--arch", MOE_ARCH, "--layers", str(MOE_TRAIN_LAYERS), "--steps", "8",
+                  "--batch", "8", "--seq", "128", "--wbits", "4", "--seed", str(SEED)]
+#: the search on the cut model (8 bits about 1521 MiB, 4 bits about 0.76 GiB): the
+#: controller lowers two leaves by 2 bits a round, so the limit takes several
+MOE_SEARCH_ARGV = ["--arch", MOE_ARCH, "--limit", "size_mib=1250", "--pretrain-steps", "4",
+                   "--phase2-iters", "12", "--seq", "64", "--batch", "8", "--seed", str(SEED)]
+MOE_SEARCH_SERVE_ARGV = ["--arch", MOE_ARCH, "--requests", "4", "--max-new", "8",
+                         "--slots", "4", "--max-seq", "256", "--seed", str(SEED + 17)]
+
+
+def _moe_train_cfg(cfg):
+    return dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS)
+
+
+class _NoStore:
+    """A checkpoint store that writes nothing: phase 14 (b) times the steps,
+    and phase 12 (c) already holds the saves (the cut model's state would be
+    19 GB on disk)."""
+
+    def __init__(self, root, **kw):
+        self.saves = 0
+
+    def latest(self):
+        return None
+
+    def save_async(self, step, state, extra=None):
+        self.saves += 1
+
+    def wait(self):
+        pass
+
+
+def free_memory(torch) -> None:
+    """Collect the earlier phases' garbage (engines hold reference cycles, so
+    their tensors can outlive them until the collector runs), then zero the
+    peak: a phase's peak memory is then its own."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def moe_qat_step(torch, cfg) -> None:
+    """Phase 14 (a): one QAT step's loss and gradients of the cut model in f32
+    through the kernels, the plain versions and the kernels again, every leaf
+    bit-equal; row 10 runs on the (E, K, N) expert stacks."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import TokenTask, batch_on, global_batch
+    from repro_torch.launch.dryrun import dryrun_policy
+    from repro_torch.models import decoder, registry
+    from repro_torch.quant import apply as qapply
+    from repro_torch.train.train_step import value_and_grad
+
+    smi = smi_line()
+    cut = dataclasses.replace(_moe_train_cfg(cfg), dtype="float32")
+    params = decoder.init(cut, torch.Generator(device="cuda").manual_seed(SEED + 18),
+                          device="cuda")
+    specs = qapply.layer_specs(params, cut)
+    stacks = [s for s in specs if s.kind == "expert"]
+    bits = qapply.bits_for_scan(dryrun_policy(specs, "mixed"), params, cut)
+    batch = batch_on(global_batch(TokenTask(cut.vocab_size), cut,
+                                  ShapeSpec("search", "train", 64, 8), 0), "cuda")
+    api = registry.get_api(cut)
+    per_fwd = _fq_per_forward(cut, specs)
+    n_params = sum(leaf.numel() for _, leaf in qapply._walk(params))
+    runs = {}
+    for key, impl in (("kernels", "auto"), ("plain", "torch"), ("kernels again", "auto")):
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(
+            lambda p, b, bb, impl=impl: api.loss(p, cut, b, bits=bb, impl=impl), params, batch,
+            bits)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = (kernels.LAUNCHES["fake_quant"], kernels.LAUNCHES["fake_quant_ste_bwd"])
+        plain = (kernels.PLAIN_CALLS["fake_quant"], kernels.PLAIN_CALLS["fake_quant_ste_bwd"])
+        want = ((per_fwd, per_fwd), (0, 0)) if impl == "auto" else ((0, 0), (per_fwd, per_fwd))
+        if (got, plain) != want:
+            raise AssertionError(f"phase 14 (a) {key}: launches {got}, plain calls {plain} "
+                                 f"(want {want})")
+        if not (torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)):
+            raise AssertionError(f"phase 14 (a) {key}: non-finite loss or gradient")
+        runs[key] = (loss, grads)
+        log(f"  ({smi}) {key}: loss {float(loss):.6f}, loss + gradients in {dt:.3f} s; "
+            f"fake-quant launches {got} a step ({len(stacks)} of them on (E, K, N) stacks), "
+            f"plain calls {plain}")
+    for a, b in (("kernels", "plain"), ("kernels", "kernels again")):
+        (la, ga), (lb, gb) = runs[a], runs[b]
+        same = [torch.equal(x, y) for x, y in zip(ga, gb)]
+        if not torch.equal(la, lb) or not all(same):
+            worst = max(rel(x, y) for x, y in zip(ga, gb))
+            raise AssertionError(f"phase 14 (a) {a} vs {b}: loss rel {rel(la, lb):.3g}, "
+                                 f"gradients equal in {sum(same)} of {len(same)} leaves, "
+                                 f"max rel {worst:.3g}")
+        log(f"  ok {a} vs {b}: loss and all {len(same)} gradient leaves bit-equal")
+    log(f"  {cut.name} cut to {cut.n_layers} layers, f32: {n_params / 1e9:.3f} G parameters, "
+        f"{len(specs)} quantizable leaves a forward, the stacks {[s.shape for s in stacks[:3]]}")
+    del params, runs, grads, batch
+    torch.cuda.empty_cache()
+
+
+def moe_trainer(torch, cfg) -> dict:
+    """Phase 14 (b): ``launch.train.main`` on the cut model, 8 steps of 8 x 128
+    at 4 bits: the step median and the fake-quant launches a step."""
+    from repro_torch import kernels
+    from repro_torch.launch import train
+    from repro_torch.quant import apply as qapply
+
+    smi = smi_line()
+    times, built, stores = [], [], []
+    real_build, real_store = train.build, train.CheckpointStore
+
+    def timed_build(args):
+        out = real_build(args)
+        built.append(out)
+        step = out[2]
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return res
+
+        return out[:2] + (timed,) + out[3:]
+
+    def no_store(root, **kw):
+        stores.append(_NoStore(root))
+        return stores[-1]
+
+    train.build, train.CheckpointStore = timed_build, no_store
+    try:
+        free_memory(torch)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        rc = train.main(MOE_TRAIN_ARGV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        train.build, train.CheckpointStore = real_build, real_store
+    launches, plain = dict(kernels.LAUNCHES), dict(kernels.PLAIN_CALLS)
+    cfg2, state = built[0][0], built[0][3]
+    per_fwd = _fq_per_forward(cfg2, qapply.layer_specs(state[0], cfg2))
+    steps = len(times)
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(fake_quant=per_fwd * steps, fake_quant_ste_bwd=per_fwd * steps)
+    if rc != 0 or steps != 8 or launches != want or any(plain.values()):
+        raise AssertionError(f"phase 14 (b): rc {rc}, {steps} steps, launches {launches} "
+                             f"(want {want}), plain calls {plain}")
+    n_params = sum(leaf.numel() for _, leaf in qapply._walk(state[0]))
+    log(f"  ({smi}) launch.train.main {' '.join(MOE_TRAIN_ARGV)}: rc {rc}, {wall:.2f} s; "
+        f"{cfg2.name} {cfg2.n_layers} layers {cfg2.dtype}, {n_params / 1e9:.3f} G parameters; "
+        f"step median {statistics.median(times[1:]) * 1e3:.3f} ms (first "
+        f"{times[0] * 1e3:.3f}); peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB;"
+        f" saves skipped {stores[0].saves}")
+    log(f"    launches {_nonzero(launches)}: {steps} steps x {per_fwd} fake-quant and STE "
+        f"({per_fwd} a forward), as predicted; plain calls 0")
+    del built, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_search(torch, cfg) -> None:
+    """Phase 14 (c): ``launch.search.main`` on the cut model under a size
+    limit (the weight phase; the launches its steps predict), then its
+    artifact through ``launch.serve.main --policy``."""
+    from repro_torch import configs as configs_mod
+    from repro_torch import kernels
+    from repro_torch.core.policy import PolicyArtifact
+    from repro_torch.launch import search, serve
+
+    smi = smi_line()
+    out = ROOT / "build" / "phase14_policy.json"
+    out.parent.mkdir(exist_ok=True)
+    cut = _moe_train_cfg(cfg)
+
+    def cut_config(name):
+        return cut if name == MOE_ARCH else configs_mod.get_config(name)
+
+    envs = []
+    real_env, real_s, real_v = search.LMQuantEnv, search.get_config, serve.get_config
+
+    class Recording(real_env):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            envs.append(self)
+
+    search.LMQuantEnv, search.get_config, serve.get_config = Recording, cut_config, cut_config
+    try:
+        free_memory(torch)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        rc = search.main(MOE_SEARCH_ARGV + ["--out", str(out)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = dict(kernels.LAUNCHES), dict(kernels.PLAIN_CALLS)
+        env = envs[0]
+        want = search_launches(cut, env, {})
+        if rc not in (0, 1) or launches != want or any(plain.values()):
+            raise AssertionError(f"phase 14 (c): rc {rc}, launches {launches} (want {want}), "
+                                 f"plain calls {plain}")
+        art = PolicyArtifact.load(str(out))
+        log(f"  ({smi}) launch.search.main {' '.join(MOE_SEARCH_ARGV)} ({cut.n_layers} "
+            f"layers): rc {rc}, wall {wall:.2f} s, peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; {_phase_walls(art)}; "
+            f"{env.train_steps} training steps, {env.eval_passes} evaluations; policy mean "
+            f"{art.policy.mean_bits():.3f} bits, size {art.policy.model_size_mib():.1f} MiB; "
+            f"experts at {sorted({b for n, b in art.policy.bits.items() if 'mlp.w_' in n})} bits")
+        log(f"    launches {_nonzero(launches)}, as the run's steps predict; plain calls 0")
+        engines = []
+        real_engine = serve.ServeEngine
+
+        class Keep(real_engine):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                engines.append(self)
+
+        serve.ServeEngine = Keep
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        try:
+            rc = serve.main(MOE_SEARCH_SERVE_ARGV + ["--policy", str(out)])
+        finally:
+            serve.ServeEngine = real_engine
+        torch.cuda.synchronize()
+        st = engines[0].stats()
+        if (rc != 0 or st["completed"] != 4 or any(st["plain_calls"].values())
+                or not st["launches"]["quant_gemv_experts"]):
+            raise AssertionError(f"phase 14 (c) serving: rc {rc}, {st['completed']} completed, "
+                                 f"launches {_nonzero(st['launches'])}, plain "
+                                 f"{_nonzero(st['plain_calls'])}")
+        log(f"  ok served the artifact: {time.perf_counter() - t0:.2f} s, packed "
+            f"{engines[0].weight_container_bytes() / 1e9:.3f} GB, step median "
+            f"{st['decode_step_median_s'] * 1e3:.3f} ms; launches {_nonzero(st['launches'])}")
+    finally:
+        search.LMQuantEnv, search.get_config, serve.get_config = real_env, real_s, real_v
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 15 and 16: qwen2-vl-2b (M-RoPE) and mamba2-2.7b (SSM) at full width
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "qwen2-vl-2b"
+SSM_ARCH = "mamba2-2.7b"
+#: each family's packed linears, (N, K): qwen2-vl-2b's fused wqkv (12 + 2 x 2
+#: heads of 128), wo, the fused gate/up, w_down and the untied head;
+#: mamba2-2.7b's in_proj (z, x, B, C, dt: 2 x 5120 + 2 x 128 + 80), out_proj
+#: and the untied head (50280, no multiple of 16)
+VLM_LINEARS = {"wqkv": (2048, 1536), "wo": (1536, 1536), "w_gu": (17920, 1536),
+               "w_down": (1536, 8960), "lm_head": (151936, 1536)}
+SSM_LINEARS = {"in_proj": (10576, 2560), "out_proj": (2560, 5120), "lm_head": (50280, 2560)}
+#: qwen2-vl-2b's decode step: B 4 slots over 512 positions, 12 query heads on 2 KV
+#: heads of 128 (a group of 6), K 8 / V 4
+VLM_KV = dict(B=4, n_kv=2, g=6, hd=128, S=512, block=16)
+#: phase 4's geometry through the serve command line
+FAMILY_SERVE = ["--wbits", "mixed", "--requests", "8", "--max-new", "16", "--slots", "4",
+                "--max-seq", "512"]
+#: phase 16 (c): mamba2-2.7b's width cut to 2 layers, in f32
+SSM_CUT_LAYERS = 2
+
+
+def check_family_linears(torch, gen, linears: dict, tag: str, results: dict) -> None:
+    """A family's packed linears through the GEMV (M 1, 4, 8) and the GEMM
+    (M 128) at 4 and 8 bits, f32 and bf16, against the plain versions (rows
+    1 and 2's tolerances); a call and the plain version timed at 4 bits, bf16."""
+    from repro_torch.kernels.quant_gemv.kernel import quant_gemv_cuda
+    from repro_torch.kernels.quant_gemv.ref import quant_gemv_ref
+    from repro_torch.kernels.quant_matmul.kernel import quant_matmul_cuda
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+    from repro_torch.quant.tensor import quantize_tensor
+
+    smi = smi_line()
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    for name, (n, k) in linears.items():
+        for bits in (4, 8):
+            w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+            qt = quantize_tensor(w, bits)
+            del w
+            cases = [("quant_gemv", m, quant_gemv_cuda, quant_gemv_ref) for m in GEMV_MS]
+            cases.append(("quant_matmul", GEMM_M, quant_matmul_cuda, quant_matmul_ref))
+            for kern, m, run, ref in cases:
+                for dt in (torch.float32, torch.bfloat16):
+                    x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+                    got = run(x, qt.packed, qt.scale, bits=bits, k=k)
+                    want = ref(x, qt.packed, qt.scale, bits, k)
+                    torch.cuda.synchronize()
+                    err = rel(got, want)
+                    r = results[kern]
+                    r["max_abs_err"] = max(r["max_abs_err"],
+                                           float((got.float() - want.float()).abs().max()))
+                    if not (torch.isfinite(got).all() and err <= tol[dt]):
+                        raise AssertionError(f"{tag}: {kern} {name} N={n} K={k} bits={bits} "
+                                             f"M={m} {dt}: rel {err:.3g} > {tol[dt]}")
+                    if bits == 4 and dt is torch.bfloat16 and m in (SERVE_M, GEMM_M):
+                        t_k = time_ms(torch, lambda: run(x, qt.packed, qt.scale, bits=bits, k=k))
+                        t_p = time_ms(torch, lambda: ref(x, qt.packed, qt.scale, bits, k),
+                                      reps=5, warmup=1)
+                        nbytes = qt.packed.numel() + 4 * n + 2 * m * (k + n)
+                        b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
+                        log(f"  ({smi}) {kern:12s} {name:8s} N={n:6d} K={k:5d} bits=4 M={m:3d} "
+                            f"bf16: a call {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} "
+                            f"ms ({b_by}), rel {err:.2e}")
+                    del x, got, want
+            del qt
+        log(f"  ok {tag} {name} (N {n}, K {k}): GEMV M={GEMV_MS} and GEMM M={GEMM_M}, "
+            f"bits 4 and 8, f32 and bf16")
+    torch.cuda.empty_cache()
+
+
+def check_group_of_six(torch, gen, results: dict) -> None:
+    """Phase 15 (a): row 3 at qwen2-vl-2b's heads (a query group of 6) against
+    its plain version: cache bytes exact, output within rel 1e-5 (f32)."""
+    from repro_torch.kernels.quant_kv import ops as kv_ops
+
+    c = VLM_KV
+    b, s, h, hq, hd = c["B"], c["S"], c["n_kv"], c["n_kv"] * c["g"], c["hd"]
+    for k_bits, v_bits in ((8, 4), (8, 8), (4, 2)):
+        base = _kv_layer_of(torch, gen, b, s, h, hd, c["block"], k_bits, v_bits)
+        pair = [_clone(base) for _ in range(2)]
+        for pos in ((37, 200, 415, 496), (38, 201, 416, 497)):
+            posv = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            valid = torch.arange(s, device="cuda")[None, :] <= posv[:, None]
+            q = torch.randn((b, hq, hd), generator=gen, device="cuda")
+            kn = torch.randn((b, 1, h, hd), generator=gen, device="cuda")
+            vn = torch.randn((b, 1, h, hd), generator=gen, device="cuda")
+            o_k, _ = kv_ops.quant_kv_decode_step(q, pair[0], posv, kn, vn, valid)
+            o_p, _ = kv_ops.quant_kv_decode_step(q, pair[1], posv, kn, vn, valid, impl="torch")
+            torch.cuda.synchronize()
+            for f in ("k_packed", "k_scale", "v_packed", "v_scale"):
+                if not torch.equal(getattr(pair[0], f), getattr(pair[1], f)):
+                    raise AssertionError(f"phase 15 (a): row 3, group of 6, k{k_bits}/v{v_bits}: "
+                                         f"{f} differs from the plain version")
+            err = rel(o_k, o_p)
+            r = results["quant_kv_decode_step"]
+            r["max_abs_err"] = max(r["max_abs_err"], float((o_k - o_p).abs().max()))
+            if not err <= 1e-5:
+                raise AssertionError(f"phase 15 (a): row 3, group of 6: rel {err:.3g} > 1e-5")
+        t_k = time_ms(torch, lambda: kv_ops.quant_kv_decode_step(q, _clone(base), posv, kn, vn,
+                                                                 valid))
+        log(f"  ok row 3 at {hq} query heads on {h} KV heads of {hd} (a group of 6), B {b}, "
+            f"S {s}, k{k_bits}/v{v_bits}: bytes exact, rel {err:.2e}; a call with a cache copy "
+            f"{t_k:.4f} ms")
+        del base, pair
+
+
+def _kv_layer_of(torch, gen, b, s, h, hd, block, k_bits, v_bits):
+    from repro_torch.kvcache import cache as kvc
+
+    layer = kvc.init_kv_layer(b, s, h, hd, k_bits=k_bits, v_bits=v_bits, block=block,
+                              device="cuda")
+    k = torch.randn((b, s, h, hd), generator=gen, device="cuda")
+    v = torch.randn((b, s, h, hd), generator=gen, device="cuda")
+    return kvc.insert_rows(layer, torch.arange(b, device="cuda"), k, v,
+                           valid_len=torch.full((b,), s - 16, device="cuda"))
+
+
+def serve_family(torch, cfg, phase: str, *, kv_state: bool) -> dict:
+    """Phases 15 (b) and 16 (b): full width and depth through
+    ``launch.serve.main`` at phase 4's geometry (``dryrun_policy("mixed")``;
+    a K 8 / V 4 state where the family has KV entries): step median, TTFT,
+    peak memory, packed and state bytes, launches a decode step and an
+    admission as the linears predict, and a profiled rerun's busy share.
+    Returns the engine and its launches."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import Request
+
+    smi = smi_line()
+    argv = ["--arch", cfg.name, *FAMILY_SERVE, "--seed", str(SEED + 19)]
+    engines, marks = [], {}
+    real_engine = serve.ServeEngine
+
+    class Recording(real_engine):
+        def __init__(self, cfg_, params, **kw):
+            torch.cuda.synchronize()
+            marks["pack_peak"] = torch.cuda.max_memory_allocated()
+            marks["packed_s"] = time.perf_counter() - marks["t0"]
+            torch.cuda.reset_peak_memory_stats()
+            if kv_state:
+                kw["state_bits"] = state_policy(cfg_, kw["max_slots"], kw["max_seq"])
+            kw["shed"] = steady()
+            super().__init__(cfg_, params, **kw)
+            kernels.reset_counts()
+            engines.append(self)
+
+    free_memory(torch)
+    serve.ServeEngine = Recording
+    marks["t0"] = time.perf_counter()
+    try:
+        rc = serve.main(argv)
+    finally:
+        serve.ServeEngine = real_engine
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - marks["t0"]
+    eng = engines[0]
+    st = eng.stats()
+    launches, plain = st["launches"], st["plain_calls"]
+    steps, adm = st["decode_steps"], st["admissions"]
+    n_lin = _packed_linears(eng.params)
+    head = 0 if cfg.tie_embeddings else 1
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(quant_gemv=(n_lin + head) * steps, quant_matmul=n_lin * adm)
+    if kv_state:
+        want["quant_kv_decode_step"] = cfg.n_layers * steps
+    if rc != 0 or st["completed"] != 8 or any(plain.values()) or launches != want:
+        raise AssertionError(f"{phase}: rc {rc}, completed {st['completed']}, launches "
+                             f"{_nonzero(launches)} (want {_nonzero(want)} for {steps} decode "
+                             f"steps and {adm} admissions), plain {_nonzero(plain)}")
+    ttft = st["latency"]["ttft_s"]
+    slot_bytes = eng.state_container_bytes() / eng.max_slots
+    log(f"  ({smi}) launch.serve.main {' '.join(argv)}: rc {rc}, {wall:.2f} s in all, "
+        f"{marks['packed_s']:.2f} s to init and pack; packed weights "
+        f"{eng.weight_container_bytes() / 1e9:.3f} GB; decode state "
+        f"{eng.state_container_bytes() / 1e6:.2f} MB ({slot_bytes / 1e6:.2f} MB a slot); peak "
+        f"allocated {marks['pack_peak'] / 1e9:.3f} GB while packing, "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB serving; depth {cfg.n_layers} of "
+        f"{cfg.n_layers} (no cut)")
+    log(f"  {steps} decode steps, {adm} admissions: step median "
+        f"{st['decode_step_median_s'] * 1e3:.3f} ms, TTFT p50 {ttft['p50'] * 1e3:.1f} ms, p99 "
+        f"{ttft['p99'] * 1e3:.1f} ms; launches {_nonzero(launches)} ({n_lin} packed linears"
+        f"{' + the head' if head else ''} a step, as predicted); plain calls 0")
+    gen = torch.Generator().manual_seed(SEED + 20)
+    reqs = [Request(uid=i, prompt=torch.randint(1, cfg.vocab_size, (12,), generator=gen).tolist(),
+                    max_new_tokens=4) for i in range(4)]
+    profile_steps(torch, eng, reqs)
+    return {"engine": eng, "launches": dict(launches)}
+
+
+def check_mrope(torch, cfg, eng) -> None:
+    """Phase 15 (c): ``apply_mrope`` with distinct (t, h, w) positions on the
+    card against its plain evaluation in f64 (the f32 angle rounds: the
+    limit is 1e-3 at positions below 4096), and against the same function on
+    CPU tensors; then a prefill of the served model from ``embeds=`` (the
+    packed table's rows) equal to its prefill from the tokens, bit for bit."""
+    from repro_torch.models import decoder, layers
+
+    hd = cfg.resolved_head_dim
+    sections = layers.mrope_sections(hd)
+    g = torch.Generator().manual_seed(SEED + 21)
+    x = torch.randn((2, 64, cfg.n_heads, hd), generator=g)
+    pos = torch.randint(0, 4096, (3, 2, 64), generator=g)
+    out = layers.apply_mrope(x.cuda(), pos.cuda(), sections, cfg.rope_theta)
+    cpu = layers.apply_mrope(x, pos, sections, cfg.rope_theta)
+    freqs = 1.0 / (cfg.rope_theta ** (torch.arange(0, hd, 2, dtype=torch.float64) / hd))
+    sec = torch.repeat_interleave(torch.arange(3), torch.tensor(sections))
+    ang = pos[sec].permute(1, 2, 0).double() * freqs
+    cos, sin = torch.cos(ang)[:, :, None], torch.sin(ang)[:, :, None]
+    x1, x2 = x.double().chunk(2, dim=-1)
+    ref = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    err64, err_cpu = rel(out.cpu().double(), ref), rel(out.cpu(), cpu)
+    log(f"  apply_mrope (B 2, S 64, {cfg.n_heads} heads of {hd}, sections {sections}, positions "
+        f"below 4096): the card against f64 rel {err64:.3g} (limit 1e-3), against the CPU rel "
+        f"{err_cpu:.3g}")
+    if not (err64 <= 1e-3 and err_cpu <= 1e-3):
+        raise AssertionError(f"phase 15 (c): apply_mrope rel {err64:.3g} / {err_cpu:.3g}")
+    toks = torch.randint(1, cfg.vocab_size, (2, 32), generator=g).cuda()
+    emb = decoder.embed_tokens(eng.params, toks, cfg)
+    a, kv_a = decoder.prefill(eng.params, cfg, toks)
+    b, kv_b = decoder.prefill(eng.params, cfg, embeds=emb)
+    torch.cuda.synchronize()
+    if not (torch.equal(a, b) and all(torch.equal(x["k"], y["k"]) for x, y in zip(kv_a, kv_b))):
+        raise AssertionError(f"phase 15 (c): prefill from embeds differs (rel {rel(a, b):.3g})")
+    log(f"  ok prefill from embeds= (2 x 32, the packed table's rows) equals the token prefill "
+        f"bit for bit: logits and all {len(kv_a)} layers' K/V")
+
+
+def _ssm_cut(torch, cfg):
+    from repro_torch.launch.dryrun import dryrun_policy
+    from repro_torch.models import mamba2
+    from repro_torch.quant import apply as qapply
+
+    cut = dataclasses.replace(cfg, n_layers=SSM_CUT_LAYERS, dtype="float32")
+    params = mamba2.init(cut, torch.Generator(device="cuda").manual_seed(SEED + 22),
+                         device="cuda")
+    serve = qapply.pack_for_serve(params, dryrun_policy(qapply.layer_specs(params, cut),
+                                                        "mixed"), cut)
+    return cut, serve
+
+
+def ssm_modes(torch, cfg) -> None:
+    """Phase 16 (c): the width cut to 2 layers in f32 through the engine: the
+    kernels against the plain versions (streams equal up to near-ties of the
+    gap the two leave on one state), chunked admission (the prefix
+    recomputed) against whole, and a length-1 prompt in a slot a longer
+    request just left against the same prompt on a fresh engine."""
+    from repro_torch import kernels
+    from repro_torch.models import mamba2
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    smi = smi_line()
+    cut, serve = _ssm_cut(torch, cfg)
+    slots, seq, new = 4, 256, 16
+    gen = torch.Generator().manual_seed(SEED + 23)
+    lens = torch.randint(8, 25, (8,), generator=gen).tolist()
+    reqs = [Request(uid=i, prompt=torch.randint(1, cut.vocab_size, (n,), generator=gen).tolist(),
+                    max_new_tokens=new) for i, n in enumerate(lens)]
+    base = dict(max_slots=slots, max_seq=seq, shed=steady())
+    runs = {}
+    for mode, kw in {"kernels": {}, "plain": {"impl": "torch"},
+                     "chunked": {"prefill_chunk": 8}}.items():
+        kernels.reset_counts()
+        eng = ServeEngine(cut, serve, **base, **kw)
+        collect = record_logits(torch, eng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run([dataclasses.replace(r) for r in reqs])
+        torch.cuda.synchronize()
+        st = eng.stats()
+        runs[mode] = dict(out=out, rows=collect())
+        log(f"  ({smi}) {mode:8s}: {time.perf_counter() - t0:.2f} s, {st['decode_steps']} "
+            f"decode steps, {st['admissions']} admissions, {st['prefill_chunks']} chunks; "
+            f"launches {_nonzero(st['launches'])}, plain {_nonzero(st['plain_calls'])}")
+        del eng
+    # the gap kernels and plain versions leave on one state: one decode step
+    toks = torch.tensor([r.prompt[:8] for r in reqs[:slots]], device="cuda")
+    _, st_k = mamba2.prefill(serve, cut, toks, logits=False)
+    st_p = [{k: v.clone() for k, v in layer.items()} for layer in st_k]
+    last = toks[:, -1:]
+    a, _ = mamba2.decode_step(serve, cut, st_k, last, 8)
+    b, _ = mamba2.decode_step(serve, cut, st_p, last, 8, impl="torch")
+    gap = float((a - b).abs().max())
+    log(f"  kernels against plain versions on one state, one decode step: logits rel "
+        f"{rel(a, b):.3g}, max |difference| {gap:.4g}")
+    if not rel(a, b) <= 1e-4:
+        raise AssertionError(f"phase 16 (c): decode step kernels vs plain rel {rel(a, b):.3g}")
+    k = runs["kernels"]
+    for mode in ("plain", "chunked"):
+        parted = near_ties(k["out"], runs[mode]["out"], k["rows"], runs[mode]["rows"], gap, mode)
+        log(f"  ok kernels vs {mode}: {parted} of {len(reqs)} streams part, each at a near-tie")
+    # a length-1 prompt into the slot a 20-token request just left
+    one = dict(max_slots=1, max_seq=seq, shed=steady())
+    fresh = ServeEngine(cut, serve, **one).generate([[42]], max_new_tokens=new)[0]
+    eng = ServeEngine(cut, serve, **one)
+    after = eng.generate([list(range(3, 23)), [42]], max_new_tokens=new)[1]
+    if after != fresh:
+        raise AssertionError(f"phase 16 (c): the length-1 prompt after another request "
+                             f"{after} != on a fresh engine {fresh}")
+    log(f"  ok a length-1 prompt in the slot a 20-token request left decodes as on a fresh "
+        f"engine ({new} tokens equal): the slot's recurrent rows were reset")
+    del serve, runs
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -4393,7 +4978,42 @@ def main() -> int:
     moe_modes(torch, moe_cfg)
     log(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
 
-    log(f"== 14. summary (the script so far: {time.perf_counter() - t_script:.1f} s)")
+    log(f"== 14. {moe_cfg.name} cut to {MOE_TRAIN_LAYERS} layers: QAT through row 10 on the "
+        f"expert stacks, launch.train, launch.search and its artifact served")
+    t_phase = time.perf_counter()
+    moe_qat_step(torch, moe_cfg)
+    moe_train = moe_trainer(torch, moe_cfg)
+    moe_search(torch, moe_cfg)
+    log(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s")
+
+    vlm_cfg = configs.get_config(VLM_ARCH)
+    log(f"== 15. {vlm_cfg.name} full width and depth: its linears and row 3 at a group of 6, "
+        f"launch.serve, M-RoPE and embeds")
+    t_phase = time.perf_counter()
+    check_family_linears(torch, gen, VLM_LINEARS, "phase 15 (a)", results)
+    check_group_of_six(torch, gen, results)
+    vlm = serve_family(torch, vlm_cfg, "phase 15 (b)", kv_state=True)
+    check_mrope(torch, vlm_cfg, vlm.pop("engine"))
+    torch.cuda.empty_cache()
+    log(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+    ssm_cfg = configs.get_config(SSM_ARCH)
+    log(f"== 16. {ssm_cfg.name} full width and depth: its linears, launch.serve, the "
+        f"recurrent engine path at {SSM_CUT_LAYERS} layers")
+    t_phase = time.perf_counter()
+    check_family_linears(torch, gen, SSM_LINEARS, "phase 16 (a)", results)
+    ssm = serve_family(torch, ssm_cfg, "phase 16 (b)", kv_state=False)
+    del ssm["engine"]
+    torch.cuda.empty_cache()
+    ssm_modes(torch, ssm_cfg)
+    log(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    # the later main paths' launches join the earlier ones' (each read right
+    # after its own run, the counts set to 0 just before it)
+    for extra in (moe_train, vlm["launches"], ssm["launches"]):
+        for name, n in extra.items():
+            launches[name] += n
+
+    log(f"== 17. summary (the script so far: {time.perf_counter() - t_script:.1f} s)")
     rows = []
     for name in kernels.KERNELS:
         r = results[name]

@@ -81,9 +81,28 @@ class TokenTask:
 
 
 def global_batch(task: TokenTask, cfg, shape, step: int) -> dict:
-    """The full batch at ``step``: ``{"tokens", "labels"}`` (B, S) int64 on the CPU."""
-    if cfg.input_kind != "tokens" or cfg.family in ("audio", "encdec"):
+    """The full batch at ``step`` on the CPU: ``{"tokens", "labels"}`` (B, S)
+    int64, or for ``input_kind == "embeddings"`` (the VLM's frontend stub)
+    ``{"embeds" (B, S, d), "labels"}``: the token stream looked up in a table
+    of N(0, 0.02) entries drawn from the step's own generator, the
+    distribution of the JAX package's ``jax.random`` table."""
+    if cfg.family in ("audio", "encdec"):
         raise NotImplementedError(f"family {cfg.family!r} batches are not ported yet "
                                   "(ROADMAP queue 1, 'Other model families')")
     stream = task.sequence_batch(_generator(task.seed, step), shape.global_batch, shape.seq_len)
+    if cfg.input_kind == "embeddings":
+        table = torch.randn((task.vocab_size, cfg.d_model),
+                            generator=_generator(task.seed, step, 1)) * 0.02
+        return {"embeds": table[stream[:, :-1]].to(getattr(torch, cfg.dtype)),
+                "labels": stream[:, 1:]}
     return {"tokens": stream[:, :-1], "labels": stream[:, 1:]}
+
+
+def batch_on(raw: dict, device) -> dict:
+    """A batch's arrays as tensors on ``device``: token ids and labels as
+    int64, embeddings in their own dtype."""
+    out = {}
+    for k, v in raw.items():
+        t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+        out[k] = t.to(device) if t.is_floating_point() else t.to(device, torch.long)
+    return out

@@ -23,14 +23,13 @@ import logging
 import os
 import tempfile
 
-import numpy as np
 import torch
 
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.configs import ARCH_MODULES, get_config
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.core.policy import BitPolicy
-from repro_torch.data.pipeline import TokenTask, global_batch
+from repro_torch.data.pipeline import TokenTask, batch_on, global_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
 from repro_torch.quant import apply as qapply
@@ -82,8 +81,7 @@ def build(args):
     shape = ShapeSpec("train", "train", args.seq, args.batch)
 
     def batch_fn(step):
-        return {k: torch.as_tensor(np.asarray(v)).to(device, torch.long)
-                for k, v in global_batch(task, cfg, shape, step).items()}
+        return batch_on(global_batch(task, cfg, shape, step), device)
 
     def loop_step(state, batch):
         params, opt_state = state

@@ -1,4 +1,7 @@
-"""Decoder-only LM, dense and MoE families (port of ``repro/models/decoder.py``).
+"""Decoder-only LM, dense, MoE and VLM families (port of ``repro/models/decoder.py``).
+
+The VLM (qwen2-vl-2b) is the dense decoder with M-RoPE; its vision frontend
+is a stub, so ``embeds=`` may replace the token lookup in every entry point.
 
 Two parameter layouts, as in the JAX package:
   * train: per-layer params stacked ``(L, ...)`` — what ``init`` returns and
@@ -33,7 +36,7 @@ def init(cfg, generator: torch.Generator | None = None, device=None) -> dict:
     ``generator`` (default: seed 0 on ``device``).
     """
     device = resolve_device(device)
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
                                   "(ROADMAP queue 1, 'Other model families')")
     if generator is None:
@@ -112,17 +115,27 @@ def _layer_body(x, lp: dict, cfg, positions, lb, impl: str):
     return h + _ffn(lp, hn, cfg, impl, lb)
 
 
-def forward(params: dict, cfg, tokens: torch.Tensor, *, bits=None,
+def _inputs(params: dict, tokens, embeds, cfg, *, bits=None, impl: str = "auto"):
+    """The first hidden state: the embedded tokens, or the caller's ``embeds``
+    (the VLM's frontend stub) in the model's dtype."""
+    if embeds is not None:
+        return embeds.to(_dtype(cfg))
+    return embed_tokens(params, tokens, cfg, bits=bits, impl=impl)
+
+
+def forward(params: dict, cfg, tokens: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None, *, bits=None,
             impl: str = "auto") -> torch.Tensor:
     """Full-sequence forward over the stacked train layout -> final hidden (B, S, d).
 
     ``bits``: None, or ``{"embed": b, "layers": {... per-layer lists ...}}``
     as ``quant.apply.bits_for_scan`` builds it (QAT per-layer bitwidths).
+    ``embeds`` (B, S, d) replaces the token lookup.
     """
-    x = embed_tokens(params, tokens, cfg, bits=None if bits is None else bits.get("embed"),
-                     impl=impl)
+    x = _inputs(params, tokens, embeds, cfg, bits=None if bits is None else bits.get("embed"),
+                impl=impl)
     b, s = x.shape[:2]
-    positions = layers.position_ids(b, s, device=x.device)
+    positions = layers.position_ids(b, s, cfg.rope, device=x.device)
     stacked = _unbind(params["layers"])
     for i in range(cfg.n_layers):
         lb = None if bits is None else _per_layer(bits["layers"], i)
@@ -145,12 +158,13 @@ def logits_fn(params: dict, hidden: torch.Tensor, cfg, *, bits=None,
                          bits=None if bits is None else bits.get("lm_head"), impl=impl)
 
 
-def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor, *, bits=None,
-            impl: str = "auto", loss_chunk: int = 2048) -> torch.Tensor:
+def lm_loss(params: dict, cfg, tokens: torch.Tensor | None = None,
+            labels: torch.Tensor | None = None, embeds: torch.Tensor | None = None, *,
+            bits=None, impl: str = "auto", loss_chunk: int = 2048) -> torch.Tensor:
     """Mean softmax cross-entropy, chunked over the sequence (the JAX package
     recomputes each chunk's logits in the backward; here autograd keeps them,
     which at the search's sequence lengths is one chunk)."""
-    hidden = forward(params, cfg, tokens, bits=bits, impl=impl)
+    hidden = forward(params, cfg, tokens, embeds, bits=bits, impl=impl)
     return lm_loss_from_hidden(params, cfg, hidden, labels, bits=bits, impl=impl,
                                loss_chunk=loss_chunk)
 
@@ -208,7 +222,8 @@ def init_cache(cfg, batch: int, seq: int, dtype=torch.bfloat16, *, state_bits=No
             for _ in range(cfg.n_layers)]
 
 
-def prefill(params: dict, cfg, tokens: torch.Tensor, *, impl: str = "auto", lengths=None,
+def prefill(params: dict, cfg, tokens: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None, *, impl: str = "auto", lengths=None,
             logits: bool = True):
     """Full-sequence forward that also returns the fp KV rows (serve prefill).
 
@@ -219,9 +234,9 @@ def prefill(params: dict, cfg, tokens: torch.Tensor, *, impl: str = "auto", leng
     the head would dequantize the whole tied embedding for nothing.
     """
     del lengths
-    x = embed_tokens(params, tokens, cfg)
+    x = _inputs(params, tokens, embeds, cfg)
     b, s = x.shape[:2]
-    positions = layers.position_ids(b, s, device=x.device)
+    positions = layers.position_ids(b, s, cfg.rope, device=x.device)
     caches = []
     for lp in params["layers"]:
         xn = layers.norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
@@ -272,7 +287,7 @@ def prefill_chunk(params: dict, cfg, scratch: list, tokens: torch.Tensor, offset
     """
     x = embed_tokens(params, tokens, cfg)
     b, c = x.shape[:2]
-    positions = layers.position_ids(b, c, device=x.device) + offset
+    positions = layers.position_ids(b, c, cfg.rope, device=x.device) + offset
     seq = scratch[0]["k"].shape[1]
     # a masked row write, not a slice: the last (short) chunk of a prompt
     # near the scratch's end keeps the rows past it instead of being
@@ -295,13 +310,14 @@ def prefill_chunk(params: dict, cfg, scratch: list, tokens: torch.Tensor, offset
 
 
 def decode_step(params: dict, cfg, caches: list, token: torch.Tensor, pos, *,
-                impl: str = "auto"):
+                embeds: torch.Tensor | None = None, impl: str = "auto"):
     """One token per slot through the unrolled layers, cache update at ``pos``.
 
     ``token`` (B, 1); ``pos`` (B,) or scalar.  Each layer's cache (fp dict or
     ``QuantizedKVLayer``) is updated in place.  Returns ``(logits (B, 1, V), caches)``.
+    ``embeds`` (B, 1, d) replaces the token lookup.
     """
-    x = embed_tokens(params, token, cfg)
+    x = _inputs(params, token, embeds, cfg)
     for lp, cache in zip(params["layers"], caches):
         xn = layers.norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
         if isinstance(cache, (QuantizedKVLayer, PagedKVLayer)):

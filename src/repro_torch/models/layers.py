@@ -96,8 +96,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def position_ids(batch: int, seq: int, *, device) -> torch.Tensor:
-    return torch.arange(seq, dtype=torch.int32, device=device).expand(batch, seq)
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections: tuple[int, ...],
+                theta: float = 10_000.0) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the frequency bands split across the (t, h, w)
+    position ids.  x: (B, S, H, hd); positions: (3, B, S) int; ``sections``
+    counts the frequencies of each band and sums to hd/2."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)
+    sec_id = torch.repeat_interleave(torch.arange(len(sections), device=x.device),
+                                     torch.tensor(sections, device=x.device))
+    pos_per_freq = positions[sec_id].permute(1, 2, 0)              # (B, S, hd/2)
+    ang = pos_per_freq.to(torch.float32) * freqs
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def mrope_sections(hd: int) -> tuple[int, int, int]:
+    """The (t, h, w) band sizes over hd/2 frequencies, as the reference splits them."""
+    half = hd // 2
+    return (half - 2 * (half // 3), half // 3, half // 3)
+
+
+def position_ids(batch: int, seq: int, rope_kind: str = "default", *, device) -> torch.Tensor:
+    """(B, S) positions, or (3, B, S) for M-RoPE (text: the three ids coincide)."""
+    pos = torch.arange(seq, dtype=torch.int32, device=device).expand(batch, seq)
+    if rope_kind == "mrope":
+        return pos.expand(3, batch, seq)
+    return pos
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +179,12 @@ def _qkv_post(p: dict, q, k, v, cfg, positions):
     if cfg.rope == "default":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        sections = mrope_sections(cfg.resolved_head_dim)
+        if positions.ndim == 2:          # text: the (t, h, w) positions coincide
+            positions = positions.expand(3, *positions.shape)
+        q = apply_mrope(q, positions, sections, cfg.rope_theta)
+        k = apply_mrope(k, positions, sections, cfg.rope_theta)
     elif cfg.rope != "none":
         raise NotImplementedError(f"rope {cfg.rope!r} is not ported yet "
                                   "(ROADMAP queue 1, 'Other model families')")

@@ -64,14 +64,16 @@ def moe_init(generator: torch.Generator, cfg, dtype=torch.float32, *, lead=(), d
     return p
 
 
-def _expert_weight(w, bits, dtype=None):
+def _expert_weight(w, bits, dtype=None, impl: str = "auto"):
     """Stacked ``(E, ., .)`` expert weights: dequantized (packed) or
-    fake-quantized (QAT) or as they are.  The QAT branch takes the plain
-    fake-quant, as the reference passes ``"xla"``."""
+    fake-quantized (QAT) or as they are.  The QAT branch takes the caller's
+    ``impl``: on a CUDA tensor ``"auto"`` runs the fake-quant kernel on the
+    stack as a ``(-1, N)`` view, one scale per output channel over E and K,
+    which is the scale the reference computes for a stack."""
     if isinstance(w, QuantizedTensor):
         return w.dequantize(dtype or torch.bfloat16)
     if bits is not None:
-        return fake_quant_ste(w, bits, "torch")
+        return fake_quant_ste(w, bits, impl)
     return w
 
 
@@ -127,8 +129,8 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg, *, bits=None, impl: str = "auto") -> 
         h = F.silu(g) * u
         y_e = qt_matmul(h, p["w_down"], impl=impl, out_dtype=x.dtype)
     else:
-        wg, wu, wd = (_expert_weight(p[n], None if bits is None else bits.get(n), x.dtype)
-                      for n in ("w_gate", "w_up", "w_down"))
+        wg, wu, wd = (_expert_weight(p[n], None if bits is None else bits.get(n), x.dtype,
+                                     impl) for n in ("w_gate", "w_up", "w_down"))
         h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg.to(x.dtype))) * torch.einsum(
             "ecd,edf->ecf", buf, wu.to(x.dtype))
         y_e = torch.einsum("ecf,efd->ecd", h, wd.to(x.dtype))

@@ -9,8 +9,8 @@
     scratch = api.init_prefill_scratch(cfg, seq, device=device)     # chunked prefill
     scratch = api.prefill_chunk(params_serve, cfg, scratch, tokens, offset)
 
-The dense and MoE families are ported; the others raise and name the
-ROADMAP item that ports them.
+The dense, MoE, VLM and SSM families are ported; the others raise and name
+the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -19,8 +19,8 @@ from typing import Callable
 
 import torch
 
-from . import decoder
-from .decoder import lm_loss_from_hidden  # noqa: F401  (the JAX registry's name)
+from . import decoder, mamba2
+from .decoder import lm_loss_from_hidden
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +52,22 @@ def _decoder_state(cfg, batch, seq, dtype=torch.bfloat16, *, state_bits=None, bl
 
 
 def _decoder_loss(params, cfg, batch, *, bits=None, impl="auto"):
-    return decoder.lm_loss(params, cfg, batch["tokens"], batch["labels"], bits=bits, impl=impl)
+    return decoder.lm_loss(params, cfg, batch.get("tokens"), batch["labels"], batch.get("embeds"),
+                           bits=bits, impl=impl)
+
+
+def _mamba_loss(params, cfg, batch, *, bits=None, impl="auto"):
+    hidden = mamba2.forward(params, cfg, batch.get("tokens"), batch.get("embeds"), bits=bits,
+                            impl=impl)
+    return lm_loss_from_hidden(params, cfg, hidden, batch["labels"], bits=bits, impl=impl)
+
+
+def _mamba_state(cfg, batch, seq, dtype=torch.bfloat16, *, state_bits=None, block=None,
+                 paged=False, pool_blocks=None, device=None):
+    del seq, dtype, block, pool_blocks
+    if state_bits is not None or paged:
+        raise ValueError("ssm family has no quantizable KV state")
+    return [mamba2.init_state(cfg, batch, device=device) for _ in range(cfg.n_layers)]
 
 
 _DECODER_API = ModelAPI(
@@ -67,9 +82,21 @@ _DECODER_API = ModelAPI(
     prefill_chunk=decoder.prefill_chunk,
 )
 
+# the recurrent state cannot rewind a burst (no decode_verify) nor split a
+# prefill bitwise (no prefill_chunk: the engine recomputes the prefix)
+_MAMBA_API = ModelAPI(
+    init=mamba2.init,
+    unstack=mamba2.unstack_layers,
+    prefill=mamba2.prefill,
+    decode_step=mamba2.decode_step,
+    init_decode_state=_mamba_state,
+    loss=_mamba_loss,
+)
+
+_REGISTRY = {"dense": _DECODER_API, "moe": _DECODER_API, "vlm": _DECODER_API,
+             "ssm": _MAMBA_API}
+
 _NOT_PORTED = {
-    "vlm": "ROADMAP queue 1, 'Other model families' (M-RoPE)",
-    "ssm": "ROADMAP queue 1, 'Other model families' (models/mamba2.py)",
     "hybrid": "ROADMAP queue 1, 'Other model families' (models/hybrid.py)",
     "encdec": "ROADMAP queue 1, 'Other model families' (models/encdec.py)",
     "audio": "ROADMAP queue 1, 'Other model families' (models/encdec.py)",
@@ -77,7 +104,7 @@ _NOT_PORTED = {
 
 
 def get_api(cfg) -> ModelAPI:
-    if cfg.family in ("dense", "moe"):
-        return _DECODER_API
+    if cfg.family in _REGISTRY:
+        return _REGISTRY[cfg.family]
     where = _NOT_PORTED.get(cfg.family, "ROADMAP queue 1")
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet: {where}")

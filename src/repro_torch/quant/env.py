@@ -21,7 +21,7 @@ from repro_torch.core import stats
 from repro_torch.core.policy import BitPolicy, LayerInfo
 from repro_torch.cost import CostModel, ShiftAddCostModel
 from repro_torch.data.images import ImageTask
-from repro_torch.data.pipeline import TokenTask, global_batch
+from repro_torch.data.pipeline import TokenTask, batch_on, global_batch
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.obs import search as obs_search
 from repro_torch.train import optimizer as opt_mod
@@ -188,9 +188,7 @@ class LMQuantEnv(QuantEnvBase):
         self.eval_passes = 0
 
     def _batch(self, step: int) -> dict:
-        raw = self.batches(self.task, self.cfg, self.shape, step)
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device, torch.long)
-                for k, v in raw.items()}
+        return batch_on(self.batches(self.task, self.cfg, self.shape, step), self.device)
 
     def _weight(self, name: str):
         return apply_mod.get_weight(self.params, name)

@@ -205,7 +205,8 @@ class ServeEngine:
                                  "artifact)")
             if self.api.decode_verify is None:
                 raise NotImplementedError(f"family {cfg.family!r} cannot self-speculate: its "
-                                          f"decode state has no burst-rewindable KV form")
+                                          f"decode state has no burst-rewindable KV form "
+                                          f"(DESIGN.md §13)")
             # the draft derives from the UNFUSED tree, so a heterogeneous draft
             # policy never splits a fused leaf; equal-bit groups fuse after
             draft, self.draft_bits = build_draft_params(params, draft_policy, cfg)
@@ -245,6 +246,9 @@ class ServeEngine:
         #: slot -> per-layer fp K/V scratch (1, S_scr, H, hd) carried across
         #: chunks; the live cache is written once, at the final insert
         self._scratch: dict[int, list] = {}
+        #: slot -> its padded prompt head (1, pad) while it prefills in chunks;
+        #: a family without ``prefill_chunk`` re-prefills it each chunk
+        self._chunk_head: dict[int, np.ndarray] = {}
         #: streaming: uid -> on_token callback, and the poll() ring of
         #: (uid, token) committed since the last drain
         self._on_token: dict[int, object] = {}
@@ -741,6 +745,7 @@ class ServeEngine:
         self.slots[slot_id] = _Slot()
         self._pending_token.pop(slot_id, None)
         self._scratch.pop(slot_id, None)
+        self._chunk_head.pop(slot_id, None)
 
     def _finalize(self, slot_id: int | None, req: Request, state: RequestState,
                   results: dict[int, list[int]], diagnostic: str = "") -> None:
@@ -836,10 +841,20 @@ class ServeEngine:
                     rejected.append(req)
                     continue
                 pad = min(_round_up(w, self.prefill_pad), self.max_seq)
-                self._scratch[slot_id] = self.api.init_prefill_scratch(self.cfg, pad,
-                                                                       device=self.device)
+                head = np.zeros((1, pad), np.int32)
+                head[0, :w] = req.prompt[:-1]
+                self._chunk_head[slot_id] = head
+                if self.api.init_prefill_scratch is not None:
+                    self._scratch[slot_id] = self.api.init_prefill_scratch(self.cfg, pad,
+                                                                           device=self.device)
                 continue
             slot.pos = w
+            if w == 0 and self.api.prefill_chunk is None:
+                # a length-1 prompt runs no prefill: attention caches are
+                # causally masked, but a recurrent state is not, so the slot's
+                # rows zero and the request decodes from the initial state
+                # instead of the previous occupant's
+                self._reset_recurrent_rows(slot_id)
             if self.paged and not self._map_slot_blocks(slot_id, req):
                 self.slots[slot_id] = _Slot()
                 if lc is not None:                  # pool too full: back to the queue
@@ -877,14 +892,36 @@ class ServeEngine:
                 lc.transition(RequestState.DECODE, now)
         return rejected
 
+    def _reset_recurrent_rows(self, slot_id: int) -> None:
+        """Zero one slot's row in every plain state tensor with a leading slot
+        axis; quantized and paged KV containers are left alone (attention
+        masks their stale rows)."""
+        def walk(node):
+            if isinstance(node, (kvcache.QuantizedKVLayer, kvcache.PagedKVLayer)):
+                return
+            if isinstance(node, dict):
+                for v in node.values():
+                    walk(v)
+            elif isinstance(node, (list, tuple)):
+                for v in node:
+                    walk(v)
+            elif isinstance(node, torch.Tensor) and node.ndim and \
+                    node.shape[0] == self.max_slots:
+                node[slot_id].zero_()
+        walk(self.state)
+
     # -- chunked prefill -----------------------------------------------------
     def _run_chunks(self, n_decode: int) -> None:
         """Run this turn's budgeted prefill chunks (planned by the scheduler).
 
-        Each chunk is one ``prefill_chunk`` call of ``C`` tokens (the last
-        one padded) that carries the slot's fp K/V scratch; the live cache
-        is written only at the final insert, through the same insert path
-        and valid-length masking as a whole-prompt admission.
+        Decoder families run one ``prefill_chunk`` call of ``C`` tokens a
+        chunk (the last one padded) that carries the slot's fp K/V scratch.
+        A family without it (a recurrent state, whose chunked scan cannot
+        split a prefill bitwise) recomputes the prefix: the whole padded head
+        prefills with ``lengths=[progress]`` each chunk and only the last
+        state is kept.  Either way the live cache or state is written only at
+        the final insert, through the same insert path and valid-length
+        masking as a whole-prompt admission.
         """
         prefilling = [(i, len(s.req.prompt) - 1 - s.pos) for i, s in enumerate(self.slots)
                       if not s.free and s.prefilling]
@@ -896,11 +933,21 @@ class ServeEngine:
             w = len(req.prompt) - 1
             p = s.pos
             with self._span("prefill_chunk", uid=req.uid, offset=p, n=n):
-                toks = np.zeros((1, self.prefill_chunk), np.int32)
-                toks[0, :n] = req.prompt[p:p + n]
-                self._scratch[slot_id] = self.api.prefill_chunk(
-                    self.params, self.cfg, self._scratch[slot_id],
-                    torch.tensor(toks, device=self.device), p, impl=self.impl)
+                if self.api.prefill_chunk is not None:
+                    toks = np.zeros((1, self.prefill_chunk), np.int32)
+                    toks[0, :n] = req.prompt[p:p + n]
+                    self._scratch[slot_id] = self.api.prefill_chunk(
+                        self.params, self.cfg, self._scratch[slot_id],
+                        torch.tensor(toks, device=self.device), p, impl=self.impl)
+                    st = self._scratch[slot_id]
+                else:
+                    # lengths masks the tokens past the progress out of the
+                    # state, so one head shape serves every chunk
+                    _, st = self.api.prefill(
+                        self.params, self.cfg,
+                        torch.tensor(self._chunk_head[slot_id], device=self.device),
+                        impl=self.impl, logits=False,
+                        lengths=torch.tensor([p + n], dtype=torch.int32, device=self.device))
             s.pos = p + n
             self._count("prefill_tokens", n)
             self._count("prefill_chunks")
@@ -914,7 +961,7 @@ class ServeEngine:
                 for tb in range(p // blk, s.pos // blk):
                     self._host_tables[slot_id, tb] = self._grow_alloc(slot_id)
             if s.pos >= w:
-                self._finish_prefill(slot_id, self._scratch[slot_id])
+                self._finish_prefill(slot_id, st)
 
     def _finish_prefill(self, slot_id: int, st) -> None:
         """The final chunk landed: insert the carried K/V into the live cache
@@ -929,7 +976,7 @@ class ServeEngine:
             for tb in range((w - 1) // blk + 1):
                 if self._host_tables[slot_id, tb] < 0:
                     self._host_tables[slot_id, tb] = self._grow_alloc(slot_id)
-            pad = st[0]["k"].shape[1]            # the scratch's padded head length
+            pad = self._chunk_head[slot_id].shape[1]
             self._insert_rows_paged([(slot_id, prompt[:-1])], st, lengths, pad)
             self._tables_dirty = True      # the real row replaces the -1 mask
         else:
@@ -938,6 +985,7 @@ class ServeEngine:
         s.pos = w
         self._pending_token[slot_id] = prompt[-1]   # replayed next step
         self._scratch.pop(slot_id, None)
+        self._chunk_head.pop(slot_id, None)
         lc = self.lifecycles.get(s.req.uid)
         if lc is not None:
             lc.transition(RequestState.DECODE, time.monotonic())

@@ -31,11 +31,14 @@ def _rebuild(tree: Any, it) -> Any:
 def value_and_grad(loss_fn: Callable, params: Any, *args) -> tuple[torch.Tensor, list]:
     """``loss_fn(params, *args)`` and its gradients, one per leaf of
     ``params`` in ``optimizer.leaves`` order.  The params are differentiated
-    through aliases (``detach``), so they themselves never carry autograd state."""
+    through aliases (``detach``), so they themselves never carry autograd state.
+    A leaf the loss does not read (the token table under ``embeds`` inputs)
+    gets a zero gradient, as ``jax.grad`` gives it."""
     alias = [p.detach().requires_grad_() for p in opt_mod.leaves(params)]
     loss = loss_fn(_rebuild(params, iter(alias)), *args)
-    grads = torch.autograd.grad(loss, alias)
-    return loss.detach(), list(grads)
+    grads = torch.autograd.grad(loss, alias, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(a) if g is None else g
+                           for a, g in zip(alias, grads)]
 
 
 def _slice_microbatch(batch: dict, i: int, n: int) -> dict:

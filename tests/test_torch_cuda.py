@@ -1155,3 +1155,88 @@ def test_moe_layer_launches_one_expert_kernel_a_linear(cuda, tokens):
     name = "quant_gemv_experts" if moe.capacity(tokens, cfg) <= 8 else "quant_matmul_experts"
     assert kernels.LAUNCHES[name] == 6 and torch.equal(got, again)
     assert _rel(got, moe.moe_mlp(p, x, cfg, impl="torch")) <= 1e-4
+
+
+#: the full-width linears of mamba2-2.7b (in_proj's N 10576 is 82.6 tiles of
+#: 128; lm_head's N 50280 is no multiple of 16) and qwen2-vl-2b (wqkv, the
+#: fused gate/up, w_down, the untied head of 151936)
+WIDE_LINEARS = {"mamba_in_proj": (2560, 10576), "mamba_out_proj": (5120, 2560),
+                "mamba_lm_head": (2560, 50280), "qwen_wqkv": (1536, 2048),
+                "qwen_w_gu": (1536, 17920), "qwen_w_down": (8960, 1536),
+                "qwen_lm_head": (1536, 151936)}
+
+
+@pytest.mark.parametrize("bits", (4, 8))
+@pytest.mark.parametrize("m", (1, 4, 8, 40))
+@pytest.mark.parametrize("name", sorted(WIDE_LINEARS))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_wide_linears_of_the_new_families_match_plain(cuda, bits, m, name, dtype):
+    """The GEMV (M <= 8) and the GEMM at full width, ragged last channel
+    tiles included, against the plain versions."""
+    k, n = WIDE_LINEARS[name]
+    g = torch.Generator(device=cuda).manual_seed(bits * 7 + m + n)
+    qt = quantize_tensor(torch.randn((k, n), generator=g, device=cuda) / k ** 0.5, bits)
+    x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+    kernels.reset_counts()
+    got = quant_matmul(x, qt.packed, qt.scale, bits, k)
+    ref = (quant_gemv_ref if m <= 8 else quant_matmul_ref)(x, qt.packed, qt.scale, bits, k)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    assert _rel(got, ref) <= (1e-5 if dtype is torch.float32 else 2e-2)
+    assert kernels.LAUNCHES["quant_gemv" if m <= 8 else "quant_matmul"] == 1
+
+
+@pytest.mark.parametrize("shape", ((64, 2048, 1408), (64, 1408, 2048)), ids=("up", "down"))
+@pytest.mark.parametrize("bits", (2, 4, 8))
+def test_fake_quant_kernel_on_expert_stacks_matches_plain(cuda, shape, bits):
+    """deepseek-moe-16b's stacked experts as the MoE QAT runs them: "auto"
+    launches the kernel on the (E*K, N) view, forward and STE backward bit
+    for bit the plain versions, one scale per channel over E and K."""
+    from repro_torch.kernels.fake_quant import ops as fq_ops
+
+    gen = torch.Generator(device=cuda).manual_seed(bits)
+    w = torch.randn(shape, generator=gen, device=cuda) * 0.05
+    g = torch.randn(shape, generator=gen, device=cuda)
+    outs, grads = [], []
+    for impl in ("torch", "auto"):
+        leaf = w.clone().requires_grad_()
+        kernels.reset_counts()
+        out = fq_ops.fake_quant_ste(leaf, bits, impl)
+        out.backward(g)
+        torch.cuda.synchronize()
+        outs.append(out.detach())
+        grads.append(leaf.grad)
+        want = 1 if impl == "auto" else 0
+        assert kernels.LAUNCHES["fake_quant"] == kernels.LAUNCHES["fake_quant_ste_bwd"] == want
+    assert _bits_equal(*outs) and _bits_equal(*grads)
+
+
+@pytest.mark.parametrize("k_bits,v_bits", [(8, 8), (8, 4), (4, 2)])
+def test_decode_step_kernel_takes_a_group_of_six(cuda, k_bits, v_bits):
+    """qwen2-vl-2b's attention: 12 query heads on 2 KV heads of 128, a query
+    group of 6 (not a power of two); bytes exact, output within rel 1e-5."""
+    b, s, h, hq, hd, block = 4, 256, 2, 12, 128, 16
+    rng = np.random.default_rng(k_bits * 10 + v_bits + 6)
+    lens = torch.tensor([7, 16, 100, 200], device=cuda)
+    k = torch.from_numpy(rng.normal(size=(b, 200, h, hd)).astype(np.float32)).to(cuda)
+    v = torch.from_numpy(rng.normal(size=(b, 200, h, hd)).astype(np.float32)).to(cuda)
+    base = tcache.init_kv_layer(b, s, h, hd, k_bits=k_bits, v_bits=v_bits, block=block,
+                                device=cuda)
+    base = tcache.insert_rows(base, torch.arange(b, device=cuda), k, v, valid_len=lens)
+    layers = [dataclasses.replace(base, **{f: getattr(base, f).clone() for f in
+                                           ("k_packed", "k_scale", "v_packed", "v_scale")})
+              for _ in range(2)]
+    for step in range(3):
+        pos = (lens + step).to(torch.int32)
+        valid = torch.arange(s, device=cuda)[None, :] <= pos[:, None]
+        q = torch.from_numpy(rng.normal(size=(b, hq, hd)).astype(np.float32)).to(cuda)
+        kn = torch.from_numpy(rng.normal(size=(b, 1, h, hd)).astype(np.float32)).to(cuda)
+        vn = torch.from_numpy(rng.normal(size=(b, 1, h, hd)).astype(np.float32)).to(cuda)
+        kernels.reset_counts()
+        o_k, _ = kv_ops.quant_kv_decode_step(q, layers[0], pos, kn, vn, valid)
+        o_p, _ = kv_ops.quant_kv_decode_step(q, layers[1], pos, kn, vn, valid, impl="torch")
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["quant_kv_decode_step"] == 1
+        for f in ("k_packed", "k_scale", "v_packed", "v_scale"):
+            assert torch.equal(getattr(layers[0], f), getattr(layers[1], f)), (step, f)
+        assert _rel(o_k, o_p) <= 1e-5

@@ -35,7 +35,11 @@ def test_every_submodule_imports_without_jax():
             "repro_torch.quant.calibration", "repro_torch.core.baselines",
             "repro_torch.checkpoint.store", "repro_torch.launch.report",
             "repro_torch.launch.train", "repro_torch.runtime.loop",
-            "repro_torch.runtime.elastic", "repro_torch.models.moe"} <= set(mods)
+            "repro_torch.runtime.elastic", "repro_torch.models.moe",
+            "repro_torch.models.mamba2", "repro_torch.models.layers",
+            "repro_torch.models.decoder", "repro_torch.models.registry",
+            "repro_torch.data.pipeline", "repro_torch.serve.engine",
+            "repro_torch.train.train_step", "repro_torch.quant.env"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -128,3 +132,24 @@ def test_copied_modules_keep_the_references_code(port, ref):
         return text[text.index('"""', 3) + 3:]
 
     assert body(PORT / port) == body(ROOT / "src" / "repro" / ref)
+
+
+def test_new_families_on_cpu_tensors_never_launch(monkeypatch):
+    """The stacked experts' fake-quant and the SSM and VLM families: "auto"
+    on CPU tensors runs the plain versions, "cuda" on them raises, no kernel
+    is built, and without a card the engine raises unless asked for the CPU."""
+    from repro_torch import kernels
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fake_quant.ops import fake_quant_ste
+
+    kernels.reset_counts()
+    stack = torch.randn((4, 8, 16))
+    assert fake_quant_ste(stack, 4).shape == stack.shape
+    with pytest.raises(ValueError, match="CUDA"):
+        fake_quant_ste(stack, 4, "cuda")
+    assert kernels.PLAIN_CALLS["fake_quant"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 0 and _build._lib is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for arch in ("mamba2-2.7b", "qwen2-vl-2b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ServeEngine(configs.get_config(arch).reduced(), {})

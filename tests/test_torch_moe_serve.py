@@ -105,7 +105,7 @@ def test_registry_serves_the_moe_family(served):
     mlp = served["tserve"]["layers"][1]["mlp"]
     assert mlp["w_gate"].packed.ndim == 3 and "w_gu" in mlp["shared"]
     assert mlp["router"].dtype == torch.float32
-    for fam in ("ssm", "hybrid", "encdec", "vlm", "audio"):
+    for fam in ("hybrid", "encdec", "audio"):
         with pytest.raises(NotImplementedError):
             registry.get_api(type("C", (), {"family": fam})())
 
