@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a)
-and runs seventeen phases; any failure raises, so the exit code is nonzero and
+and runs nineteen phases; any failure raises, so the exit code is nonzero and
 the last line is not the ``ok`` line:
 
   1. environment: the card's name and power limit, torch/CUDA versions, and
@@ -211,7 +211,39 @@ the last line is not the ``ok`` line:
      plain versions and chunked admission (the prefix recomputed) against
      whole, streams equal up to near-ties, and a length-1 prompt in a slot
      a longer request left decoding as on a fresh engine;
- 17. one ``{"kernels": [...]}`` JSON line (each row's launches summed over
+ 17. zamba2-2.7b, the hybrid (54 Mamba2 layers, one shared attention +
+     SwiGLU block every 6: 9 applications, 32 heads of 80, a 4096 window):
+     (a) its linears (in_proj N 10448, the shared block's, the head) through
+     the GEMV and the GEMM; row 3 at 32 KV heads of 80 under the window in
+     ``kv_valid``, bytes exact, bit-equal with the rows older than the
+     window changed, only the block at ``pos`` requantized; row 8 at the same
+     heads, d 512 (bit for bit the launches it replaces) and 2560; (b)
+     ``launch.serve.main --wbits mixed`` at full width and depth, phase 4's
+     geometry, a K 8 / V 4 state over the 9 entries: launches as predicted
+     (the shared block's four linears at each application, row 3 nine
+     times a step), the state a slot split into Mamba and KV, a profiled
+     rerun; (c) a ``ServeEngine`` in f32 of 2 slots x 4608, a 4161-token
+     prompt (the flash prefill under the window) and a short one, 64 new
+     tokens, through the kernels and the plain versions (streams up to
+     near-ties, first-token logits within rel 1e-2 after 4352-row prefills,
+     1e-3 on one state), then on one state a decode step's logits
+     bit-equal with the rows older than the window changed and only the
+     blocks at ``pos`` requantized; (d) its width cut to 12 layers: one QAT
+     step in f32, kernels against plain and again, every leaf bit-equal;
+     ``launch.train.main`` (8 steps of 8 x 128 at 4 bits);
+     ``launch.search.main`` under a size and a state limit, its artifact
+     through ``launch.serve.main --policy``;
+ 18. whisper-tiny at full width and depth (4 + 4 layers, d 384, LayerNorm,
+     1500 frames, an untied vocabulary of 51865): (a) its linears (the
+     head's odd N included) through the GEMV and the GEMM; (b) packed under
+     the mixed policy and fused, ``prefill(tokens, frames)`` at B 4, 32
+     greedy tokens through ``decode_step``, kernels against plain versions
+     (tokens up to near-ties, logits within rel 5e-2), ``prepare_decode``
+     against ``prefill``'s cross K/V, the launches a step, the engine's
+     refusal; (c) ``launch.train.main`` (8 steps of 8 x 128 with the frames)
+     and ``launch.search.main`` under a size limit, its artifact packed and
+     verified, a state limit refused;
+ 19. one ``{"kernels": [...]}`` JSON line (each row's launches summed over
      the main paths that run it), the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -2332,8 +2364,15 @@ def profile_steps(torch, eng, reqs) -> None:
 
 def _fq_per_forward(cfg, specs) -> int:
     """Fake-quant launches one forward pass makes: one per quantizable weight,
-    and the tied embedding twice (the lookup and the head)."""
-    return len(specs) + (1 if cfg.tie_embeddings and "embed" in {l.name for l in specs} else 0)
+    the tied embedding twice (the lookup and the head), and the hybrid's
+    shared block once at each of its applications."""
+    names = {l.name for l in specs}
+    n = len(specs) + (1 if cfg.tie_embeddings and "embed" in names else 0)
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import n_attn_applications
+
+        n += (n_attn_applications(cfg) - 1) * sum(nm.startswith("shared_attn.") for nm in names)
+    return n
 
 
 def qat_step_parity(torch, cfg) -> None:
@@ -2490,20 +2529,36 @@ def _packed_linears(tree) -> int:
                if isinstance(leaf, QuantizedTensor))
 
 
+def _shared_linears(tree, cfg) -> int:
+    """Launches of the hybrid's shared block a forward: its packed linears
+    (fused wqkv, wo, w_gu, w_down) at each application; 0 for other families."""
+    from repro_torch.quant import apply as qapply
+    from repro_torch.quant.tensor import QuantizedTensor
+
+    if "shared_attn" not in tree:
+        return 0
+    from repro_torch.models.hybrid import n_attn_applications
+
+    return n_attn_applications(cfg) * sum(1 for _, leaf in qapply._walk(tree["shared_attn"])
+                                          if isinstance(leaf, QuantizedTensor))
+
+
 def search_launches(cfg, env, phases) -> dict:
     """The launches a search run's structure predicts: 128 fake-quant (and
     STE) launches a forward (and training step) of the weight phase; one fused
-    decode step (row 3) per layer for each step of the state env on a
-    quantized state; for the draft env, one GEMM per packed linear for its
-    calibration prefill and one GEMV per packed linear for each decode step."""
+    decode step (row 3) per KV entry (a layer, or a hybrid's shared-block
+    application) for each step of the state env on a quantized state; for
+    the draft env, one GEMM per packed linear for its calibration prefill and
+    one GEMV per packed linear for each decode step."""
     from repro_torch import kernels
+    from repro_torch.kvcache import kv_entry_names
 
     per_fwd = _fq_per_forward(cfg, env.layer_infos())
     want = dict.fromkeys(kernels.KERNELS, 0)
     want.update(fake_quant=per_fwd * (env.train_steps + env.eval_passes),
                 fake_quant_ste_bwd=per_fwd * env.train_steps)
     if "state_env" in phases:
-        want["quant_kv_decode_step"] = cfg.n_layers * phases["state_env"].steps
+        want["quant_kv_decode_step"] = len(kv_entry_names(cfg)) * phases["state_env"].steps
     if "draft_env" in phases:
         denv = phases["draft_env"]
         n_lin = _packed_linears(denv._deployed)
@@ -4387,9 +4442,9 @@ def moe_qat_step(torch, cfg) -> None:
     torch.cuda.empty_cache()
 
 
-def moe_trainer(torch, cfg) -> dict:
-    """Phase 14 (b): ``launch.train.main`` on the cut model, 8 steps of 8 x 128
-    at 4 bits: the step median and the fake-quant launches a step."""
+def cut_trainer(torch, argv, phase: str) -> dict:
+    """Phases 14 (b) and 17 (d): ``launch.train.main`` on a cut model, 8 steps
+    of 8 x 128 at 4 bits: the step median and the fake-quant launches a step."""
     from repro_torch import kernels
     from repro_torch.launch import train
     from repro_torch.quant import apply as qapply
@@ -4422,7 +4477,7 @@ def moe_trainer(torch, cfg) -> dict:
         free_memory(torch)
         kernels.reset_counts()
         t0 = time.perf_counter()
-        rc = train.main(MOE_TRAIN_ARGV)
+        rc = train.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -4434,10 +4489,10 @@ def moe_trainer(torch, cfg) -> dict:
     want = dict.fromkeys(kernels.KERNELS, 0)
     want.update(fake_quant=per_fwd * steps, fake_quant_ste_bwd=per_fwd * steps)
     if rc != 0 or steps != 8 or launches != want or any(plain.values()):
-        raise AssertionError(f"phase 14 (b): rc {rc}, {steps} steps, launches {launches} "
+        raise AssertionError(f"{phase}: rc {rc}, {steps} steps, launches {launches} "
                              f"(want {want}), plain calls {plain}")
     n_params = sum(leaf.numel() for _, leaf in qapply._walk(state[0]))
-    log(f"  ({smi}) launch.train.main {' '.join(MOE_TRAIN_ARGV)}: rc {rc}, {wall:.2f} s; "
+    log(f"  ({smi}) launch.train.main {' '.join(argv)}: rc {rc}, {wall:.2f} s; "
         f"{cfg2.name} {cfg2.n_layers} layers {cfg2.dtype}, {n_params / 1e9:.3f} G parameters; "
         f"step median {statistics.median(times[1:]) * 1e3:.3f} ms (first "
         f"{times[0] * 1e3:.3f}); peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB;"
@@ -4453,48 +4508,71 @@ def moe_search(torch, cfg) -> None:
     """Phase 14 (c): ``launch.search.main`` on the cut model under a size
     limit (the weight phase; the launches its steps predict), then its
     artifact through ``launch.serve.main --policy``."""
+    art = cut_search(torch, _moe_train_cfg(cfg), MOE_SEARCH_ARGV, MOE_SEARCH_SERVE_ARGV,
+                     "phase 14 (c)", ("quant_gemv_experts",))
+    log(f"    experts at {sorted({b for n, b in art.policy.bits.items() if 'mlp.w_' in n})} "
+        f"bits")
+
+
+def cut_search(torch, cut, argv, serve_argv, phase: str, serve_kernels):
+    """``launch.search.main`` on a cut model (the weight phase, and the state
+    phase where ``argv`` has a ``state_bytes`` limit; the launches their steps
+    predict), then its artifact through ``launch.serve.main --policy``, which
+    must launch each of ``serve_kernels``.  Returns the artifact."""
     from repro_torch import configs as configs_mod
     from repro_torch import kernels
     from repro_torch.core.policy import PolicyArtifact
+    from repro_torch.kvcache import env as kv_env
     from repro_torch.launch import search, serve
 
     smi = smi_line()
-    out = ROOT / "build" / "phase14_policy.json"
+    out = ROOT / "build" / f"phase{phase.split()[1]}_policy.json"
     out.parent.mkdir(exist_ok=True)
-    cut = _moe_train_cfg(cfg)
 
     def cut_config(name):
-        return cut if name == MOE_ARCH else configs_mod.get_config(name)
+        return cut if name == cut.name else configs_mod.get_config(name)
 
-    envs = []
-    real_env, real_s, real_v = search.LMQuantEnv, search.get_config, serve.get_config
+    envs, state_envs = [], []
+    real_env, real_kv = search.LMQuantEnv, kv_env.KVQuantEnv
+    real_s, real_v = search.get_config, serve.get_config
 
     class Recording(real_env):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             envs.append(self)
 
+    class RecordingKV(real_kv):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            state_envs.append(self)
+
     search.LMQuantEnv, search.get_config, serve.get_config = Recording, cut_config, cut_config
+    kv_env.KVQuantEnv = RecordingKV
     try:
         free_memory(torch)
         kernels.reset_counts()
         t0 = time.perf_counter()
-        rc = search.main(MOE_SEARCH_ARGV + ["--out", str(out)])
+        rc = search.main(argv + ["--out", str(out)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, plain = dict(kernels.LAUNCHES), dict(kernels.PLAIN_CALLS)
         env = envs[0]
-        want = search_launches(cut, env, {})
+        want = search_launches(cut, env, {"state_env": state_envs[0]} if state_envs else {})
         if rc not in (0, 1) or launches != want or any(plain.values()):
-            raise AssertionError(f"phase 14 (c): rc {rc}, launches {launches} (want {want}), "
+            raise AssertionError(f"{phase}: rc {rc}, launches {launches} (want {want}), "
                                  f"plain calls {plain}")
         art = PolicyArtifact.load(str(out))
-        log(f"  ({smi}) launch.search.main {' '.join(MOE_SEARCH_ARGV)} ({cut.n_layers} "
+        state = ""
+        if art.state_policy is not None:
+            state = (f"; state policy mean {art.state_policy.mean_bits():.3f} bits over "
+                     f"{len(art.state_policy.layers)} entries, "
+                     f"{art.report['state_bytes']:.0f} B ({state_envs[0].steps} state steps)")
+        log(f"  ({smi}) launch.search.main {' '.join(argv)} ({cut.n_layers} "
             f"layers): rc {rc}, wall {wall:.2f} s, peak allocated "
             f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; {_phase_walls(art)}; "
             f"{env.train_steps} training steps, {env.eval_passes} evaluations; policy mean "
-            f"{art.policy.mean_bits():.3f} bits, size {art.policy.model_size_mib():.1f} MiB; "
-            f"experts at {sorted({b for n, b in art.policy.bits.items() if 'mlp.w_' in n})} bits")
+            f"{art.policy.mean_bits():.3f} bits, size {art.policy.model_size_mib():.1f} MiB"
+            f"{state}")
         log(f"    launches {_nonzero(launches)}, as the run's steps predict; plain calls 0")
         engines = []
         real_engine = serve.ServeEngine
@@ -4508,22 +4586,25 @@ def moe_search(torch, cfg) -> None:
         kernels.reset_counts()
         t0 = time.perf_counter()
         try:
-            rc = serve.main(MOE_SEARCH_SERVE_ARGV + ["--policy", str(out)])
+            rc = serve.main(serve_argv + ["--policy", str(out)])
         finally:
             serve.ServeEngine = real_engine
         torch.cuda.synchronize()
         st = engines[0].stats()
         if (rc != 0 or st["completed"] != 4 or any(st["plain_calls"].values())
-                or not st["launches"]["quant_gemv_experts"]):
-            raise AssertionError(f"phase 14 (c) serving: rc {rc}, {st['completed']} completed, "
-                                 f"launches {_nonzero(st['launches'])}, plain "
-                                 f"{_nonzero(st['plain_calls'])}")
+                or not all(st["launches"][k] for k in serve_kernels)):
+            raise AssertionError(f"{phase} serving: rc {rc}, {st['completed']} completed, "
+                                 f"launches {_nonzero(st['launches'])} (want {serve_kernels}), "
+                                 f"plain {_nonzero(st['plain_calls'])}")
         log(f"  ok served the artifact: {time.perf_counter() - t0:.2f} s, packed "
-            f"{engines[0].weight_container_bytes() / 1e9:.3f} GB, step median "
+            f"{engines[0].weight_container_bytes() / 1e9:.3f} GB, state bits "
+            f"{sorted(set(engines[0].state_bits.values()))}, step median "
             f"{st['decode_step_median_s'] * 1e3:.3f} ms; launches {_nonzero(st['launches'])}")
     finally:
         search.LMQuantEnv, search.get_config, serve.get_config = real_env, real_s, real_v
+        kv_env.KVQuantEnv = real_kv
     torch.cuda.empty_cache()
+    return art
 
 
 # ---------------------------------------------------------------------------
@@ -4652,6 +4733,7 @@ def serve_family(torch, cfg, phase: str, *, kv_state: bool) -> dict:
     admission as the linears predict, and a profiled rerun's busy share.
     Returns the engine and its launches."""
     from repro_torch import kernels
+    from repro_torch.kvcache import kv_entry_names
     from repro_torch.launch import serve
     from repro_torch.serve.engine import Request
 
@@ -4686,12 +4768,12 @@ def serve_family(torch, cfg, phase: str, *, kv_state: bool) -> dict:
     st = eng.stats()
     launches, plain = st["launches"], st["plain_calls"]
     steps, adm = st["decode_steps"], st["admissions"]
-    n_lin = _packed_linears(eng.params)
+    n_lin = _packed_linears(eng.params) + _shared_linears(eng.params, cfg)
     head = 0 if cfg.tie_embeddings else 1
     want = dict.fromkeys(kernels.KERNELS, 0)
     want.update(quant_gemv=(n_lin + head) * steps, quant_matmul=n_lin * adm)
     if kv_state:
-        want["quant_kv_decode_step"] = cfg.n_layers * steps
+        want["quant_kv_decode_step"] = len(kv_entry_names(cfg)) * steps
     if rc != 0 or st["completed"] != 8 or any(plain.values()) or launches != want:
         raise AssertionError(f"{phase}: rc {rc}, completed {st['completed']}, launches "
                              f"{_nonzero(launches)} (want {_nonzero(want)} for {steps} decode "
@@ -4705,6 +4787,14 @@ def serve_family(torch, cfg, phase: str, *, kv_state: bool) -> dict:
         f"allocated {marks['pack_peak'] / 1e9:.3f} GB while packing, "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB serving; depth {cfg.n_layers} of "
         f"{cfg.n_layers} (no cut)")
+    if isinstance(eng.state, dict):                    # the hybrid's {"mamba", "attn"}
+        parts = {k: sum(t.numel() * t.element_size() for lay in eng.state["mamba"]
+                        for t in lay.values()) if k == "mamba" else
+                 sum(a.container_bytes() for a in eng.state["attn"]) for k in eng.state}
+        log(f"  the state a slot: Mamba {parts['mamba'] / eng.max_slots / 1e6:.2f} MB (f32, "
+            f"{len(eng.state['mamba'])} layers), shared-attention KV "
+            f"{parts['attn'] / eng.max_slots / 1e6:.2f} MB ({len(eng.state['attn'])} "
+            f"applications, K 8 / V 4, {eng.max_seq} positions)")
     log(f"  {steps} decode steps, {adm} admissions: step median "
         f"{st['decode_step_median_s'] * 1e3:.3f} ms, TTFT p50 {ttft['p50'] * 1e3:.1f} ms, p99 "
         f"{ttft['p99'] * 1e3:.1f} ms; launches {_nonzero(launches)} ({n_lin} packed linears"
@@ -4828,6 +4918,581 @@ def ssm_modes(torch, cfg) -> None:
     log(f"  ok a length-1 prompt in the slot a 20-token request left decodes as on a fresh "
         f"engine ({new} tokens equal): the slot's recurrent rows were reset")
     del serve, runs
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 17 and 18: zamba2-2.7b (the hybrid) and whisper-tiny (enc-dec)
+# ---------------------------------------------------------------------------
+
+ZAMBA_ARCH = "zamba2-2.7b"
+WHISPER_ARCH = "whisper-tiny"
+#: zamba2-2.7b's packed linears, (N, K): in_proj (z, x, B, C, dt: 2 x 5120 + 2 x
+#: 64 + 80), out_proj, the shared block's fused wqkv (3 x 32 heads of 80), fused
+#: gate/up, w_down, and the untied head; whisper-tiny's fused wqkv (3 x 6 heads of
+#: 64), w_up, w_down and the untied head (51865: N % 4 = 1)
+ZAMBA_LINEARS = {"in_proj": (10448, 2560), "out_proj": (2560, 5120), "wqkv": (7680, 2560),
+                 "w_gu": (20480, 2560), "w_down": (2560, 10240), "lm_head": (32000, 2560)}
+WHISPER_LINEARS = {"wqkv": (1152, 384), "w_up": (1536, 384), "w_down": (384, 1536),
+                   "lm_head": (51865, 384)}
+#: the shared attention's decode step: 32 KV heads of 80 (a group of 1) over
+#: 4608 positions under the 4096 window; positions before, at and past it
+HD80_KV = dict(B=4, n_kv=32, g=1, hd=80, S=4608, block=16, window=4096)
+HD80_POS = (300, 4095, 4100, 4607)
+#: row 8 at the same heads: d 512 (the widest its gate admits, where it must
+#: equal the launches it replaces bit for bit) and zamba2's d 2560
+HD80_PROJ_D = (512, 2560)
+#: phase 17 (c): 2 slots of 4608, a prompt past the window and a short one
+WINDOW_SEQ, WINDOW_PROMPT, WINDOW_NEW = 4608, 4161, 64
+#: phase 17 (d): the width cut to 12 layers (two applications of the shared block)
+ZAMBA_CUT_LAYERS = 12
+ZAMBA_TRAIN_ARGV = ["--arch", ZAMBA_ARCH, "--layers", str(ZAMBA_CUT_LAYERS), "--steps", "8",
+                    "--batch", "8", "--seq", "128", "--wbits", "4", "--seed", str(SEED)]
+#: 8 bits: about 712 MiB for the cut model; the state at 4 slots x 512, 8 bits:
+#: 2 x 2 x 4 x 512 x 32 x 80 bytes (plus scales)
+ZAMBA_SEARCH_ARGV = ["--arch", ZAMBA_ARCH, "--limit", "size_mib=600", "--limit",
+                     "state_bytes=12600000", "--kv-max-seq", "512", "--pretrain-steps", "4",
+                     "--phase2-iters", "4", "--seq", "64", "--batch", "8", "--seed", str(SEED)]
+ZAMBA_SEARCH_SERVE_ARGV = ["--arch", ZAMBA_ARCH, "--requests", "4", "--max-new", "8",
+                           "--slots", "4", "--max-seq", "512", "--seed", str(SEED + 26)]
+#: phase 18: 4 clips, prompts of one length drawn in 4-16, 32 greedy tokens
+WHISPER_B, WHISPER_NEW = 4, 32
+WHISPER_TRAIN_ARGV = ["--arch", WHISPER_ARCH, "--steps", "8", "--batch", "8", "--seq", "128",
+                      "--wbits", "4", "--seed", str(SEED)]
+#: 8 bits: about 37 MiB (the 51865 x 384 head and table are 19.9 M each)
+WHISPER_SEARCH_ARGV = ["--arch", WHISPER_ARCH, "--limit", "size_mib=30", "--pretrain-steps",
+                       "4", "--phase2-iters", "4", "--seq", "64", "--batch", "8",
+                       "--seed", str(SEED)]
+
+
+def _kv_clone_state(torch, state):
+    """A deep copy of a decode state (tensors and KV containers)."""
+    from repro_torch.kvcache import QuantizedKVLayer
+
+    if isinstance(state, QuantizedKVLayer):
+        return _clone(state)
+    if isinstance(state, dict):
+        return {k: _kv_clone_state(torch, v) for k, v in state.items()}
+    if isinstance(state, list):
+        return [_kv_clone_state(torch, v) for v in state]
+    return state.clone()
+
+
+def _scramble_outside(torch, layer, pos, window: int, seed: int) -> int:
+    """Overwrite, in place, the packed K/V levels of every row older than the
+    window of each slot's ``pos`` with other levels; returns the rows touched."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    old = torch.arange(layer.seq, device="cuda")[None, :] <= (pos[:, None].long() - window)
+    for side in ("k_packed", "v_packed"):
+        t = getattr(layer, side)
+        noise = torch.randint(-100, 100, t.shape, generator=g, device="cuda", dtype=torch.int8)
+        t.copy_(torch.where(old[:, None, :, None], noise, t))
+    return int(old.sum())
+
+
+def _moved_blocks(a, b, block: int) -> list[set]:
+    """Per slot, the sequence blocks whose packed K or V bytes differ."""
+    out = []
+    for i in range(a.k_packed.shape[0]):
+        rows = set()
+        for side in ("k_packed", "v_packed"):
+            diff = (getattr(a, side)[i] != getattr(b, side)[i]).any(dim=0).any(dim=-1)
+            rows |= set(diff.nonzero().flatten().tolist())
+        out.append({r // block for r in rows})
+    return out
+
+
+def check_window_kernels(torch, gen, results: dict) -> None:
+    """Phase 17 (a): row 3 at zamba2's heads (32 KV heads of 80, a group of
+    1) under the 4096 window in ``kv_valid``, K 8 / V 4, 8 / 8 and 4 / 2, f32
+    and bf16: cache bytes exact against the plain version and the output
+    within rel 1e-4 (phase 2's limit); the output bit-equal when the rows
+    older than the window hold other levels; only the block at ``pos``
+    requantized.  Row 8 at the same heads and window, d 512 and 2560, weights
+    at 4 bits: scales rel 1e-6 and output rel 1e-5 against its plain version
+    where no cache byte differs; at d 512 bit for bit the launches it
+    replaces."""
+    from repro_torch.kernels.quant_kv import ops as kv_ops
+    from repro_torch.models.layers import rope_freqs
+    from repro_torch.quant.tensor import quantize_tensor
+
+    smi = smi_line()
+    c = HD80_KV
+    b, s, h, hd, blk, win = c["B"], c["S"], c["n_kv"], c["hd"], c["block"], c["window"]
+    hq = h * c["g"]
+    pos = torch.tensor(HD80_POS, dtype=torch.int32, device="cuda")
+    ar = torch.arange(s, device="cuda")[None, :]
+    valid = (ar <= pos[:, None]) & (ar > pos[:, None] - win)
+    r = results["quant_kv_decode_step"]
+    for k_bits, v_bits in ((8, 4), (8, 8), (4, 2)):
+        base = _kv_layer_of(torch, gen, b, s, h, hd, blk, k_bits, v_bits)
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, hq, hd), generator=gen, device="cuda").to(dt)
+            kn = torch.randn((b, 1, h, hd), generator=gen, device="cuda").to(dt)
+            vn = torch.randn((b, 1, h, hd), generator=gen, device="cuda").to(dt)
+            lk, lp, lo = _clone(base), _clone(base), _clone(base)
+            n_old = _scramble_outside(torch, lo, pos, win, k_bits * 10 + v_bits)
+            o_k, _ = kv_ops.quant_kv_decode_step(q, lk, pos, kn, vn, valid,
+                                                 out_dtype=torch.float32)
+            o_o, _ = kv_ops.quant_kv_decode_step(q, lo, pos, kn, vn, valid,
+                                                 out_dtype=torch.float32)
+            o_p, _ = kv_ops.quant_kv_decode_step(q, lp, pos, kn, vn, valid, impl="torch",
+                                                 out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            tag = f"phase 17 (a): row 3 at hd {hd}, k{k_bits}/v{v_bits} {dt}"
+            for f in ("k_packed", "k_scale", "v_packed", "v_scale"):
+                if not torch.equal(getattr(lk, f), getattr(lp, f)):
+                    raise AssertionError(f"{tag}: {f} differs from the plain version")
+            err = rel(o_k, o_p)
+            r["max_abs_err"] = max(r["max_abs_err"], float((o_k - o_p).abs().max()))
+            if not err <= 1e-4:
+                raise AssertionError(f"{tag}: rel {err:.3g} > 1e-4")
+            if not torch.equal(o_k, o_o):
+                raise AssertionError(f"{tag}: the output moved when the {n_old} rows older "
+                                     f"than the window changed (rel {rel(o_k, o_o):.3g})")
+            moved = _moved_blocks(lk, base, blk)
+            want = [{p // blk} for p in HD80_POS]
+            if moved != want:
+                raise AssertionError(f"{tag}: requantized blocks {moved}, want {want}")
+        t_k = time_ms(torch, lambda: kv_ops.quant_kv_decode_step(q, _clone(base), pos, kn, vn,
+                                                                 valid))
+        log(f"  ok ({smi}) row 3 at {h} KV heads of {hd} (a group of 1), B {b}, S {s}, window "
+            f"{win}, k{k_bits}/v{v_bits}, f32 and bf16: bytes exact, rel {err:.2e}; bit-equal "
+            f"with the {n_old} rows older than the window changed; only the blocks at pos "
+            f"{HD80_POS} requantized; a call with a cache copy {t_k:.4f} ms")
+        del base
+    r8 = results["quant_kv_decode_step_proj"]
+    ang = pos[:, None].float() * rope_freqs(hd, 10_000.0, device="cuda")
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    base = _kv_layer_of(torch, gen, b, s, h, hd, blk, 8, 4)
+    for d in HD80_PROJ_D:
+        wq = quantize_tensor(torch.randn((d, 3 * hq * hd), generator=gen, device="cuda")
+                             / d ** 0.5, 4)
+        x = torch.randn((b, d), generator=gen, device="cuda")
+        lk, lp = _clone(base), _clone(base)
+        o_k, _ = kv_ops.quant_kv_decode_step_proj(x, wq.packed, wq.scale, cos, sin, lk, pos,
+                                                  valid, w_bits=4, n_heads=hq)
+        o_p, _ = kv_ops.quant_kv_decode_step_proj(x, wq.packed, wq.scale, cos, sin, lp, pos,
+                                                  valid, w_bits=4, n_heads=hq, impl="torch")
+        torch.cuda.synchronize()
+        tag = f"phase 17 (a): row 8 at hd {hd}, d {d}"
+        for f in ("k_scale", "v_scale"):
+            if not rel(getattr(lk, f), getattr(lp, f)) <= 1e-6:
+                raise AssertionError(f"{tag}: {f} rel {rel(getattr(lk, f), getattr(lp, f)):.3g}")
+        diff = sum(int((getattr(lk, f) != getattr(lp, f)).sum()) for f in ("k_packed",
+                                                                             "v_packed"))
+        err = rel(o_k, o_p)
+        r8["max_abs_err"] = max(r8["max_abs_err"], float((o_k - o_p).abs().max()))
+        if diff == 0 and not err <= 1e-5:
+            raise AssertionError(f"{tag}: rel {err:.3g} > 1e-5 against the plain version")
+        note = f"plain rel {err:.2e}" + (f" ({diff} cache bytes at a rounding edge)" if diff
+                                         else ", cache bytes exact")
+        if d <= 512:
+            lc = _clone(base)
+            o_c = proj_composition(torch, x, wq, lc, pos, valid, n_heads=hq, step="cuda")
+            torch.cuda.synchronize()
+            same = torch.equal(o_k, o_c) and all(torch.equal(getattr(lk, f), getattr(lc, f))
+                                                 for f in ("k_packed", "k_scale", "v_packed",
+                                                           "v_scale"))
+            if not same:
+                raise AssertionError(f"{tag}: differs from the launches it replaces")
+            note += "; bit for bit the GEMV, the rotation and row 3"
+        t_k = time_ms(torch, lambda: kv_ops.quant_kv_decode_step_proj(
+            x, wq.packed, wq.scale, cos, sin, _clone(base), pos, valid, w_bits=4, n_heads=hq))
+        log(f"  ok ({smi}) row 8 at {hq} heads of {hd} ({3 * hd} projected rows a kv head, "
+            f"{3 * hd // 16} tiles of 16), d {d}, w 4 bits, K 8 / V 4, window {win}: {note}; a "
+            f"call with a cache copy {t_k:.4f} ms")
+    del base
+    torch.cuda.empty_cache()
+
+
+def _hybrid_packed(torch, cfg, seed: int):
+    from repro_torch.launch.dryrun import dryrun_policy
+    from repro_torch.models import hybrid
+    from repro_torch.quant import apply as qapply
+
+    params = hybrid.init(cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    return qapply.pack_for_serve(params, dryrun_policy(qapply.layer_specs(params, cfg), "mixed"),
+                                 cfg)
+
+
+def serve_window(torch, cfg) -> dict:
+    """Phase 17 (c): the window on the card.  A ``ServeEngine`` at full width
+    and depth in f32 (as phases 8 (a) and 16 (c) hold kernels against plain
+    versions: in bf16 the two paths' roundings through a 4352-row prefill and
+    54 layers part the first logits by rel 0.14), 2 slots of 4608, a K 8 /
+    V 4 state: a 4161-token prompt (its prefill takes the flash path under
+    the window) and a 12-token one, 64 new tokens each, through the kernels
+    and through the plain versions: the first token's logits within rel
+    1e-2 (each path's prefill of 4352 rows through 54 layers parts the
+    states with depth: logged), streams equal up to near-ties of the largest
+    logit difference the run shows where they agree (the recurrent states
+    carry that parting step by step), launches as predicted.  Then on
+    one state: a decode step through the kernels and the plain versions
+    within rel 1e-3 (phase 8's f32 limit); its
+    logits bit-equal when the rows older than the window change; only the
+    block at ``pos`` requantized in each of the 9 applications' caches."""
+    from repro_torch import kernels
+    from repro_torch.kvcache import insert_state_rows
+    from repro_torch.models import hybrid
+    from repro_torch.quant import apply as qapply
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    smi = smi_line()
+    free_memory(torch)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    serve = _hybrid_packed(torch, cfg, SEED + 24)
+    pad = min(-(-(WINDOW_PROMPT - 1) // 256) * 256, WINDOW_SEQ)     # the engine's prefill rows
+    gen = torch.Generator().manual_seed(SEED + 25)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (WINDOW_PROMPT, 12)]
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=WINDOW_NEW) for i, p in enumerate(prompts)]
+    kw = dict(max_slots=2, max_seq=WINDOW_SEQ, prefill_pad=256, shed=steady(),
+              state_bits=state_policy(cfg, 2, WINDOW_SEQ))
+    runs = {}
+    for mode, extra in (("kernels", {}), ("plain", {"impl": "torch"})):
+        kernels.reset_counts()
+        eng = ServeEngine(cfg, serve, **kw, **extra)
+        collect = record_logits(torch, eng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run([dataclasses.replace(r) for r in reqs])
+        torch.cuda.synchronize()
+        st = eng.stats()
+        runs[mode] = dict(out=out, rows=collect(), st=st)
+        ttft = st["latency"]["ttft_s"]
+        log(f"  ({smi}) {mode:7s}: {time.perf_counter() - t0:.2f} s, {st['decode_steps']} "
+            f"decode steps (median {st['decode_step_median_s'] * 1e3:.3f} ms), "
+            f"{st['admissions']} admission (TTFT p50 {ttft['p50'] * 1e3:.1f} ms, the "
+            f"{WINDOW_PROMPT}-token prompt padded to {pad} through the flash path under the "
+            f"window); launches {_nonzero(st['launches'])}, plain {_nonzero(st['plain_calls'])}")
+        del eng
+    st = runs["kernels"]["st"]
+    fused = qapply.fuse_projections(serve)             # the tree the engines serve
+    n_lin = _packed_linears(fused) + _shared_linears(fused, cfg)
+    steps, adm = st["decode_steps"], st["admissions"]
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(quant_gemv=(n_lin + 1) * steps, quant_matmul=n_lin * adm,
+                quant_kv_decode_step=hybrid.n_attn_applications(cfg) * steps)
+    if st["launches"] != want or any(st["plain_calls"].values()):
+        raise AssertionError(f"phase 17 (c): launches {_nonzero(st['launches'])} (want "
+                             f"{_nonzero(want)}), plain {_nonzero(st['plain_calls'])}")
+    # one state after the engine's prefill (the heads padded to 4352 rows):
+    # the gap, the window, the block at pos
+    heads = [p[:-1] for p in prompts]
+    toks = torch.zeros((2, pad), dtype=torch.long)
+    for i, hd_ in enumerate(heads):
+        toks[i, :len(hd_)] = torch.tensor(hd_)
+    lengths = torch.tensor([len(hd_) for hd_ in heads], dtype=torch.int32, device="cuda")
+    last = torch.tensor([[p[-1]] for p in prompts], device="cuda")
+    pos = lengths
+    states = {}
+    for impl in ("auto", "torch"):
+        _, new = hybrid.prefill(serve, cfg, toks.cuda(), impl=impl, lengths=lengths,
+                                logits=False)
+        st0 = hybrid.init_decode_state(cfg, 2, WINDOW_SEQ, torch.float32,
+                                       state_bits=[(8, 4)] * hybrid.n_attn_applications(cfg))
+        states[impl] = insert_state_rows(st0, [0, 1], new, lengths)
+        del new
+    state = states["auto"]
+    a, st_a = hybrid.decode_step(serve, cfg, _kv_clone_state(torch, state), last, pos)
+    b_, _ = hybrid.decode_step(serve, cfg, _kv_clone_state(torch, state), last, pos,
+                               impl="torch")
+    # the gap the two paths leave end to end: each prefill (the GEMM or its plain
+    # version over 4352 rows and 54 layers) and then its first decode step
+    drift = [(i, rel(states["torch"]["mamba"][i]["ssm"], state["mamba"][i]["ssm"]))
+             for i in range(0, cfg.n_layers, 13)] + [
+        (cfg.n_layers - 1, rel(states["torch"]["mamba"][-1]["ssm"], state["mamba"][-1]["ssm"]))]
+    p_, _ = hybrid.decode_step(serve, cfg, states.pop("torch"), last, pos, impl="torch")
+    torch.cuda.synchronize()
+    gap = float((a - p_).abs().max())
+    log(f"  the two prefills' Mamba states part with depth (layer: rel) "
+        f"{', '.join(f'{i}: {r:.2e}' for i, r in drift)}")
+    # kernels against plain versions on one state within phase 8's f32 limit;
+    # after each path's own 4352-row prefill through 54 layers the logits
+    # part by what the states above carry, held within 1e-2
+    if not (rel(a, b_) <= 1e-3 and rel(a, p_) <= 1e-2):
+        raise AssertionError(f"phase 17 (c): one decode step, kernels vs plain rel "
+                             f"{rel(a, b_):.3g} on one state (limit 1e-3), {rel(a, p_):.3g} "
+                             f"each after its own prefill (limit 1e-2), f32")
+    poked = _kv_clone_state(torch, state)
+    n_old = sum(_scramble_outside(torch, layer, pos, cfg.attn_window, 7 + j)
+                for j, layer in enumerate(poked["attn"]))
+    c, _ = hybrid.decode_step(serve, cfg, poked, last, pos)
+    torch.cuda.synchronize()
+    if n_old == 0 or not torch.equal(a, c):
+        raise AssertionError(f"phase 17 (c): {n_old} rows older than the window changed and "
+                             f"the logits moved (rel {rel(a, c):.3g})")
+    blk = state["attn"][0].block
+    want_blocks = [{int(p) // blk} for p in pos.tolist()]
+    for j, (before, after) in enumerate(zip(state["attn"], st_a["attn"])):
+        moved = _moved_blocks(after, before, blk)
+        if moved != want_blocks:
+            raise AssertionError(f"phase 17 (c): application {j} requantized blocks {moved}, "
+                                 f"want {want_blocks}")
+    log(f"  ok one decode step at positions {pos.tolist()} (window {cfg.attn_window}): kernels "
+        f"vs plain rel {rel(a, b_):.3g} on one state; after each path's own prefill rel "
+        f"{rel(a, p_):.3g}, max |difference| {gap:.4g} (the gap); logits bit-equal with the "
+        f"{n_old} rows older than the window changed ({len(state['attn'])} applications' "
+        f"caches); only the blocks at pos requantized in all of them")
+    k, p = runs["kernels"], runs["plain"]
+    # where the streams agree the two engines' logits drift apart step by step
+    # (the recurrent states carry the prefills' parting): the first token's
+    # logits within 1e-2, and a stream may part only at a near-tie of the
+    # largest difference the run shows where they still agree
+    first = worst = drift = 0.0
+    for uid, toks_ in k["out"].items():
+        t_end = next((i for i, (x, y) in enumerate(zip(toks_, p["out"][uid])) if x != y),
+                     len(toks_))
+        for t in range(t_end):
+            ra, rb = k["rows"][(uid, t)], p["rows"][(uid, t)]
+            worst = max(worst, rel(ra, rb))
+            drift = max(drift, float((ra - rb).abs().max()))
+            if t == 0:
+                first = max(first, rel(ra, rb))
+    if not first <= 1e-2:
+        raise AssertionError(f"phase 17 (c): first-token logits rel {first:.3g} > 1e-2")
+    parted = near_ties(k["out"], p["out"], k["rows"], p["rows"], max(gap, drift), "plain")
+    log(f"  ok kernels vs plain: {parted} of 2 streams part, each at a near-tie of the run's "
+        f"drift {max(gap, drift):.4g}; first-token logits rel {first:.3g} (limit 1e-2), rel "
+        f"<= {worst:.3g} over the {WINDOW_NEW} steps where the streams agree")
+    del serve, fused, runs, state, st_a, poked
+    torch.cuda.empty_cache()
+    return st["launches"]
+
+
+def _zamba_cut(cfg):
+    return dataclasses.replace(cfg, n_layers=ZAMBA_CUT_LAYERS)
+
+
+def zamba_qat_step(torch, cfg) -> None:
+    """Phase 17 (d): one QAT step of the width cut to 12 layers, f32, mixed
+    bits, 8 x 64: loss and gradients through the kernels, the plain versions
+    and the kernels again, every leaf bit-equal; the shared block's leaves
+    are fake-quantized at both applications and their gradients sum both."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import TokenTask, batch_on, global_batch
+    from repro_torch.launch.dryrun import dryrun_policy
+    from repro_torch.models import hybrid, registry
+    from repro_torch.quant import apply as qapply
+    from repro_torch.train.train_step import value_and_grad
+
+    smi = smi_line()
+    free_memory(torch)
+    cut = dataclasses.replace(_zamba_cut(cfg), dtype="float32")
+    params = hybrid.init(cut, torch.Generator(device="cuda").manual_seed(SEED + 27),
+                         device="cuda")
+    specs = qapply.layer_specs(params, cut)
+    bits = qapply.bits_for_scan(dryrun_policy(specs, "mixed"), params, cut)
+    batch = batch_on(global_batch(TokenTask(cut.vocab_size), cut,
+                                  ShapeSpec("search", "train", 64, 8), 0), "cuda")
+    api = registry.get_api(cut)
+    per_fwd = _fq_per_forward(cut, specs)
+    runs = {}
+    for key, impl in (("kernels", "auto"), ("plain", "torch"), ("kernels again", "auto")):
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(
+            lambda p, b, bb, impl=impl: api.loss(p, cut, b, bits=bb, impl=impl), params, batch,
+            bits)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = (kernels.LAUNCHES["fake_quant"], kernels.LAUNCHES["fake_quant_ste_bwd"])
+        plain = (kernels.PLAIN_CALLS["fake_quant"], kernels.PLAIN_CALLS["fake_quant_ste_bwd"])
+        want = ((per_fwd, per_fwd), (0, 0)) if impl == "auto" else ((0, 0), (per_fwd, per_fwd))
+        if (got, plain) != want:
+            raise AssertionError(f"phase 17 (d) {key}: launches {got}, plain calls {plain} "
+                                 f"(want {want})")
+        if not (torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)):
+            raise AssertionError(f"phase 17 (d) {key}: non-finite loss or gradient")
+        runs[key] = (loss, grads)
+        log(f"  ({smi}) QAT step, {key}: loss {float(loss):.6f} in {dt:.3f} s; fake-quant "
+            f"launches {got} ({len(specs)} leaves, the shared block's 7 at "
+            f"{hybrid.n_attn_applications(cut)} applications), plain calls {plain}")
+    for a, b in (("kernels", "plain"), ("kernels", "kernels again")):
+        (la, ga), (lb, gb) = runs[a], runs[b]
+        same = [torch.equal(x, y) for x, y in zip(ga, gb)]
+        if not torch.equal(la, lb) or not all(same):
+            worst = max(rel(x, y) for x, y in zip(ga, gb))
+            raise AssertionError(f"phase 17 (d) {a} vs {b}: loss rel {rel(la, lb):.3g}, "
+                                 f"gradients equal in {sum(same)} of {len(same)} leaves, "
+                                 f"max rel {worst:.3g}")
+        log(f"  ok {a} vs {b}: loss and all {len(same)} gradient leaves bit-equal")
+    n_params = sum(leaf.numel() for _, leaf in qapply._walk(params))
+    log(f"  {cut.name} cut to {cut.n_layers} layers, f32: {n_params / 1e9:.3f} G parameters")
+    del params, runs, grads, batch
+    torch.cuda.empty_cache()
+
+
+def whisper_decode(torch, cfg) -> dict:
+    """Phase 18 (b): full width and depth under ``dryrun_policy("mixed")``,
+    the projections fused as the engine fuses them; ``prefill(tokens,
+    frames)`` at B 4 (numpy frames N(0, 0.02), prompts of one length), then
+    32 greedy tokens through ``decode_step`` with the kernels and with
+    ``impl="torch"``: tokens equal up to near-ties, logits within rel 5e-2
+    (bf16) where they agree; ``prepare_decode``'s cross K/V equal to
+    ``prefill``'s; the launches a step as the tree predicts; the engine's
+    refusal.  Returns the kernel run's launches."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.launch.dryrun import dryrun_policy
+    from repro_torch.models import encdec
+    from repro_torch.quant import apply as qapply
+    from repro_torch.serve.engine import ServeEngine
+
+    smi = smi_line()
+    free_memory(torch)
+    params = encdec.init(cfg, torch.Generator(device="cuda").manual_seed(SEED + 28),
+                         device="cuda")
+    policy = dryrun_policy(qapply.layer_specs(params, cfg), "mixed")
+    serve = qapply.fuse_projections(qapply.pack_for_serve(params, policy, cfg))
+    try:
+        ServeEngine(cfg, serve, device="cuda")
+        raise AssertionError("phase 18 (b): ServeEngine took the enc-dec family")
+    except NotImplementedError as e:
+        log(f"  ServeEngine refuses {cfg.name}: {e}")
+    rng = np.random.default_rng(SEED + 29)
+    frames = torch.from_numpy((rng.standard_normal((WHISPER_B, cfg.encoder_seq, cfg.d_model))
+                               * 0.02).astype(np.float32)).to("cuda")
+    s0 = int(rng.integers(4, 17))
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (WHISPER_B, s0))).to("cuda")
+
+    def per_step(tree) -> int:
+        """GEMVs a decode step: the head, then a layer's self Q/K/V (one fused
+        launch or three) and wo, the cross query (the fused wqkv or wq) and
+        wo, and the MLP's two."""
+        return 1 + sum((1 if "wqkv" in lp["self_attn"] else 3) + 5 for lp in tree["dec_layers"])
+
+    runs = {}
+    for mode, impl in (("kernels", "auto"), ("plain", "torch")):
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, st = encdec.prefill(serve, cfg, toks, frames, impl=impl)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        pre = dict(kernels.LAUNCHES) if impl == "auto" else dict(kernels.PLAIN_CALLS)
+        full = encdec.init_cache(cfg, WHISPER_B, s0 + WHISPER_NEW, torch.bfloat16,
+                                 device="cuda")
+        for f, s_ in zip(full["self"], st["self"]):
+            for n_ in ("k", "v"):
+                f[n_][:, :s0] = s_[n_]
+        full["cross"] = st["cross"]
+        kernels.reset_counts()
+        tok = logits[:, -1].float().argmax(-1)
+        out, rows, times = [tok], [logits[:, -1]], []
+        for i in range(WHISPER_NEW - 1):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, full = encdec.decode_step(serve, cfg, full, tok[:, None], s0 + i, impl=impl)
+            tok = logits[:, -1].float().argmax(-1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            out.append(tok)
+            rows.append(logits[:, -1])
+        dec = dict(kernels.LAUNCHES) if impl == "auto" else dict(kernels.PLAIN_CALLS)
+        runs[mode] = dict(out=torch.stack(out, 1).tolist(), rows=torch.stack(rows, 1), pre=pre,
+                          dec=dec, cross=st["cross"])
+        log(f"  ({smi}) {mode:7s}: prefill of {WHISPER_B} x {s0} tokens over "
+            f"{WHISPER_B} x {cfg.encoder_seq} frames {t_pre * 1e3:.2f} ms "
+            f"({_nonzero(pre)}); {WHISPER_NEW - 1} decode steps, median "
+            f"{statistics.median(times) * 1e3:.3f} ms ({_nonzero(dec)})")
+    k, p = runs["kernels"], runs["plain"]
+    n_step = per_step(serve)
+    if k["dec"]["quant_gemv"] != n_step * (WHISPER_NEW - 1) or any(
+            v for n_, v in k["dec"].items() if n_ != "quant_gemv"):
+        raise AssertionError(f"phase 18 (b): decode launches {_nonzero(k['dec'])}, want "
+                             f"{n_step} GEMVs a step")
+    cross = encdec.prepare_decode(serve, cfg, frames)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+               for a, b in zip(cross, k["cross"])):
+        raise AssertionError("phase 18 (b): prepare_decode's cross K/V differ from prefill's")
+    gap = float((k["rows"][:, 0].float() - p["rows"][:, 0].float()).abs().max())
+    kd = {i: row for i, row in enumerate(k["out"])}
+    pd = {i: row for i, row in enumerate(p["out"])}
+    krows = {(i, t): k["rows"][i, t] for i in kd for t in range(WHISPER_NEW)}
+    prows = {(i, t): p["rows"][i, t] for i in pd for t in range(WHISPER_NEW)}
+    parted = near_ties(kd, pd, krows, prows, max(gap, 1e-6), "plain")
+    worst = 0.0
+    for i in kd:
+        t_end = next((t for t, (x, y) in enumerate(zip(kd[i], pd[i])) if x != y), WHISPER_NEW)
+        for t in range(t_end):
+            worst = max(worst, rel(krows[(i, t)], prows[(i, t)]))
+    if not worst <= 5e-2:
+        raise AssertionError(f"phase 18 (b): logits rel {worst:.3g} > 5e-2 where streams agree")
+    packed = sum(leaf.container_bytes() for _, leaf in qapply._walk(serve)
+                 if hasattr(leaf, "container_bytes"))
+    log(f"  ok kernels vs plain: {parted} of {WHISPER_B} streams part, each at a near-tie "
+        f"(prefill logits gap {gap:.4g}); logits rel <= {worst:.3g} where they agree; "
+        f"prepare_decode's cross K/V equal prefill's bit for bit; {n_step} GEMVs a decode step "
+        f"(the cross query through the fused wqkv), packed {packed / 1e6:.2f} MB")
+    launches = dict(k["pre"])
+    for n_, v in k["dec"].items():
+        launches[n_] = launches.get(n_, 0) + v
+    del serve, runs, cross
+    torch.cuda.empty_cache()
+    return launches
+
+
+def whisper_search(torch, cfg) -> None:
+    """Phase 18 (c): ``launch.search.main`` under a size limit below the 8-bit
+    size (the weight phase; a state limit is refused: the family has no KV
+    state), its artifact packed and its bits verified."""
+    from repro_torch import kernels
+    from repro_torch.core.policy import PolicyArtifact
+    from repro_torch.launch import search
+    from repro_torch.models import encdec
+    from repro_torch.quant import apply as qapply
+
+    smi = smi_line()
+    out = ROOT / "build" / "phase18_policy.json"
+    out.parent.mkdir(exist_ok=True)
+    envs = []
+    real_env = search.LMQuantEnv
+
+    class Recording(real_env):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            envs.append(self)
+
+    search.LMQuantEnv = Recording
+    try:
+        free_memory(torch)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        rc = search.main(WHISPER_SEARCH_ARGV + ["--out", str(out)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        search.LMQuantEnv = real_env
+    launches, plain = dict(kernels.LAUNCHES), dict(kernels.PLAIN_CALLS)
+    env = envs[0]
+    want = search_launches(cfg, env, {})
+    if rc not in (0, 1) or launches != want or any(plain.values()):
+        raise AssertionError(f"phase 18 (c): rc {rc}, launches {launches} (want {want}), "
+                             f"plain calls {plain}")
+    art = PolicyArtifact.load(str(out))
+    params = encdec.init(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    art.verify_layers(qapply.layer_specs(params, cfg))
+    packed = qapply.quantize_for_serve(encdec.unstack_layers(params, cfg), art, cfg)
+    qapply.verify_packed_bits(packed, art)
+    log(f"  ({smi}) launch.search.main {' '.join(WHISPER_SEARCH_ARGV)}: rc {rc}, wall "
+        f"{wall:.2f} s; {_phase_walls(art)}; {env.train_steps} training steps, "
+        f"{env.eval_passes} evaluations; policy mean {art.policy.mean_bits():.3f} bits, size "
+        f"{art.policy.model_size_mib():.2f} MiB; launches {_nonzero(launches)}, as predicted")
+    log(f"  ok the artifact packs and verify_packed_bits holds its {len(art.policy.bits)} "
+        f"layers' bits")
+    try:
+        search.main(WHISPER_SEARCH_ARGV + ["--limit", "state_bytes=1000", "--pretrain-steps",
+                                           "0", "--out", str(out)])
+        raise AssertionError("phase 18 (c): a state limit was taken")
+    except ValueError as e:
+        log(f"  a state_bytes limit is refused: {e}")
+    del params, packed
     torch.cuda.empty_cache()
 
 
@@ -4982,7 +5647,7 @@ def main() -> int:
         f"expert stacks, launch.train, launch.search and its artifact served")
     t_phase = time.perf_counter()
     moe_qat_step(torch, moe_cfg)
-    moe_train = moe_trainer(torch, moe_cfg)
+    moe_train = cut_trainer(torch, MOE_TRAIN_ARGV, "phase 14 (b)")
     moe_search(torch, moe_cfg)
     log(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s")
 
@@ -5007,13 +5672,40 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssm_modes(torch, ssm_cfg)
     log(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    zamba_cfg = configs.get_config(ZAMBA_ARCH)
+    log(f"== 17. {zamba_cfg.name}: its linears and rows 3 and 8 at hd 80 under the window, "
+        f"launch.serve at full width and depth, the window on the card, QAT, launch.train and "
+        f"launch.search at {ZAMBA_CUT_LAYERS} layers")
+    t_phase = time.perf_counter()
+    check_family_linears(torch, gen, ZAMBA_LINEARS, "phase 17 (a)", results)
+    check_window_kernels(torch, gen, results)
+    zamba = serve_family(torch, zamba_cfg, "phase 17 (b)", kv_state=True)
+    del zamba["engine"]
+    torch.cuda.empty_cache()
+    zamba_window = serve_window(torch, zamba_cfg)
+    zamba_qat_step(torch, zamba_cfg)
+    zamba_train = cut_trainer(torch, ZAMBA_TRAIN_ARGV, "phase 17 (d)")
+    cut_search(torch, _zamba_cut(zamba_cfg), ZAMBA_SEARCH_ARGV, ZAMBA_SEARCH_SERVE_ARGV,
+               "phase 17 (d)", ("quant_gemv", "quant_kv_decode_step"))
+    log(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
+
+    whisper_cfg = configs.get_config(WHISPER_ARCH)
+    log(f"== 18. {whisper_cfg.name} full width and depth: its linears, prefill and greedy "
+        f"decode through the kernels, launch.train and launch.search")
+    t_phase = time.perf_counter()
+    check_family_linears(torch, gen, WHISPER_LINEARS, "phase 18 (a)", results)
+    whisper = whisper_decode(torch, whisper_cfg)
+    whisper_train = cut_trainer(torch, WHISPER_TRAIN_ARGV, "phase 18 (c)")
+    whisper_search(torch, whisper_cfg)
+    log(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s")
     # the later main paths' launches join the earlier ones' (each read right
     # after its own run, the counts set to 0 just before it)
-    for extra in (moe_train, vlm["launches"], ssm["launches"]):
+    for extra in (moe_train, vlm["launches"], ssm["launches"], zamba["launches"], zamba_window,
+                  zamba_train, whisper, whisper_train):
         for name, n in extra.items():
             launches[name] += n
 
-    log(f"== 17. summary (the script so far: {time.perf_counter() - t_script:.1f} s)")
+    log(f"== 19. summary (the script so far: {time.perf_counter() - t_script:.1f} s)")
     rows = []
     for name in kernels.KERNELS:
         r = results[name]

@@ -82,19 +82,23 @@ class TokenTask:
 
 def global_batch(task: TokenTask, cfg, shape, step: int) -> dict:
     """The full batch at ``step`` on the CPU: ``{"tokens", "labels"}`` (B, S)
-    int64, or for ``input_kind == "embeddings"`` (the VLM's frontend stub)
-    ``{"embeds" (B, S, d), "labels"}``: the token stream looked up in a table
-    of N(0, 0.02) entries drawn from the step's own generator, the
-    distribution of the JAX package's ``jax.random`` table."""
-    if cfg.family in ("audio", "encdec"):
-        raise NotImplementedError(f"family {cfg.family!r} batches are not ported yet "
-                                  "(ROADMAP queue 1, 'Other model families')")
+    int64; for ``input_kind == "embeddings"`` (the VLM's frontend stub)
+    ``{"embeds" (B, S, d), "labels"}``, the token stream looked up in a table
+    of N(0, 0.02) entries; for the encoder-decoder families ``{"frames" (B,
+    encoder_seq, d), "tokens", "labels"}``, the frames N(0, 0.02) (the audio
+    frontend's stub).  Tables and frames are drawn from the step's own
+    generator: only the distribution is the JAX package's ``jax.random``
+    draw's."""
     stream = task.sequence_batch(_generator(task.seed, step), shape.global_batch, shape.seq_len)
+    dt = getattr(torch, cfg.dtype)
     if cfg.input_kind == "embeddings":
         table = torch.randn((task.vocab_size, cfg.d_model),
                             generator=_generator(task.seed, step, 1)) * 0.02
-        return {"embeds": table[stream[:, :-1]].to(getattr(torch, cfg.dtype)),
-                "labels": stream[:, 1:]}
+        return {"embeds": table[stream[:, :-1]].to(dt), "labels": stream[:, 1:]}
+    if cfg.family in ("audio", "encdec"):
+        frames = torch.randn((shape.global_batch, cfg.encoder_seq, cfg.d_model),
+                             generator=_generator(task.seed, step, 1)) * 0.02
+        return {"frames": frames.to(dt), "tokens": stream[:, :-1], "labels": stream[:, 1:]}
     return {"tokens": stream[:, :-1], "labels": stream[:, 1:]}
 
 

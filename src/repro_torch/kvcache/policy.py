@@ -3,7 +3,9 @@
 
 The decode state is a quantizable surface like the weights: one
 ``LayerInfo`` per KV entry and side (``kind="state"``), named
-``layer{i:03d}.state.k`` / ``.v`` for the decoder families.
+``layer{i:03d}.state.k`` / ``.v`` for the decoder families and
+``shared_attn.app{j:03d}.state.k`` / ``.v`` for the hybrid's shared
+attention, one entry an application.
 """
 from __future__ import annotations
 
@@ -24,8 +26,8 @@ def kv_entry_names(cfg) -> list[str]:
     if cfg.family in ("dense", "moe", "vlm"):
         return [f"layer{i:03d}" for i in range(cfg.n_layers)]
     if cfg.family == "hybrid":
-        raise NotImplementedError("hybrid KV entries need models/hybrid, not ported yet "
-                                  "(ROADMAP queue 1, 'Other model families')")
+        from repro_torch.models.hybrid import n_attn_applications
+        return [f"shared_attn.app{j:03d}" for j in range(n_attn_applications(cfg))]
     return []
 
 
@@ -96,11 +98,12 @@ def extract_kv_entries(state) -> list[tuple[str, Any]]:
     """Ordered ``(entry name, node)`` pairs of a decode state's KV entries.
 
     Works on fp states (a list of ``{"k", "v"}`` dicts) and on quantized
-    ones, dense (``QuantizedKVLayer``) or paged (``PagedKVLayer``).
+    ones, dense (``QuantizedKVLayer``) or paged (``PagedKVLayer``); the
+    hybrid's ``{"mamba", "attn"}`` state gives its attention caches, and SSM
+    entries are skipped.
     """
-    if isinstance(state, dict) and "attn" in state:
-        raise NotImplementedError("hybrid KV entries need models/hybrid, not ported yet "
-                                  "(ROADMAP queue 1, 'Other model families')")
+    if isinstance(state, dict) and "attn" in state:                  # hybrid
+        return [(f"shared_attn.app{j:03d}", e) for j, e in enumerate(state["attn"])]
     if not isinstance(state, (list, tuple)):
         return []
     return [(f"layer{i:03d}", e) for i, e in enumerate(state)

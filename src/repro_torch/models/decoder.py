@@ -37,8 +37,8 @@ def init(cfg, generator: torch.Generator | None = None, device=None) -> dict:
     """
     device = resolve_device(device)
     if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  "(ROADMAP queue 1, 'Other model families')")
+        raise NotImplementedError(f"decoder.init builds the dense, moe and vlm families; "
+                                  f"{cfg.family!r} has its own init (models.registry.get_api)")
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     dt = _dtype(cfg)

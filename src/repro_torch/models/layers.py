@@ -65,21 +65,28 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Te
     return (x32 * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
 
 
-def _check_norm(kind: str) -> None:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet (ROADMAP queue 1, "
-                                  "'Other model families')")
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``(x - mean) * rsqrt(var + eps) * scale + bias`` in f32.  The population
+    variance is written out as ``jnp.var`` computes it: ``torch.var``'s f32
+    backward parts from the JAX package's (``models/cnn.py`` ``_norm_act``)."""
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
 
 
 def norm(p: Any, x: torch.Tensor, kind: str, eps: float = 1e-5) -> torch.Tensor:
-    _check_norm(kind)
-    return rmsnorm(p, x, eps)
+    return rmsnorm(p, x, eps) if kind == "rmsnorm" else layernorm(p, x, eps)
 
 
 def norm_init(d: int, kind: str, dtype=torch.float32, *, lead: tuple[int, ...] = (),
-              device) -> torch.Tensor:
-    _check_norm(kind)
-    return torch.ones((*lead, d), dtype=dtype, device=device)
+              device):
+    """RMSNorm: a ``(*lead, d)`` scale of ones; LayerNorm: ``{"scale", "bias"}``."""
+    if kind == "rmsnorm":
+        return torch.ones((*lead, d), dtype=dtype, device=device)
+    return {"scale": torch.ones((*lead, d), dtype=dtype, device=device),
+            "bias": torch.zeros((*lead, d), dtype=dtype, device=device)}
 
 
 def rope_freqs(head_dim: int, theta: float, *, device=None) -> torch.Tensor:
@@ -172,6 +179,27 @@ def _qkv(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor, *, bits=None,
     return _qkv_post(p, q, k, v, cfg, positions)
 
 
+def _q_proj(p: dict, x: torch.Tensor, cfg, *, bits=None, impl: str = "auto") -> torch.Tensor:
+    """The Q projection alone (the cross-attention query).  On a fused tree
+    the whole ``wqkv`` product runs and the K/V columns are dropped, as in
+    the JAX package: cross-attention is off the decode step's hot path."""
+    if "wqkv" in p:
+        nq = cfg.n_heads * cfg.resolved_head_dim
+        return qdense(p["wqkv"], x, bits=_b(bits, "wqkv"), impl=impl)[..., :nq]
+    return qdense(p["wq"], x, bits=_b(bits, "wq"), impl=impl)
+
+
+def _kv_proj(p: dict, x: torch.Tensor, cfg, *, bits=None, impl: str = "auto"):
+    """The K and V projections alone (the cross-attention K/V); fused-tree aware."""
+    hd = cfg.resolved_head_dim
+    if "wqkv" in p:
+        nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        kvf = qdense(p["wqkv"], x, bits=_b(bits, "wqkv"), impl=impl)[..., nq:]
+        return kvf[..., :nkv], kvf[..., nkv:]
+    return (qdense(p["wk"], x, bits=_b(bits, "wk"), impl=impl),
+            qdense(p["wv"], x, bits=_b(bits, "wv"), impl=impl))
+
+
 def _qkv_post(p: dict, q, k, v, cfg, positions):
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
@@ -186,8 +214,8 @@ def _qkv_post(p: dict, q, k, v, cfg, positions):
         q = apply_mrope(q, positions, sections, cfg.rope_theta)
         k = apply_mrope(k, positions, sections, cfg.rope_theta)
     elif cfg.rope != "none":
-        raise NotImplementedError(f"rope {cfg.rope!r} is not ported yet "
-                                  "(ROADMAP queue 1, 'Other model families')")
+        raise NotImplementedError(f"rope {cfg.rope!r}: no configuration uses it, and the "
+                                  "JAX package's _qkv_post applies nothing for it")
     return q, k, v
 
 
@@ -367,17 +395,41 @@ def _flash_attention(q, k, v, n_kv: int, *, causal: bool, window: int = 0,
 
 
 def attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor, *, causal: bool = True,
-              window: int = 0, bits=None, impl: str = "auto") -> torch.Tensor:
-    """Full-sequence self-attention (training and QAT): projections, the
-    direct path up to ``FLASH_THRESHOLD`` or the flash path above it, and the
-    output projection."""
-    q, k, v = _qkv(p, x, cfg, positions, bits=bits, impl=impl)
+              window: int = 0, kv: tuple[torch.Tensor, torch.Tensor] | None = None, bits=None,
+              impl: str = "auto") -> torch.Tensor:
+    """Full-sequence attention (training, QAT, the encoder, cross-attention):
+    projections, the direct path up to ``FLASH_THRESHOLD`` or the flash path
+    above it, and the output projection.  ``kv`` (K, V), each (B, S_kv, H,
+    hd), replaces the keys and values (cross-attention): only the query is
+    projected here."""
+    if kv is None:
+        q, k, v = _qkv(p, x, cfg, positions, bits=bits, impl=impl)
+    else:
+        q = _split_heads(_q_proj(p, x, cfg, bits=bits, impl=impl), cfg.n_heads,
+                         cfg.resolved_head_dim)
+        if cfg.qk_norm:
+            q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        if cfg.rope == "default":
+            q = apply_rope(q, positions, cfg.rope_theta)
+        k, v = kv
     if max(x.shape[1], k.shape[1]) > FLASH_THRESHOLD and x.shape[1] > 1:
         o = _flash_attention(q, k, v, cfg.n_kv_heads, causal=causal, window=window)
     else:
         o = _direct_attention(q, k, v, cfg.n_kv_heads, causal=causal, window=window)
     b, s, _, _ = o.shape
     return qdense(p["wo"], o.reshape(b, s, -1), bits=_b(bits, "wo"), impl=impl)
+
+
+def cross_kv(p: dict, ctx: torch.Tensor, cfg, *, bits=None, impl: str = "auto"):
+    """Cross-attention K/V of an encoder output ``ctx`` (B, S_enc, d), each
+    (B, S_enc, H, hd): computed once a clip (whisper's decode)."""
+    hd = cfg.resolved_head_dim
+    kf, vf = _kv_proj(p, ctx, cfg, bits=bits, impl=impl)
+    k = _split_heads(kf, cfg.n_kv_heads, hd)
+    v = _split_heads(vf, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    return k, v
 
 
 def decode_attend_one(cache, q, k_new, v_new, pos, cfg, *, window: int = 0,

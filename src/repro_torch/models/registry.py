@@ -9,8 +9,8 @@
     scratch = api.init_prefill_scratch(cfg, seq, device=device)     # chunked prefill
     scratch = api.prefill_chunk(params_serve, cfg, scratch, tokens, offset)
 
-The dense, MoE, VLM and SSM families are ported; the others raise and name
-the ROADMAP item that ports them.
+Every family of the JAX registry is ported: dense, MoE and VLM (the
+decoder), SSM (Mamba2), hybrid (Zamba2) and the encoder-decoder families.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from typing import Callable
 
 import torch
 
-from . import decoder, mamba2
+from . import decoder, encdec, hybrid, mamba2
 from .decoder import lm_loss_from_hidden
 
 
@@ -70,6 +70,31 @@ def _mamba_state(cfg, batch, seq, dtype=torch.bfloat16, *, state_bits=None, bloc
     return [mamba2.init_state(cfg, batch, device=device) for _ in range(cfg.n_layers)]
 
 
+def _hybrid_loss(params, cfg, batch, *, bits=None, impl="auto"):
+    hidden = hybrid.forward(params, cfg, batch.get("tokens"), batch.get("embeds"), bits=bits,
+                            impl=impl)
+    return lm_loss_from_hidden(params, cfg, hidden, batch["labels"], bits=bits, impl=impl)
+
+
+def _hybrid_state(cfg, batch, seq, dtype=torch.bfloat16, *, state_bits=None, block=None,
+                  paged=False, pool_blocks=None, device=None):
+    del pool_blocks
+    if paged:
+        raise NotImplementedError(
+            "paged KV cache covers the decoder families; the hybrid shared-"
+            "attention caches stay dense (DESIGN.md §12)")
+    return hybrid.init_decode_state(cfg, batch, seq, dtype, state_bits=state_bits, block=block,
+                                    device=device)
+
+
+def _encdec_state(cfg, batch, seq, dtype=torch.bfloat16, *, state_bits=None, block=None,
+                  paged=False, pool_blocks=None, device=None):
+    del block, pool_blocks
+    if state_bits is not None or paged:
+        raise ValueError("encdec serving has no engine-managed KV state")
+    return encdec.init_cache(cfg, batch, seq, dtype, device=device)
+
+
 _DECODER_API = ModelAPI(
     init=decoder.init,
     unstack=decoder.unstack_layers,
@@ -93,18 +118,32 @@ _MAMBA_API = ModelAPI(
     loss=_mamba_loss,
 )
 
-_REGISTRY = {"dense": _DECODER_API, "moe": _DECODER_API, "vlm": _DECODER_API,
-             "ssm": _MAMBA_API}
+# the same refusals as the SSM family: the recurrent state cannot rewind a
+# burst nor split a prefill bitwise (decode_verify and prefill_chunk None)
+_HYBRID_API = ModelAPI(
+    init=hybrid.init,
+    unstack=hybrid.unstack_layers,
+    prefill=hybrid.prefill,
+    decode_step=hybrid.decode_step,
+    init_decode_state=_hybrid_state,
+    loss=_hybrid_loss,
+)
 
-_NOT_PORTED = {
-    "hybrid": "ROADMAP queue 1, 'Other model families' (models/hybrid.py)",
-    "encdec": "ROADMAP queue 1, 'Other model families' (models/encdec.py)",
-    "audio": "ROADMAP queue 1, 'Other model families' (models/encdec.py)",
-}
+# whisper serves through prefill(tokens, frames) / decode_step directly (the
+# engine refuses the family): prefill takes the frames, not lengths
+_ENCDEC_API = ModelAPI(
+    init=encdec.init,
+    unstack=encdec.unstack_layers,
+    prefill=encdec.prefill,
+    decode_step=encdec.decode_step,
+    init_decode_state=_encdec_state,
+    loss=encdec.loss,
+)
+
+_REGISTRY = {"dense": _DECODER_API, "moe": _DECODER_API, "vlm": _DECODER_API,
+             "ssm": _MAMBA_API, "hybrid": _HYBRID_API, "encdec": _ENCDEC_API,
+             "audio": _ENCDEC_API}
 
 
 def get_api(cfg) -> ModelAPI:
-    if cfg.family in _REGISTRY:
-        return _REGISTRY[cfg.family]
-    where = _NOT_PORTED.get(cfg.family, "ROADMAP queue 1")
-    raise NotImplementedError(f"family {cfg.family!r} is not ported yet: {where}")
+    return _REGISTRY[cfg.family]

@@ -166,6 +166,10 @@ class ServeEngine:
                  fault_injector: FailureInjector | None = None, debug_invariants: bool = False,
                  prefill_chunk: int | None = None, step_token_budget: int | None = None,
                  device=None):
+        if cfg.family in ("audio", "encdec"):
+            raise NotImplementedError(
+                "enc-dec serving goes through registry.prefill/decode_step directly "
+                "(cross-attention KV needs the frames input at admission)")
         self.device = resolve_device(device)
         leaf = _first_tensor(params)
         if leaf is not None and leaf.device.type != self.device.type:
@@ -297,10 +301,14 @@ class ServeEngine:
             surface = (kvcache.state_layer_infos(cfg, max_slots, max_seq)
                        if artifact.state_policy is not None else None)
             kvcache.verify_state_bits(self.state, artifact, surface=surface)
-        #: quantized layers need the burst snapshot/replay commit; fp ones do not
+        #: quantized layers need the burst snapshot/replay commit; fp ones do
+        #: not.  As in the JAX engine, only a list state (the decoder
+        #: families') counts: a hybrid's dict state never does, so its
+        #: measured_costs() carry no state_bytes
         self._quant_state = any(isinstance(layer, (kvcache.QuantizedKVLayer,
                                                    kvcache.PagedKVLayer))
-                                for layer in self.state)
+                                for layer in (self.state if isinstance(self.state, list)
+                                              else []))
         self.slots = [_Slot() for _ in range(max_slots)]
         self._queue: list[Request] = []
         self._pending_token: dict[int, int] = {}
@@ -1488,10 +1496,18 @@ class ServeEngine:
                    if hasattr(leaf, "container_bytes"))
 
     def state_container_bytes(self) -> int:
-        """Device bytes the decode state occupies (dense containers, or the whole pool)."""
-        return sum(layer.container_bytes() if hasattr(layer, "container_bytes")
-                   else sum(t.numel() * t.element_size() for t in layer.values())
-                   for layer in self.state)
+        """Device bytes the decode state occupies (dense containers, or the
+        whole pool): every leaf of the state, a KV container counted whole."""
+        def walk(node) -> int:
+            if hasattr(node, "container_bytes"):
+                return node.container_bytes()
+            if isinstance(node, dict):
+                return sum(walk(v) for v in node.values())
+            if isinstance(node, (list, tuple)):
+                return sum(walk(v) for v in node)
+            return node.numel() * node.element_size()
+
+        return walk(self.state)
 
     def allocated_state_bytes(self, *, peak: bool = True) -> int:
         """Paged: bytes of the live blocks (the peak by default), what a state

@@ -1240,3 +1240,143 @@ def test_decode_step_kernel_takes_a_group_of_six(cuda, k_bits, v_bits):
         for f in ("k_packed", "k_scale", "v_packed", "v_scale"):
             assert torch.equal(getattr(layers[0], f), getattr(layers[1], f)), (step, f)
         assert _rel(o_k, o_p) <= 1e-5
+
+
+#: zamba2-2.7b's shared attention: 32 KV heads of 80 (a group of 1), the
+#: window of its decode as a mask over positions (``attn_window``, cut to 128
+#: here so that it bites within S 512); the positions sit at a block's first
+#: and last row, in the middle and at S - 1
+HD80 = dict(b=4, h=32, hd=80, s=512, block=16, window=128, pos=(40, 255, 300, 511))
+
+
+def _window_valid(pos, s, window, device):
+    ar = torch.arange(s, device=device)[None, :]
+    return (ar <= pos[:, None]) & (ar > pos[:, None] - window)
+
+
+def _hd80_layer(cuda, k_bits, v_bits, seed):
+    c = HD80
+    rng = np.random.default_rng(seed)
+    rows = c["s"]
+    k = torch.from_numpy(rng.normal(size=(c["b"], rows, c["h"], c["hd"])).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(c["b"], rows, c["h"], c["hd"])).astype(np.float32))
+    base = tcache.init_kv_layer(c["b"], c["s"], c["h"], c["hd"], k_bits=k_bits, v_bits=v_bits,
+                                block=c["block"], device=cuda)
+    pos = torch.tensor(c["pos"], dtype=torch.int32, device=cuda)
+    return tcache.insert_rows(base, torch.arange(c["b"], device=cuda), k.to(cuda), v.to(cuda),
+                              valid_len=pos), pos, rng
+
+
+@pytest.mark.parametrize("k_bits,v_bits", [(8, 4), (8, 8), (4, 2)])
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_decode_step_kernel_at_hd80_under_a_window(cuda, k_bits, v_bits, dtype):
+    """Row 3 at zamba2's head dim 80 (5 groups of 16 a row; 2-bit rows of 5
+    words) under a windowed ``kv_valid``: cache bytes exact and the output
+    within rel 1e-4 of the plain version; only the block at each slot's
+    ``pos`` changes; and the output does not move, bit for bit, when the
+    K/V rows older than the window hold other finite levels."""
+    c = HD80
+    base, pos, rng = _hd80_layer(cuda, k_bits, v_bits, k_bits * 10 + v_bits)
+    valid = _window_valid(pos, c["s"], c["window"], cuda)
+    q = torch.from_numpy(rng.normal(size=(c["b"], c["h"], c["hd"]))).to(cuda, dtype)
+    kn = torch.from_numpy(rng.normal(size=(c["b"], 1, c["h"], c["hd"]))).to(cuda, dtype)
+    vn = torch.from_numpy(rng.normal(size=(c["b"], 1, c["h"], c["hd"]))).to(cuda, dtype)
+    lk, lp, lo = _copy(base), _copy(base), _copy(base)
+    # rows older than the window: other levels (packed bytes are per position)
+    old = torch.arange(c["s"], device=cuda)[None, :] <= (pos[:, None] - c["window"])
+    for side in ("k_packed", "v_packed"):
+        t = getattr(lo, side)
+        noise = torch.from_numpy(rng.integers(-100, 100, size=t.shape, dtype=np.int8)).to(cuda)
+        t.copy_(torch.where(old[:, None, :, None], noise, t))
+    kernels.reset_counts()
+    o_k, _ = kv_ops.quant_kv_decode_step(q, lk, pos, kn, vn, valid, out_dtype=torch.float32)
+    o_o, _ = kv_ops.quant_kv_decode_step(q, lo, pos, kn, vn, valid, out_dtype=torch.float32)
+    o_p, _ = kv_ops.quant_kv_decode_step(q, lp, pos, kn, vn, valid, impl="torch",
+                                         out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["quant_kv_decode_step"] == 2
+    for f in ("k_packed", "k_scale", "v_packed", "v_scale"):
+        assert torch.equal(getattr(lk, f), getattr(lp, f)), f
+    assert _rel(o_k, o_p) <= 1e-4
+    assert torch.equal(o_k, o_o)
+    blk = c["block"]
+    for i, p in enumerate(c["pos"]):
+        for side in ("k_packed", "v_packed"):
+            moved = (getattr(lk, side)[i] != getattr(base, side)[i]).any(dim=(0, 2))
+            rows = torch.nonzero(moved).flatten().tolist()
+            assert rows and all(r // blk == p // blk for r in rows), (i, side, rows)
+
+
+@pytest.mark.parametrize("d", (512, 2560))
+@pytest.mark.parametrize("w_bits,k_bits,v_bits", [(4, 8, 4), (8, 8, 8), (2, 4, 2)])
+def test_proj_kernel_at_hd80_under_a_window(cuda, d, w_bits, k_bits, v_bits):
+    """Row 8 at zamba2's heads (32 of 80: 240 projected rows a kv head, 15
+    tiles of 16 over the cluster) under a windowed ``kv_valid``: against the
+    plain version, scales rel 1e-6 and output rel 1e-5; at d 512 (the widest
+    the engine's gate admits) also bit for bit the launches it replaces."""
+    from repro_torch.models.layers import _qkv, decode_attend_one, rope_freqs
+
+    c = HD80
+    base, pos, rng = _hd80_layer(cuda, k_bits, v_bits, w_bits + d)
+    n = 3 * c["h"] * c["hd"]
+    w = torch.from_numpy(rng.normal(size=(d, n)).astype(np.float32) / d ** 0.5).to(cuda)
+    wq = quantize_tensor(w, w_bits)
+    x = torch.from_numpy(rng.normal(size=(c["b"], d)).astype(np.float32)).to(cuda)
+    valid = _window_valid(pos, c["s"], c["window"], cuda)
+    ang = pos[:, None].float() * rope_freqs(c["hd"], 10_000.0, device=cuda)
+    lk, lc, lp = _copy(base), _copy(base), _copy(base)
+    kernels.reset_counts()
+    o_k, _ = kv_ops.quant_kv_decode_step_proj(x, wq.packed, wq.scale, torch.cos(ang),
+                                              torch.sin(ang), lk, pos, valid, w_bits=w_bits,
+                                              n_heads=c["h"])
+    o_p, _ = kv_ops.quant_kv_decode_step_proj(x, wq.packed, wq.scale, torch.cos(ang),
+                                              torch.sin(ang), lp, pos, valid, w_bits=w_bits,
+                                              n_heads=c["h"], impl="torch")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["quant_kv_decode_step_proj"] == 1
+    for f in ("k_scale", "v_scale"):
+        assert _rel(getattr(lk, f), getattr(lp, f)) <= 1e-6, f
+    assert _rel(o_k, o_p) <= 1e-5
+    if d <= 512:
+        cfg = type("Cfg", (), dict(n_heads=c["h"], n_kv_heads=c["h"], resolved_head_dim=c["hd"],
+                                   rope="default", rope_theta=10_000.0, qk_norm=False))
+        q, kn, vn = _qkv({"wqkv": wq}, x[:, None], cfg, pos[:, None])
+        o_c, _ = decode_attend_one(lc, q, kn, vn, pos, cfg, window=c["window"])
+        torch.cuda.synchronize()
+        for f in ("k_packed", "k_scale", "v_packed", "v_scale"):
+            assert torch.equal(getattr(lk, f), getattr(lc, f)), f
+        assert torch.equal(o_k, o_c[:, 0])
+
+
+#: the linears of zamba2-2.7b (in_proj N 10448, out_proj K 5120, the shared
+#: block's fused wqkv and gate/up, w_down K 10240, the untied head 32000) and
+#: whisper-tiny (K 384: six 64-value steps; w_down K 1536; the head's N 51865,
+#: an odd N); (K, N)
+HYBRID_ENCDEC_LINEARS = {"zamba_in_proj": (2560, 10448), "zamba_out_proj": (5120, 2560),
+                         "zamba_wqkv": (2560, 7680), "zamba_w_gu": (2560, 20480),
+                         "zamba_w_down": (10240, 2560), "zamba_lm_head": (2560, 32000),
+                         "whisper_wqkv": (384, 1152), "whisper_w_up": (384, 1536),
+                         "whisper_w_down": (1536, 384), "whisper_lm_head": (384, 51865)}
+
+
+@pytest.mark.parametrize("bits", (4, 8))
+@pytest.mark.parametrize("m", (1, 4, 8, 40, 1500))
+@pytest.mark.parametrize("name", sorted(HYBRID_ENCDEC_LINEARS))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_hybrid_and_encdec_linears_match_plain(cuda, bits, m, name, dtype):
+    """The GEMV (M <= 8) and the GEMM (M 40, and 1500: one clip's frames
+    through ``cross_kv``) at the two families' full widths, the odd N of
+    whisper's head included, against the plain versions."""
+    k, n = HYBRID_ENCDEC_LINEARS[name]
+    if m == 1500 and not name.startswith("whisper"):
+        pytest.skip("M 1500 is whisper's frame count")
+    g = torch.Generator(device=cuda).manual_seed(bits * 7 + m + n)
+    qt = quantize_tensor(torch.randn((k, n), generator=g, device=cuda) / k ** 0.5, bits)
+    x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+    kernels.reset_counts()
+    got = quant_matmul(x, qt.packed, qt.scale, bits, k)
+    ref = (quant_gemv_ref if m <= 8 else quant_matmul_ref)(x, qt.packed, qt.scale, bits, k)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    assert _rel(got, ref) <= (1e-5 if dtype is torch.float32 else 2e-2)
+    assert kernels.LAUNCHES["quant_gemv" if m <= 8 else "quant_matmul"] == 1

@@ -37,6 +37,7 @@ def test_every_submodule_imports_without_jax():
             "repro_torch.launch.train", "repro_torch.runtime.loop",
             "repro_torch.runtime.elastic", "repro_torch.models.moe",
             "repro_torch.models.mamba2", "repro_torch.models.layers",
+            "repro_torch.models.hybrid", "repro_torch.models.encdec",
             "repro_torch.models.decoder", "repro_torch.models.registry",
             "repro_torch.data.pipeline", "repro_torch.serve.engine",
             "repro_torch.train.train_step", "repro_torch.quant.env"} <= set(mods)

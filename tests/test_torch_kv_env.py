@@ -92,8 +92,10 @@ def test_extract_kv_entries_over_every_state_form(model):
         entries = extract_kv_entries(state)
         assert [n for n, _ in entries] == [f"layer{i:03d}" for i in range(tcfg.n_layers)]
         assert all(node is st for (_, node), st in zip(entries, state))
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        extract_kv_entries({"attn": [], "ssm": []})
+    # the hybrid's state: its shared attention's caches, one entry an application
+    fp, q = {"k": torch.zeros(1), "v": torch.zeros(1)}, state[0]
+    assert extract_kv_entries({"attn": [fp, q], "mamba": []}) == [
+        ("shared_attn.app000", fp), ("shared_attn.app001", q)]
 
 
 def test_evaluate_equals_jax_and_orders_with_bits(kv_envs):

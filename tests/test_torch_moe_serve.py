@@ -105,9 +105,14 @@ def test_registry_serves_the_moe_family(served):
     mlp = served["tserve"]["layers"][1]["mlp"]
     assert mlp["w_gate"].packed.ndim == 3 and "w_gu" in mlp["shared"]
     assert mlp["router"].dtype == torch.float32
-    for fam in ("hybrid", "encdec", "audio"):
-        with pytest.raises(NotImplementedError):
-            registry.get_api(type("C", (), {"family": fam})())
+    # every family of the JAX registry is served since the hybrid and
+    # encoder-decoder families were ported
+    from repro_torch.models import encdec as tencdec
+    from repro_torch.models import hybrid as thybrid
+    for fam, mod in (("hybrid", thybrid), ("encdec", tencdec), ("audio", tencdec)):
+        api = registry.get_api(type("C", (), {"family": fam})())
+        assert api.prefill is mod.prefill and api.decode_step is mod.decode_step
+        assert api.decode_verify is None
 
 
 def test_decoder_paths_match_jax(served):
