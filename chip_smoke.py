@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a)
-and runs nineteen phases; any failure raises, so the exit code is nonzero and
+and runs twenty phases; any failure raises, so the exit code is nonzero and
 the last line is not the ``ok`` line:
 
   1. environment: the card's name and power limit, torch/CUDA versions, and
@@ -243,7 +243,26 @@ the last line is not the ``ok`` line:
      refusal; (c) ``launch.train.main`` (8 steps of 8 x 128 with the frames)
      and ``launch.search.main`` under a size limit, its artifact packed and
      verified, a state limit refused;
- 19. one ``{"kernels": [...]}`` JSON line (each row's launches summed over
+ 19. the decode-step autotuner (``kernels/autotune.py``) at gemma-2b's state
+     geometry (one KV head of 256, block 16): (a) the CUDA candidate (the
+     kernel's own launch) of every key at bits 8/8, 8/4, 4/4 and 4/2, dense
+     and paged, at S 128 (``autotune_state``'s default 8 blocks), 512 and
+     2048 (``autotune_key`` at 32 and 128 blocks), bit for bit against the
+     sequential append and attention kernels (outputs and cache bytes), and
+     its time; (b) ``launch.search.attach_kernel_configs`` on phase 6's
+     artifact without its pool and draft, saved and reloaded, and phase 4's
+     geometry (4 slots x 512, bf16, seed 3) served with the tuned table and
+     with no table: every served layer's own geometry looks up the tuned
+     key (none without the table), identical streams, row 3 launched 576
+     times each, the step medians; a traced construction records
+     ``kernel_config_replayed``; (c) a table tuned for another
+     geometry and a table on a float state refused with ``ArtifactError``,
+     a table keyed ``impl="pallas"`` deploys, never matches and gives the
+     same streams; (d) ``examples/torch_budget_search_serve.py --tiny
+     --paged --speculate``, ``examples/torch_serve_quantized.py`` and
+     ``examples/torch_quickstart.py`` on the card, their output under
+     ``build/``;
+ 20. one ``{"kernels": [...]}`` JSON line (each row's launches summed over
      the main paths that run it), the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -5496,6 +5515,250 @@ def whisper_search(torch, cfg) -> None:
     torch.cuda.empty_cache()
 
 
+
+# ---------------------------------------------------------------------------
+# phase 19: the decode-step autotuner, the engine's replay, the examples
+# ---------------------------------------------------------------------------
+
+
+#: phase 19 (a): gemma-2b's state geometry (one KV head of 256, block 16) at the
+#: bit pairs of phase 2 (phase 6's artifact holds K 8 / V 4 at every layer), and
+#: the synthetic caches' lengths in blocks: the autotuner's default 8 (S 128),
+#: 32 (S 512, phase 4's cache) and 128 (S 2048)
+TUNE_BITS = KV_BITS
+TUNE_BLOCKS = (8, 32, 128)
+TUNE_BLOCK = 16
+
+
+def autotune_candidates(torch, cfg) -> dict:
+    """Phase 19 (a): the CUDA candidate of every key, bit for bit against
+    the sequential append -> attention kernels on the same synthetic cache
+    (outputs and every cache byte), then timed by ``autotune_key``; returns
+    ``{(family, pair, S): us}``."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.quant_kv import ops as kv_ops
+
+    heads, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    out = {}
+    for blocks in TUNE_BLOCKS:
+        s = TUNE_BLOCK * blocks
+        for paged in (False, True):
+            keys = autotune.keys_for_state(TUNE_BITS, heads, hd, TUNE_BLOCK, paged=paged,
+                                           impl="cuda")
+            for key in keys:
+                q, layer, pos, kn, vn, valid = autotune._synthetic_inputs(
+                    key, batch=8, blocks=blocks, device=torch.device("cuda"))
+                seq = kv_ops.quant_kv_append(autotune.clone_layer(layer), pos, kn, vn)
+                o_seq = kv_ops.quant_kv_attention(q, seq, valid, out_dtype=torch.float32)
+                cands = autotune.enumerate_candidates(key)
+                if cands != [{"place": "kernel", "attend": "cluster"}]:
+                    raise AssertionError(f"phase 19 (a) {key}: candidates {cands}")
+                for cfg_ in cands:
+                    o, new = kv_ops.quant_kv_decode_step(q, autotune.clone_layer(layer), pos,
+                                                         kn, vn, valid, out_dtype=torch.float32,
+                                                         config=cfg_)
+                    torch.cuda.synchronize()
+                    bad = [f for f in ("k_packed", "v_packed") if not torch.equal(
+                        getattr(new, f), getattr(seq, f))] + [
+                        f for f in ("k_scale", "v_scale")
+                        if not same_bytes(torch, getattr(new, f), getattr(seq, f))]
+                    if not same_bytes(torch, o, o_seq) or bad:
+                        raise AssertionError(f"phase 19 (a) {key} S {s} {cfg_}: output or "
+                                             f"cache {bad} differs from append -> attention")
+            if blocks == 8:      # the autotuner's defaults, as the search runs it
+                entries = autotune.autotune_state(TUNE_BITS, heads, hd, TUNE_BLOCK,
+                                                  paged=paged, impl="cuda")
+            else:
+                entries = [autotune.autotune_key(k, blocks=blocks) for k in keys]
+            for key, e in zip(keys, entries):
+                if e["config"] != cands[0] or e["candidates"] != 1:
+                    raise AssertionError(f"phase 19 (a) {key}: tuned {e}")
+                out[(key.family, (key.k_bits, key.v_bits), s)] = e["micros"]
+    for (family, pair, s), us in out.items():
+        log(f"  {family} K {pair[0]} / V {pair[1]} S {s}: {us} us a call (20 calls after a "
+            f"warm-up)")
+    log(f"  ok {len(out)} keys' candidate bit-equal to append -> attention (outputs and "
+        f"cache bytes), dense and paged, S {[TUNE_BLOCK * b for b in TUNE_BLOCKS]}")
+    return out
+
+
+def _served_matches(eng, autotune, kernels) -> int:
+    """How many of the engine's quantized layers find an installed entry
+    under their own geometry, family and resolved impl."""
+    n = 0
+    for lyr in eng.state:
+        family = "decode_step_paged" if hasattr(lyr, "block_table") else "decode_step"
+        _, _, heads, hd = lyr.shape
+        n += autotune.lookup(family, lyr.k_bits, lyr.v_bits, heads, hd, lyr.block,
+                             kernels.resolve_impl("auto", lyr.k_packed.device)) is not None
+    return n
+
+
+def _serve_runs(torch, cfg, serve, reqs, arts: dict, tag: str) -> tuple[dict, dict]:
+    """Phase 4's geometry served once per ``arts`` entry ``name: (artifact,
+    matched)``, no table installed before each: the number of layers whose
+    own geometry finds an installed entry must be ``matched``; the streams
+    and launches of each run."""
+    from repro_torch import kernels
+    from repro_torch.kernels import autotune
+    from repro_torch.serve.engine import ServeEngine
+
+    outs, launches = {}, {}
+    for name, (art, matched) in arts.items():
+        autotune.set_active_configs(None)
+        eng = ServeEngine(cfg, serve, max_slots=4, max_seq=512, artifact=art, shed=steady())
+        hits = _served_matches(eng, autotune, kernels)
+        if hits != matched:
+            raise AssertionError(f"phase 19 {tag} ({name}): {hits} served layers find an "
+                                 f"installed entry, not {matched}")
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        out = eng.run(reqs)
+        torch.cuda.synchronize()
+        st = eng.stats()
+        la, plain = st["launches"], st["plain_calls"]
+        if (any(plain.values()) or la["quant_kv_decode_step"] != 576
+                or la["quant_kv_decode_step"] != cfg.n_layers * st["decode_steps"]):
+            raise AssertionError(f"phase 19 {tag} ({name}): launches {la}, plain calls {plain}")
+        log(f"  ({name}) {len(autotune.active_configs())} configs installed, {hits} of "
+            f"{len(eng.state)} served layers find one; "
+            f"{st['decode_steps']} decode steps, row 3 launched {la['quant_kv_decode_step']} "
+            f"times; median decode step {st['decode_step_median_s'] * 1e3:.3f} ms")
+        outs[name], launches[name] = out, la
+        del eng
+    first = next(iter(outs.values()))
+    if any(o != first for o in outs.values()):
+        raise AssertionError(f"phase 19 {tag}: streams differ between {list(outs)}")
+    return outs, launches
+
+
+def replay_serving(torch, cfg) -> dict:
+    """Phase 19 (b) and (c): ``attach_kernel_configs`` on phase 6's artifact
+    without its pool and draft (its engine (a)), saved and reloaded; phase 4's
+    geometry served with the tuned table (every served layer finds its key)
+    and with no table (identical streams, row 3 launched 576 times each), a
+    traced run (``kernel_config_replayed``); then the refusals and a table
+    keyed ``impl="pallas"`` (installs, no layer finds it, the same
+    streams)."""
+    from repro_torch.checkpoint.store import ArtifactError
+    from repro_torch.core.policy import PolicyArtifact
+    from repro_torch.kernels import autotune
+    from repro_torch.launch.search import attach_kernel_configs
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    art6 = PolicyArtifact.load(str(ROOT / "build" / "phase6_policy.json"))
+    dense = dataclasses.replace(art6, pool=None, draft_policy=None, draft_k=0)
+    t0 = time.perf_counter()
+    tuned = attach_kernel_configs(dense, cfg)
+    tune_s = time.perf_counter() - t0
+    path = ROOT / "build" / "phase19_policy.json"
+    tuned.save(str(path))
+    tuned = PolicyArtifact.load(str(path))
+    if tuned.meta.get("kernel_autotune_impl") != "cuda" or not tuned.kernel_configs:
+        raise AssertionError(f"phase 19 (b): tuned artifact {tuned.kernel_configs}, "
+                             f"{tuned.meta}")
+    log(f"  attach_kernel_configs on phase 6's artifact (dense) in {tune_s:.2f} s, saved to "
+        f"{path.relative_to(ROOT)} and reloaded: " + "; ".join(
+            f"{e['key']['family']} K {e['key']['k_bits']} / V {e['key']['v_bits']} -> "
+            f"{e['config']} ({e['micros']} us, {e['candidates']} candidates)"
+            for e in tuned.kernel_configs))
+    bare = dataclasses.replace(tuned, kernel_configs=None)
+    serve, _ = packed_model(torch, cfg, SEED + 3)
+    gen = torch.Generator().manual_seed(SEED + 4)
+    lens = torch.randint(8, 25, (8,), generator=gen).tolist()
+    reqs = [Request(uid=i, prompt=torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist(),
+                    max_new_tokens=16) for i, n in enumerate(lens)]
+    outs, launches = _serve_runs(torch, cfg, serve, reqs,
+                                 {"tuned table": (tuned, cfg.n_layers),
+                                  "no table": (bare, 0)}, "(b)")
+    log("  ok the two runs' streams are identical")
+    autotune.set_active_configs(None)
+    obs_trace.enable()
+    try:
+        ServeEngine(cfg, serve, max_slots=4, max_seq=512, artifact=tuned, shed=steady())
+        replayed = [e for e in obs_trace.get_tracer().events()
+                    if e[1] == "kernel_config_replayed"]
+    finally:
+        obs_trace.disable()
+        obs_trace.get_tracer().clear()
+    if len(replayed) != len(tuned.kernel_configs):
+        raise AssertionError(f"phase 19 (b): {len(replayed)} kernel_config_replayed events")
+    log(f"  ok a traced construction records {len(replayed)} kernel_config_replayed instant(s)")
+
+    # (c) refusals and the reference's impl
+    entries = tuned.kernel_configs
+    bad = [dict(e, key=dict(e["key"], heads=e["key"]["heads"] + 1)) for e in entries]
+    cases = {"tuned for geometry": dataclasses.replace(tuned, kernel_configs=bad),
+             "float decode state": dataclasses.replace(tuned, state_policy=None,
+                                                       state_registry_hash="")}
+    for want, art in cases.items():
+        autotune.set_active_configs(None)
+        try:
+            ServeEngine(cfg, serve, max_slots=4, max_seq=512, artifact=art, shed=steady())
+        except ArtifactError as e:
+            if want not in str(e) or autotune.active_configs():
+                raise
+            log(f"  ok refused: {e}")
+        else:
+            raise AssertionError(f"phase 19 (c): a table '{want}' deployed")
+    pallas = dataclasses.replace(tuned, kernel_configs=[
+        dict(e, key=dict(e["key"], impl="pallas"), config={"place": "dus", "attend": "substitute"})
+        for e in entries])
+    p_outs, _ = _serve_runs(torch, cfg, serve, reqs, {"impl pallas table": (pallas, 0)}, "(c)")
+    if p_outs["impl pallas table"] != outs["tuned table"]:
+        raise AssertionError("phase 19 (c): the pallas-keyed table changed the streams")
+    log("  ok a table keyed impl 'pallas' deploys, never matches, and gives the same streams")
+    autotune.set_active_configs(None)
+    del serve
+    torch.cuda.empty_cache()
+    return launches["tuned table"]
+
+
+def examples_on_card(torch) -> None:
+    """Phase 19 (d): ``examples/torch_budget_search_serve.py --tiny --paged
+    --speculate``, ``examples/torch_serve_quantized.py`` and
+    ``examples/torch_quickstart.py`` on the card, their output under
+    ``build/`` and checked for their markers (the first: the JAX example
+    test's)."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import autotune
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        import torch_budget_search_serve
+        import torch_quickstart
+        import torch_serve_quantized
+    finally:
+        sys.path.pop(0)
+    markers = {"torch_budget_search_serve": ("[kv-budgeted/shift_add]", "[paged] pool",
+                                             "served 3 requests on the quantized KV cache",
+                                             "[speculative] draft mean_bits="),
+               "torch_serve_quantized": ("served 8 requests",),
+               "torch_quickstart": ("final: acc=", "shift-add MAC vs INT8 MAC")}
+    for mod, argv in ((torch_budget_search_serve, ["--tiny", "--paged", "--speculate"]),
+                      (torch_serve_quantized, []), (torch_quickstart, [])):
+        name = mod.__name__
+        autotune.set_active_configs(None)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        text = buf.getvalue()
+        (ROOT / "build" / f"phase19_{name}.log").write_text(text)
+        missing = [m for m in markers[name] if m not in text]
+        if missing or (name == "torch_budget_search_serve"
+                       and text.count("launch.serve --policy") != 2):
+            raise AssertionError(f"phase 19 (d) {name}: missing {missing}")
+        last = [line for line in text.splitlines()
+                if line.startswith(("  served", "served", "[speculative]", "final:"))]
+        log(f"  ok {' '.join([f'examples/{name}.py', *argv])} on the card in {wall:.1f} s "
+            f"(output in build/phase19_{name}.log): {last[-1].strip()}")
+
 def main() -> int:
     try:
         import torch
@@ -5698,14 +5961,21 @@ def main() -> int:
     whisper_train = cut_trainer(torch, WHISPER_TRAIN_ARGV, "phase 18 (c)")
     whisper_search(torch, whisper_cfg)
     log(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    log(f"== 19. {cfg.name}: the decode-step autotuner, the engine's replay of its table, "
+        f"the refusals, the examples")
+    t_phase = time.perf_counter()
+    autotune_candidates(torch, cfg)
+    replayed = replay_serving(torch, cfg)
+    examples_on_card(torch)
+    log(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s")
     # the later main paths' launches join the earlier ones' (each read right
     # after its own run, the counts set to 0 just before it)
     for extra in (moe_train, vlm["launches"], ssm["launches"], zamba["launches"], zamba_window,
-                  zamba_train, whisper, whisper_train):
+                  zamba_train, whisper, whisper_train, replayed):
         for name, n in extra.items():
             launches[name] += n
 
-    log(f"== 19. summary (the script so far: {time.perf_counter() - t_script:.1f} s)")
+    log(f"== 20. summary (the script so far: {time.perf_counter() - t_script:.1f} s)")
     rows = []
     for name in kernels.KERNELS:
         r = results[name]

@@ -391,9 +391,9 @@ class PolicyArtifact:
     draft_policy   self-speculative draft bitwidths over the same weight
                    registry (v4; None: no speculation); ``draft_k`` tokens
                    drafted per verify step (> 0 iff a draft policy is set)
-    kernel_configs autotuned decode-step kernel configs (v5).  The port
-                   carries them through load and save; it has no autotuner
-                   yet (ROADMAP queue 1, item 15), so serving ignores them.
+    kernel_configs autotuned decode-step kernel configs (v5,
+                   ``kernels/autotune.py``); the engine validates them
+                   against its cache geometry and replays them
     provenance     how the search arrived at the policy (v6), validated on
                    build and on load
     meta           free-form notes

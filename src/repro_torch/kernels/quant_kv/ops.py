@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.packing import LANES
-from repro_torch.kernels import IMPLS, LAUNCHES, PLAIN_CALLS, resolve_impl  # noqa: F401
+from repro_torch.kernels import IMPLS, LAUNCHES, PLAIN_CALLS, autotune, resolve_impl  # noqa: F401
 from repro_torch.kvcache.cache import QuantizedKVLayer
 from repro_torch.kvcache.paged import PagedKVLayer, place_paged_block  # noqa: F401
 from .kernel import (quant_kv_append_burst_cuda, quant_kv_append_burst_paged_cuda,
@@ -135,13 +135,19 @@ def quant_kv_append_burst(layer, start, acc, k_burst: torch.Tensor, v_burst: tor
 
 
 def quant_kv_decode_step(q: torch.Tensor, layer, pos, k_new, v_new, kv_valid: torch.Tensor, *,
-                         impl: str = "auto", out_dtype=None):
+                         impl: str = "auto", out_dtype=None, config: dict | None = None):
     """ONE dispatch per layer per decode step: append + attend.
 
     Bitwise equal to :func:`quant_kv_append` followed by
-    :func:`quant_kv_attention` on each path.  ``q`` (B, 1, hq, hd) or
-    (B, hq, hd); ``pos`` (B,) or scalar write positions; ``k_new``/``v_new``
-    (B, 1, H, hd); ``kv_valid`` (B, S) bool (already includes ``pos``).
+    :func:`quant_kv_attention` on each path, for every ``config``.  ``q``
+    (B, 1, hq, hd) or (B, hq, hd); ``pos`` (B,) or scalar write positions;
+    ``k_new``/``v_new`` (B, 1, H, hd); ``kv_valid`` (B, S) bool (already
+    includes ``pos``).  ``config`` is one of
+    ``autotune.enumerate_candidates``' knob sets for the resolved impl; None
+    consults the installed table (``autotune.set_active_configs``), and with
+    no entry for this geometry runs the default.  On "cuda" the one
+    candidate is the kernel's own launch, so the config and the table are
+    not read.
     Returns ``(o shaped like q, layer)``.
     """
     paged = _container(layer)
@@ -149,8 +155,13 @@ def quant_kv_decode_step(q: torch.Tensor, layer, pos, k_new, v_new, kv_valid: to
     lead4 = q.ndim == 4
     q3 = q[:, 0] if lead4 else q
     if impl == "torch":
+        if config is None:
+            _, _, n_kv, hd = layer.shape
+            config = autotune.lookup("decode_step_paged" if paged else "decode_step",
+                                     layer.k_bits, layer.v_bits, n_kv, hd, layer.block, impl)
         ref = quant_kv_decode_step_paged_ref if paged else quant_kv_decode_step_ref
-        o, layer = ref(q3, layer, pos, k_new, v_new, kv_valid, out_dtype=out_dtype or q.dtype)
+        o, layer = ref(q3, layer, pos, k_new, v_new, kv_valid, out_dtype=out_dtype or q.dtype,
+                       config=config)
     else:
         b, s, n_kv, hd = layer.shape
         g = q3.shape[1] // n_kv

@@ -1,10 +1,12 @@
 """Plain PyTorch versions of the quantized-KV decode ops (dense and paged).
 
-Mirror ``repro/kernels/quant_kv/ref.py`` in its default config
-(``place="select"``, ``attend="substitute"``; every JAX config is
-bitwise-equal): an append requantizes exactly the block holding ``pos``
-with the new row inserted, and attention folds the per-block scales into
-the (·, S) scores and probabilities.  Caches and pools are updated in place.
+Mirror ``repro/kernels/quant_kv/ref.py``: an append requantizes exactly the
+block holding ``pos`` with the new row inserted, and attention folds the
+per-block scales into the (·, S) scores and probabilities.  Caches and pools
+are updated in place.  The fused steps take the reference's autotuned
+``config`` knobs (``place``, ``attend``; ``kernels/autotune.py``), every one
+bitwise equal to the others and to the default (no config), which writes
+the touched block by index and attends over the re-unpacked cache.
 
 The paged versions go through the dense ones: paged attention is dense
 attention over ``to_dense`` of the pool, so a pool and a dense cache with
@@ -21,8 +23,10 @@ from repro_torch.core import packing
 from repro_torch.kernels import PLAIN_CALLS
 from repro_torch.kernels.quant_kv.kernel import CHUNK, TILE
 from repro_torch.kernels.quant_matmul.ref import dequant_matmul
-from repro_torch.kvcache.cache import QuantizedKVLayer, append_side, append_token
-from repro_torch.kvcache.paged import append_token_paged, to_dense
+from repro_torch.kvcache.cache import (QuantizedKVLayer, append_side, append_token,
+                                       requantize_block_levels)
+from repro_torch.kvcache.paged import (TRASH_BLOCK, append_token_paged, place_paged_block,
+                                       to_dense)
 
 
 def _scale_per_pos(scale: torch.Tensor, block: int) -> torch.Tensor:
@@ -72,15 +76,70 @@ def quant_kv_append_ref(layer: QuantizedKVLayer, pos, k_new, v_new) -> Quantized
 
 
 def quant_kv_decode_step_ref(q: torch.Tensor, layer: QuantizedKVLayer, pos, k_new, v_new,
-                             kv_valid: torch.Tensor, *, out_dtype=None):
+                             kv_valid: torch.Tensor, *, out_dtype=None,
+                             config: dict | None = None):
     """Append + attend for one decode token per slot.
 
     ``q`` (B, hq, hd); ``pos`` (B,) or scalar; ``k_new``/``v_new``
     (B, 1, H, hd); ``kv_valid`` (B, S) bool, already including ``pos``.
-    Returns ``(out (B, hq, hd), layer)`` with the layer updated in place.
+    ``config`` (the reference's knobs): ``place`` "select" writes the
+    requantized block by a full-width select over the block rows, "dus" by
+    a per-slot index write; ``attend`` "reunpack" unpacks the updated cache,
+    "substitute" unpacks the old one and splices in the pre-pack levels.  A
+    slot whose ``pos`` lies outside ``[0, S)`` writes nothing under either
+    placement.  Returns ``(out (B, hq, hd), layer)`` with the layer updated
+    in place.
     """
     PLAIN_CALLS["quant_kv_decode_step"] += 1
-    return _decode_step_dense(q, layer, pos, k_new, v_new, kv_valid, out_dtype), layer
+    if config is None:
+        return _decode_step_dense(q, layer, pos, k_new, v_new, kv_valid, out_dtype), layer
+    return _decode_step_knobs(q, layer, pos, k_new, v_new, kv_valid, out_dtype, config), layer
+
+
+def _decode_step_knobs(q, layer: QuantizedKVLayer, pos, k_new, v_new, kv_valid, out_dtype,
+                       config: dict) -> torch.Tensor:
+    """The fused step under ``config``: ``repro/kernels/quant_kv/ref.py``'s
+    ``quant_kv_decode_step_ref`` graph, in place."""
+    place = config.get("place", "select")
+    attend = config.get("attend", "substitute")
+    b, s, n_kv, hd = layer.shape
+    block = layer.block
+    nb = s // block
+    dev = layer.k_packed.device
+    pos = torch.as_tensor(pos, device=dev).reshape(-1).expand(b).to(torch.long)
+    inside = (pos >= 0) & (pos < s)
+    bidx = torch.where(inside, pos // block, 0)
+    off = pos % block
+    at_block = ((torch.arange(nb, device=dev) == bidx[:, None])
+                & inside[:, None])[:, None, :, None, None]              # (B, 1, nb, 1, 1)
+    rows = torch.arange(b, device=dev)[inside]
+
+    def side(packed, scale, new, bits):
+        view = packed.view(b, n_kv, nb, block, packed.shape[-1])
+        blk = torch.take_along_dim(view, bidx[:, None, None, None, None], dim=2)[:, :, 0]
+        sc_b = torch.take_along_dim(scale, bidx[:, None, None, None], dim=2)   # (B, H, 1, 1)
+        fp = packing.unpack(blk, bits, hd).to(torch.float32) * sc_b
+        lev_new, sc_new = requantize_block_levels(fp, new, off, bits)
+        blk_new = packing.pack(lev_new, bits)                                 # (B, H, block, ·)
+        lev_old = (packing.unpack(packed, bits, hd).reshape(b, n_kv, nb, block, hd)
+                   if attend == "substitute" else None)
+        if place == "dus":
+            view[rows, :, bidx[inside]] = blk_new[inside]
+            scale[rows, :, bidx[inside]] = sc_new[inside][:, :, 0]
+        else:
+            view.copy_(torch.where(at_block, blk_new[:, :, None], view))
+            scale.copy_(torch.where(at_block[..., 0], sc_new, scale))
+        if lev_old is not None:
+            return torch.where(at_block, lev_new[:, :, None], lev_old).reshape(b, n_kv, s, hd)
+        return packing.unpack(packed, bits, hd)
+
+    klev = side(layer.k_packed, layer.k_scale, k_new.transpose(1, 2)[:, :, 0], layer.k_bits)
+    vlev = side(layer.v_packed, layer.v_scale, v_new.transpose(1, 2)[:, :, 0], layer.v_bits)
+    hq = q.shape[1]
+    qg = q.to(torch.float32).reshape(b, n_kv, hq // n_kv, hd)
+    o = _attention_from_levels(qg, klev, layer.k_scale, vlev, layer.v_scale, kv_valid,
+                               block=block, hd=hd)
+    return o.reshape(b, hq, hd).to(out_dtype or q.dtype)
 
 
 def _decode_step_dense(q, layer: QuantizedKVLayer, pos, k_new, v_new, kv_valid,
@@ -169,17 +228,62 @@ def quant_kv_append_burst_ref(layer, start, acc, k_burst, v_burst):
 
 
 def quant_kv_decode_step_paged_ref(q: torch.Tensor, layer, pos, k_new, v_new,
-                                   kv_valid: torch.Tensor, *, out_dtype=None):
+                                   kv_valid: torch.Tensor, *, out_dtype=None,
+                                   config: dict | None = None):
     """Fused paged step: the paged append, then dense attention over ``to_dense``.
 
-    The JAX package's ``attend="reunpack"`` graph, bitwise equal to its
-    default ``"substitute"`` because the engine's copy-on-write leaves a live
-    slot's touched block mapped by that slot alone, and an idle slot's write
-    lands in the never-mapped trash block.  Returns ``(out (B, hq, hd), layer)``.
+    The JAX package's ``attend="reunpack"`` graph (the default here),
+    bitwise equal to its ``"substitute"`` (``config={"attend":
+    "substitute"}``: gather the OLD pool and splice each slot's pre-pack
+    levels into its own mapped touched block) because the engine's
+    copy-on-write leaves a live slot's touched block mapped by that slot
+    alone, and an idle slot's write lands in the never-mapped trash block.
+    Returns ``(out (B, hq, hd), layer)``.
     """
     PLAIN_CALLS["quant_kv_decode_step_paged"] += 1
+    if (config or {}).get("attend", "reunpack") == "substitute":
+        return _decode_step_paged_substitute(q, layer, pos, k_new, v_new, kv_valid,
+                                             out_dtype), layer
     append_token_paged(layer, pos, k_new, v_new)
     return _attend_dense(q, to_dense(layer), kv_valid, out_dtype), layer
+
+
+def _decode_step_paged_substitute(q, layer, pos, k_new, v_new, kv_valid,
+                                  out_dtype) -> torch.Tensor:
+    """``attend="substitute"`` on a pool: the old contents' dense view with
+    each slot's new levels and scale spliced in where its touched block is
+    mapped; the pool written as :func:`append_token_paged` writes it."""
+    b, s, n_kv, hd = layer.shape
+    block = layer.block
+    nb = s // block
+    dev = layer.k_packed.device
+    dense = to_dense(layer)                                    # OLD contents
+    pos = torch.as_tensor(pos, device=dev).reshape(-1).expand(b).to(torch.long)
+    bidx = pos // block
+    off = pos % block
+    raw = torch.take_along_dim(layer.block_table.to(torch.long),
+                               bidx.clamp(0, nb - 1)[:, None], dim=1)[:, 0]
+    raw = torch.where(bidx < nb, raw, -1)
+    phys = raw.clamp_min(TRASH_BLOCK)
+    sel = ((torch.arange(nb, device=dev) == bidx[:, None])
+           & (raw >= 0)[:, None])[:, None, :, None, None]      # (B, 1, nb, 1, 1)
+
+    def side(pool, scale, old_packed, old_scale, new, bits):
+        fp = packing.unpack(pool[phys], bits, hd).to(torch.float32) * scale[phys]
+        lev_new, sc_new = requantize_block_levels(fp, new.to(torch.float32), off, bits)
+        place_paged_block(pool, scale, packing.pack(lev_new, bits), sc_new, phys)
+        lev_old = packing.unpack(old_packed, bits, hd).reshape(b, n_kv, nb, block, hd)
+        lev = torch.where(sel, lev_new[:, :, None], lev_old).reshape(b, n_kv, s, hd)
+        return lev, torch.where(sel[..., 0], sc_new, old_scale)
+
+    klev, ks = side(layer.k_packed, layer.k_scale, dense.k_packed, dense.k_scale,
+                    k_new.transpose(1, 2)[:, :, 0], layer.k_bits)
+    vlev, vs = side(layer.v_packed, layer.v_scale, dense.v_packed, dense.v_scale,
+                    v_new.transpose(1, 2)[:, :, 0], layer.v_bits)
+    hq = q.shape[1]
+    qg = q.to(torch.float32).reshape(b, n_kv, hq // n_kv, hd)
+    o = _attention_from_levels(qg, klev, ks, vlev, vs, kv_valid, block=block, hd=hd)
+    return o.reshape(b, hq, hd).to(out_dtype or q.dtype)
 
 
 # ---------------------------------------------------------------------------

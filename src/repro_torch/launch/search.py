@@ -30,8 +30,11 @@ decode step (``--decode-batch`` sequences) on the H100 roofline.
 ``search/main`` window over the controller phases, their iterations and the
 env work) and prints the share of the wall time attributed to env work;
 ``--ckpt DIR`` saves the searched params with the artifact as a checkpoint
-step both packages restore.  ``--device`` defaults to the card and raises
-without one.  Not ported yet: ``--autotune-kernels`` (ROADMAP queue 3).
+step both packages restore.  ``--autotune-kernels`` (with a state phase)
+times the fused decode step's bitwise-equal launches for every deployed
+``(k_bits, v_bits)`` pair (``kernels/autotune.py``, ``--autotune-repeats``
+calls a candidate) and records the winners in the artifact (v5), which the
+engine replays.  ``--device`` defaults to the card and raises without one.
 """
 from __future__ import annotations
 
@@ -168,6 +171,36 @@ def attach_draft(artifact: PolicyArtifact, draft_policy, draft_k: int, *,
     return out
 
 
+def attach_kernel_configs(artifact: PolicyArtifact, cfg, *, block: int | None = None,
+                          impl: str | None = None, repeats: int = 20,
+                          device=None) -> PolicyArtifact:
+    """Return a copy of ``artifact`` carrying autotuned kernel configs (v5).
+
+    Runs the fused decode-step autotuner (``kernels.autotune``) over every
+    distinct ``(k_bits, v_bits)`` pair the artifact's state policy deploys,
+    at the geometry serving will use: ``cfg``'s KV heads and head_dim and
+    the cache ``block`` (the artifact's pool block when paged, else the
+    dense default).  ``impl`` None is what ``"auto"`` resolves to on
+    ``device`` (None: the card).  Every candidate is bitwise equivalent, so
+    this phase can only change speed, never tokens.
+    """
+    if artifact.state_policy is None:
+        raise ValueError("kernel autotuning needs a state policy (the fused "
+                         "decode step only exists for quantized caches)")
+    from repro_torch.kernels import autotune
+
+    paged = artifact.pool is not None
+    if block is None:
+        block = int(artifact.pool["block"]) if paged else DEFAULT_BLOCK
+    impl = impl or autotune.resolved_backend_impl(device)
+    state_bits = resolve_state_bits(artifact.state_policy, cfg)
+    entries = autotune.autotune_state(state_bits, cfg.n_kv_heads, cfg.resolved_head_dim, block,
+                                      paged=paged, impl=impl, repeats=repeats)
+    out = dataclasses.replace(artifact, kernel_configs=entries, meta=dict(artifact.meta))
+    out.meta["kernel_autotune_impl"] = entries[0]["key"]["impl"] if entries else impl
+    return out
+
+
 def state_controller_config(n_entries: int) -> ControllerConfig:
     """Controller budgets of the post-training state (and draft) phases.
 
@@ -242,6 +275,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="calibration prompts of the acceptance proxy")
     ap.add_argument("--speculate-k", type=int, default=3,
                     help="--draft: tokens the draft proposes a verify step (in the artifact)")
+    ap.add_argument("--autotune-kernels", action="store_true",
+                    help="time the bitwise-equivalent fused decode-step launches for every "
+                         "deployed (k_bits, v_bits) pair and record the winners in the "
+                         "artifact (v5) so serving replays them without re-search")
+    ap.add_argument("--autotune-repeats", type=int, default=20,
+                    help="--autotune-kernels: timing repetitions per candidate")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="record a Chrome/Perfetto trace of the whole search (controller "
                          "phases, iterations and env work spans) and print the wall-time "
@@ -389,13 +428,34 @@ def _save_trace(path: str, t0: float) -> None:
           f"{srep['attributed_fraction']:.1%} of {srep['total_s']:.2f}s attributed to env work)")
 
 
+def _autotune_phase(args, artifact: PolicyArtifact, log=print) -> PolicyArtifact:
+    """``--autotune-kernels``: the winners of every deployed bit pair's
+    candidates ride the artifact."""
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    log("autotuning fused decode-step kernels ...")
+    artifact = attach_kernel_configs(artifact, cfg, repeats=args.autotune_repeats,
+                                     device=args.device)
+    for e in artifact.kernel_configs:
+        k = e["key"]
+        log(f"  {k['family']} k{k['k_bits']}/v{k['v_bits']} [{k['impl']}]: {e['config']} "
+            f"({e['micros']:g} us, {e['candidates']} candidates)")
+    return artifact
+
+
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
     if args.trace:
         obs_trace.enable()
     t0 = time.perf_counter()
     try:
         artifact, result, env, phases = run(args)
+        if args.autotune_kernels:
+            if artifact.state_policy is None:
+                ap.error("--autotune-kernels needs a state phase (--limit state_bytes=...)")
+            artifact = _autotune_phase(args, artifact)
         if args.trace:
             _save_trace(args.trace, t0)
     finally:

@@ -64,7 +64,9 @@ The minimal port of ``repro/serve/engine.py``:
     feeds the calibration ratios ``stats()`` reports against an artifact's
     predicted costs.  Tracing adds no synchronization and changes no token.
 
-Left for later slices: the v5 kernel configs (``kernels/autotune.py``).
+  * An artifact's v5 ``kernel_configs`` (``kernels/autotune.py``) are
+    validated against the built cache's geometry and installed before the
+    first step; the fused decode step replays them.
 """
 from __future__ import annotations
 
@@ -301,6 +303,10 @@ class ServeEngine:
             surface = (kvcache.state_layer_infos(cfg, max_slots, max_seq)
                        if artifact.state_policy is not None else None)
             kvcache.verify_state_bits(self.state, artifact, surface=surface)
+        # autotuned fused decode-step configs (v5): validated against this
+        # deployment's cache geometry and installed process-wide before the
+        # first step, so serving replays the searched launches
+        self._install_kernel_configs()
         #: quantized layers need the burst snapshot/replay commit; fp ones do
         #: not.  As in the JAX engine, only a list state (the decoder
         #: families') counts: a hybrid's dict state never does, so its
@@ -331,6 +337,46 @@ class ServeEngine:
         #: host seconds of each decode step (a speculative round under
         #: speculation), the token transfer included
         self._step_s: list[float] = []
+
+    # -- autotuned kernel configs --------------------------------------------
+    def _install_kernel_configs(self) -> None:
+        """Replay a v5 artifact's autotuned fused decode-step configs.
+
+        Every recorded candidate is bitwise equivalent, so a wrong table can
+        only cost speed; but a table tuned for another cache geometry means
+        the artifact does not describe this deployment, and a table on a
+        float state has no fused quantized step to configure: both raise
+        ``ArtifactError`` and install nothing.  Keys for bit pairs the
+        deployed policy does not use are tolerated.
+        """
+        from repro_torch.checkpoint.store import ArtifactError
+        from repro_torch.kernels import autotune
+
+        entries = self.artifact.kernel_configs if self.artifact is not None else None
+        if not entries:
+            return
+        qlayers = [layer for layer in (self.state if isinstance(self.state, list) else [])
+                   if isinstance(layer, (kvcache.QuantizedKVLayer, kvcache.PagedKVLayer))]
+        if not qlayers:
+            raise ArtifactError("policy artifact carries kernel_configs but the engine built "
+                                "a float decode state (no fused quantized decode step exists "
+                                "to configure)")
+        lyr = qlayers[0]
+        try:
+            autotune.validate_configs(entries, heads=lyr.shape[2], head_dim=lyr.shape[3],
+                                      block=lyr.block,
+                                      bit_pairs={(q.k_bits, q.v_bits) for q in qlayers})
+        except ValueError as e:
+            raise ArtifactError(f"policy artifact kernel_configs do not fit this "
+                                f"deployment: {e}") from e
+        autotune.set_active_configs(entries)
+        # the replayed configs land in the trace beside the step times, so a
+        # timeline shows which searched launch each step ran
+        tr = obs_trace.get_tracer()
+        if tr.enabled:
+            for e in entries:
+                tr.instant("kernel_config_replayed", cat="kernel", track="kernel",
+                           args=dict(e))
 
     # -- observability ---------------------------------------------------------
     def _count(self, name: str, n: int = 1) -> None:

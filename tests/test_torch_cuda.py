@@ -24,7 +24,9 @@ of M and N, the burst append against the appends one position at a
 time and the plain version, dense and paged, and the expert stacks of the
 GEMV and the GEMM (one launch for all experts) against the 2-D launches bit
 for bit, with a shared and a per-expert scale, and in reduced
-deepseek-moe-16b's MoE layer.
+deepseek-moe-16b's MoE layer, and every candidate of the decode-step
+autotuner (``kernels/autotune.py``) bit for bit against the append then
+the attention kernels at S 128, 512 and 2048, dense and paged.
 """
 import dataclasses
 
@@ -1380,3 +1382,61 @@ def test_hybrid_and_encdec_linears_match_plain(cuda, bits, m, name, dtype):
     assert got.shape == (m, n) and torch.isfinite(got).all()
     assert _rel(got, ref) <= (1e-5 if dtype is torch.float32 else 2e-2)
     assert kernels.LAUNCHES["quant_gemv" if m <= 8 else "quant_matmul"] == 1
+
+
+#: the autotuner's CUDA candidate at gemma-2b's state geometry: S 128 (its
+#: default 8 blocks), 512 and 2048 (two rounds of 16 chunks)
+TUNE_S = (128, 512, 2048)
+
+
+@pytest.mark.parametrize("paged", (False, True), ids=("dense", "paged"))
+@pytest.mark.parametrize("s", TUNE_S)
+@pytest.mark.parametrize("k_bits,v_bits", [(8, 4), (4, 2)])
+def test_every_autotune_candidate_is_the_sequential_kernels(cuda, paged, s, k_bits, v_bits):
+    """The CUDA candidate (``kernels/autotune.py``: the kernel's own launch),
+    passed as ``config`` or replayed from an installed table, gives the
+    append kernel then the attention kernel's output and cache bytes bit for
+    bit, in one launch; the installed key is the one the served layer's own
+    geometry looks up."""
+    from repro_torch.kernels import autotune
+
+    key = autotune.KernelKey(family="decode_step_paged" if paged else "decode_step",
+                             k_bits=k_bits, v_bits=v_bits, heads=1, head_dim=256, block=16,
+                             impl="cuda")
+    q, layer, pos, kn, vn, valid = autotune._synthetic_inputs(key, batch=8, blocks=s // 16,
+                                                              device=cuda)
+    seq = kv_ops.quant_kv_append(autotune.clone_layer(layer), pos, kn, vn)
+    o_seq = kv_ops.quant_kv_attention(q, seq, valid, out_dtype=torch.float32)
+    cands = autotune.enumerate_candidates(key)
+    assert cands == [{"place": "kernel", "attend": "cluster"}]
+    _, _, n_kv, hd = layer.shape
+    try:
+        autotune.set_active_configs([{"key": key.to_dict(), "config": cands[0]}])
+        assert autotune.lookup(key.family, layer.k_bits, layer.v_bits, n_kv, hd, layer.block,
+                               kernels.resolve_impl("auto", q.device)) == cands[0]
+        runs = [{}, dict(config=cands[0])]
+        for kw in runs:
+            kernels.reset_counts()
+            o, new = kv_ops.quant_kv_decode_step(q, autotune.clone_layer(layer), pos, kn, vn,
+                                                 valid, out_dtype=torch.float32, **kw)
+            assert torch.equal(o, o_seq), kw
+            for f in ("k_packed", "v_packed", "k_scale", "v_scale"):
+                assert torch.equal(getattr(new, f), getattr(seq, f)), (kw, f)
+            assert sum(kernels.LAUNCHES.values()) == 1
+    finally:
+        autotune.set_active_configs(None)
+    o, new = kv_ops.quant_kv_decode_step(q, autotune.clone_layer(layer), pos, kn, vn, valid,
+                                         out_dtype=torch.float32)
+    assert torch.equal(o, o_seq)
+    for f in ("k_packed", "v_packed", "k_scale", "v_scale"):
+        assert torch.equal(getattr(new, f), getattr(seq, f)), f
+
+
+def test_autotune_key_times_the_cuda_candidates(cuda):
+    from repro_torch.kernels import autotune
+
+    key = autotune.KernelKey(family="decode_step", k_bits=8, v_bits=4, heads=1, head_dim=256,
+                             block=16, impl="cuda")
+    res = autotune.autotune_key(key, repeats=3)
+    assert res["candidates"] == 1 and res["micros"] > 0
+    assert res["config"] in autotune.enumerate_candidates(key)

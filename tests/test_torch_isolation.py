@@ -40,7 +40,8 @@ def test_every_submodule_imports_without_jax():
             "repro_torch.models.hybrid", "repro_torch.models.encdec",
             "repro_torch.models.decoder", "repro_torch.models.registry",
             "repro_torch.data.pipeline", "repro_torch.serve.engine",
-            "repro_torch.train.train_step", "repro_torch.quant.env"} <= set(mods)
+            "repro_torch.train.train_step", "repro_torch.quant.env",
+            "repro_torch.kernels.autotune", "repro_torch.core.hardware"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -57,13 +58,46 @@ def test_every_submodule_imports_without_jax():
     assert res.stdout.strip() == "ok"
 
 
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-                         + sorted((ROOT / "tools").glob("*.py")),
+                         + sorted((ROOT / "tools").glob("*.py")) + EXAMPLES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_package_imports(path):
     assert path.exists(), path
     bad = FORBIDDEN.findall(path.read_text())
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_examples_import_without_jax():
+    """The port's examples import with JAX and the JAX package blocked."""
+    assert [p.name for p in EXAMPLES] == ["torch_budget_search_serve.py", "torch_quickstart.py",
+                                          "torch_serve_quantized.py", "torch_train_lm_qat.py"]
+    code = ("import importlib.util, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            f"for path in {[str(p) for p in EXAMPLES]!r}:\n"
+            "    spec = importlib.util.spec_from_file_location('ex', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "assert not any(k == 'jax' or k.startswith('jax.') for k in sys.modules\n"
+            "               if sys.modules[k] is not None)\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PATH": "/usr/bin:/bin"}, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_examples_without_device_raise_when_no_card(monkeypatch):
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        import torch_serve_quantized
+    finally:
+        sys.path.pop(0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_serve_quantized.main([])
 
 
 def test_forbidden_pattern_catches_the_spellings():

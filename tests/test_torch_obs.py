@@ -9,8 +9,9 @@ classes and the JAX package's and compare what they give back: the exported
 trace document key for key, the percentiles and summaries to rel 1e-12.  The
 engine cases run the port's engine on reduced gemma-2b (plain versions on
 the CPU) beside the JAX engine where a count can be compared.
-``test_kernel_config_replay_traced`` has no twin: it waits for the port of
-``kernels/autotune.py`` (ROADMAP.md queue 1 item 5).
+``test_kernel_config_replay_traced`` runs the port's autotuner ("torch"
+candidates) and checks the same span names on the ``kernel`` track, and the
+engine's ``kernel_config_replayed`` instants when it installs a table.
 """
 import json
 import time
@@ -457,6 +458,38 @@ def test_lifecycle_spans_preempted_requeue(setup):
     spans = [e[1] for e in evs if e[0] == "X"]
     assert spans.count("decode") == 2 and spans.count("prefill") == 2
     assert names[-1] == "done"
+
+
+def test_kernel_config_replay_traced(setup):
+    from repro_torch.core.policy import BitPolicy, PolicyArtifact
+    from repro_torch.kernels import autotune
+    from repro_torch.kvcache import state_layer_infos
+    from repro_torch.models import decoder
+    from repro_torch.quant import apply as qapply
+
+    cfg = setup[2]
+    obs_trace.enable()
+    key = autotune.KernelKey(family="decode_step", k_bits=4, v_bits=4, heads=cfg.n_kv_heads,
+                             head_dim=cfg.resolved_head_dim, block=16, impl="torch")
+    entry = autotune.autotune_key(key, batch=2, blocks=4, repeats=1)
+    tr = obs_trace.get_tracer()
+    names = [e[1] for e in _events_on(tr, "kernel")]
+    assert "autotune_candidate" in names and "autotune_winner" in names
+    assert names.count("autotune_compile") == names.count("autotune_candidate") == 4
+    # the engine replays the table and says so on the same track
+    specs = qapply.layer_specs(decoder.init(cfg, torch.Generator().manual_seed(0),
+                                            device="cpu"), cfg)
+    art = PolicyArtifact.build(
+        BitPolicy.uniform(specs, 8),
+        state_policy=BitPolicy.uniform(state_layer_infos(cfg, 2, 64), 4),
+        kernel_configs=[entry])
+    tr.clear()
+    try:
+        _engine(setup, params=qapply.quantize_for_serve(setup[3], art, cfg), artifact=art)
+        replayed = [e for e in _events_on(tr, "kernel") if e[1] == "kernel_config_replayed"]
+    finally:
+        autotune.set_active_configs(None)
+    assert len(replayed) == 1
 
 
 def test_tracing_overhead_bounded(setup):
