@@ -1741,6 +1741,13 @@ def same_bytes(torch, a, b) -> bool:
     return a.dtype == b.dtype and torch.equal(a.contiguous().view(view), b.contiguous().view(view))
 
 
+def differing_experts(torch, a, b) -> list[int]:
+    """The experts (leading index) whose bytes differ between two stacks."""
+    view = torch.int16 if a.dtype is torch.bfloat16 else torch.int32
+    diff = a.contiguous().view(view) != b.contiguous().view(view)
+    return diff.reshape(diff.shape[0], -1).any(-1).nonzero().flatten().tolist()
+
+
 def check_fake_quant(torch, cfg, gen, results: dict) -> None:
     """Row 10 against its plain versions at gemma-2b's shapes: ``w_gate``
     (d x d_ff, one scale per output column), the tied embedding as the
@@ -2342,11 +2349,12 @@ def record_logits(torch, eng):
     return collect
 
 
-def profile_steps(torch, eng, reqs) -> None:
+def profile_steps(torch, eng, reqs):
     """Device time by kernel over a short rerun of ``reqs`` (4 new tokens each),
     and the device's busy share of the wall time, from ``torch.profiler``.
     Only device events (kernels, copies, fills) are summed: an operator's
-    own entry repeats the device time of the kernels it launched."""
+    own entry repeats the device time of the kernels it launched.  Returns
+    the profile (None where it holds no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2369,11 +2377,25 @@ def profile_steps(torch, eng, reqs) -> None:
     total = sum(r[0] for r in rows)
     if not total:
         log("  profile: no device time in the trace (not measured)")
-        return
+        return None
     log(f"  profile of {len(short)} requests x 4 tokens: device busy {total / 1e3:.3f} ms of "
         f"{wall_us / 1e3:.3f} ms wall ({100 * total / wall_us:.1f}%); by kernel:")
     for dev, key, count in sorted(rows, reverse=True)[:10]:
         log(f"    {100 * dev / total:5.1f}%  {dev / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    return prof
+
+
+def stack_gemv_ms(prof, path: Path) -> tuple[float, int]:
+    """Device ms and launches of the GEMV kernel over an expert stack (grid
+    z > 1: row 1e, not row 1) in ``prof``, read from its trace's kernel
+    events (written to ``path``), whose grids ``key_averages`` drops."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    durs = [ev["dur"] for ev in events if ev.get("cat") == "kernel"
+            and "quant_gemv_kernel" in ev.get("name", "")
+            and ev.get("args", {}).get("grid", [1, 1, 1])[2] > 1]
+    return sum(durs) / 1e3, len(durs)
 
 
 # ---------------------------------------------------------------------------
@@ -4051,6 +4073,10 @@ MOE_BITS = (2, 4, 6, 8)
 #: the kernels line's rows 1e and 2e: a layer's three expert linears at 4 bits in
 #: bf16, at the decode capacity (8) and at (b)'s admissions' (16)
 MOE_ROW_C = {"quant_gemv_experts": 8, "quant_matmul_experts": 16}
+#: the routed buffers' decode: 4 token rows (phase 4's slots) at capacity 8
+MOE_TOKENS = SERVE_M
+#: tools/gemv_times.py's expert-stack cases ("e/x/bits/dtype", x dense or routed)
+SWEEP_EXPERTS = tuple(f"e/{xk}/4/{d}" for xk in ("dense", "routed") for d in ("bf16", "f32"))
 #: (b): phase 4's geometry through the serve command line
 MOE_SERVE_ARGV = ["--arch", MOE_ARCH, "--wbits", "mixed", "--requests", "8", "--max-new", "16",
                   "--slots", "4", "--max-seq", "256", "--seed", str(SEED + 13)]
@@ -4059,13 +4085,46 @@ MOE_CUT_LAYERS = 2
 MOE_SPEC_K = 2
 
 
+def routed_buffers(torch, cfg, seed: int = SEED + 27, tokens: int = MOE_TOKENS):
+    """The expert GEMV's inputs at a decode step of ``tokens`` slots, as
+    ``moe.moe_mlp`` builds them: token rows and a router from a numpy
+    generator, routed by the port's own ``moe._route`` and ``moe.dispatch``
+    into an ``(E, C, d)`` buffer (zeros where an expert holds no token), and
+    an ``(E, C, d_ff)`` h for ``w_down`` with rows at the same places (its
+    other rows zero, as silu(0) * 0 makes them).  Returns ``({K: buffer},
+    live experts)``, f32 on the card."""
+    import numpy as np
+
+    from repro_torch.models import moe
+
+    rng = np.random.default_rng(seed)
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    xf = torch.from_numpy(rng.standard_normal((tokens, d), dtype=np.float32)).cuda()
+    router = torch.from_numpy(rng.standard_normal((d, e), dtype=np.float32) / d ** 0.5).cuda()
+    c = moe.capacity(tokens, cfg)
+    _, _, eidx = moe._route({"router": router}, xf, cfg)
+    _, e_s, t_s, pos, keep = moe.dispatch(eidx, e, c)
+    slot = torch.where(keep, e_s * c + pos, e * c)
+    rows = {d: xf[t_s],
+            f: torch.from_numpy(rng.standard_normal((len(slot), f), dtype=np.float32)).cuda()}
+    out = {}
+    for k, src in rows.items():
+        buf = torch.zeros((e * c + 1, k), device="cuda")
+        buf[slot] = src
+        out[k] = buf[:e * c].view(e, c, k)
+    return out, int((out[d].reshape(e, -1) != 0).any(-1).sum())
+
+
 def check_experts(torch, gen, results: dict) -> None:
     """Phase 13 (a): the expert stacks of the GEMV and the GEMM at
-    deepseek-moe-16b's shapes, 64 experts: each launch bit-equal to the 2-D
+    deepseek-moe-16b's shapes, 64 experts: each launch byte for byte the 2-D
     kernels on every expert's slice, within rows 1 and 2's tolerances of the
     plain version, and timed (a call, device, plain, ``torch.bmm`` on the
-    dequantized bf16 stack, the bound of every expert's packed bytes)."""
-    from repro_torch import configs
+    dequantized bf16 stack, the bound of every expert's packed bytes).  Then
+    the GEMV on the routed decode buffer (:func:`routed_buffers`), where most
+    experts hold no token: the same checks, one launch, and its times beside
+    a second bound that counts only the live experts' packed bytes."""
+    from repro_torch import configs, kernels
     from repro_torch.kernels.quant_gemv.kernel import quant_gemv_cuda, quant_gemv_experts_cuda
     from repro_torch.kernels.quant_gemv.ref import quant_gemv_experts_ref
     from repro_torch.kernels.quant_matmul.kernel import (quant_matmul_cuda,
@@ -4073,9 +4132,14 @@ def check_experts(torch, gen, results: dict) -> None:
     from repro_torch.kernels.quant_matmul.ref import quant_matmul_experts_ref
     from repro_torch.quant.tensor import quantize_tensor
 
-    e = configs.get_config(MOE_ARCH).n_experts
+    moe_cfg = configs.get_config(MOE_ARCH)
+    e = moe_cfg.n_experts
     smi = smi_line()
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    routed, live = routed_buffers(torch, moe_cfg)
+    c_r = routed[moe_cfg.d_model].shape[1]
+    # a layer's three linears at 4 bits in bf16, dense x and routed
+    layer = {xk: dict(device_ms=0.0, bytes=0.0, live_bytes=0.0) for xk in ("dense", "routed")}
     for name, (n, k) in MOE_LINEARS.items():
         for bits in MOE_BITS:
             w = torch.randn((e, k, n), generator=gen, device="cuda") / k ** 0.5
@@ -4096,10 +4160,10 @@ def check_experts(torch, gen, results: dict) -> None:
                                        for i in range(e)])
                     want = ref(x, packed, scale, bits, k)
                     torch.cuda.synchronize()
-                    if not torch.equal(got, per):
-                        bad = int((got != per).any(-1).any(-1).nonzero()[0])
+                    if not same_bytes(torch, got, per):
                         raise AssertionError(f"phase 13 (a): {kern} {name} bits={bits} C={c} "
-                                             f"{dt}: expert {bad} differs from the 2-D launch")
+                                             f"{dt}: {differing_experts(torch, got, per)} "
+                                             f"differ from the 2-D launch")
                     err = rel(got, want)
                     r = results[kern]
                     r["max_abs_err"] = max(r["max_abs_err"],
@@ -4121,7 +4185,7 @@ def check_experts(torch, gen, results: dict) -> None:
                     log(f"  ({smi}) {kern:20s} {name:6s} E={e} C={c:4d} N={n} K={k} bits={bits} "
                         f"{str(dt)[6:]:8s}: a call {t_k:.4f} ms, device {t_d:.4f} ms, plain "
                         f"{t_p:.4f} ms, torch.bmm (bf16) {t_l:.4f} ms, bound {b_ms:.4f} ms "
-                        f"({b_by}), rel {err:.2e}; = the 2-D launches bit for bit")
+                        f"({b_by}), rel {err:.2e}; = the 2-D launches byte for byte")
                     if bits == 4 and dt is torch.bfloat16 and c == MOE_ROW_C[kern]:
                         # the kernels line: a layer's three linears (w_gate, w_up, w_down)
                         times = 2 if name == "w_gate" else 1
@@ -4129,17 +4193,173 @@ def check_experts(torch, gen, results: dict) -> None:
                                          ("library_ms", t_l), ("bytes", nbytes),
                                          ("flops", flops)):
                             r[key] += times * val
+                        if kern == "quant_gemv_experts":
+                            layer["dense"]["device_ms"] += times * t_d
+                            layer["dense"]["bytes"] += times * nbytes
                     del x, xb, got, per, want
+            # the routed decode buffer: most experts hold no token
+            for dt in (torch.float32, torch.bfloat16):
+                x = routed[k].to(dt)
+                kernels.reset_counts()
+                got = quant_gemv_experts_cuda(x, packed, scale, bits=bits, k=k)
+                launched = dict(kernels.LAUNCHES)
+                per = torch.stack([quant_gemv_cuda(x[i], packed[i], scale[0, 0], bits=bits, k=k)
+                                   for i in range(e)])
+                want = quant_gemv_experts_ref(x, packed, scale, bits, k)
+                torch.cuda.synchronize()
+                if launched["quant_gemv_experts"] != 1 or sum(launched.values()) != 1:
+                    raise AssertionError(f"phase 13 (a): routed {name} bits={bits} {dt}: "
+                                         f"launches {_nonzero(launched)}")
+                if not same_bytes(torch, got, per):
+                    raise AssertionError(f"phase 13 (a): routed {name} bits={bits} {dt}: "
+                                         f"{differing_experts(torch, got, per)} differ from "
+                                         f"the 2-D launch")
+                err = rel(got, want)
+                if not err <= tol[dt]:
+                    raise AssertionError(f"phase 13 (a): routed {name} bits={bits} {dt}: rel "
+                                         f"{err:.3g} > {tol[dt]}")
+                r = results["quant_gemv_experts"]
+                r["max_abs_err"] = max(r["max_abs_err"],
+                                       float((got.float() - want.float()).abs().max()))
+                run = lambda: quant_gemv_experts_cuda(x, packed, scale, bits=bits,  # noqa: E731
+                                                      k=k)
+                t_k, t_d = time_ms(torch, run, reps=10), time_batch(torch, run)
+                xb = x.to(torch.bfloat16)
+                t_l = time_ms(torch, lambda: torch.bmm(xb, wd), reps=10)
+                act = x.element_size()
+                rest = 4 * n + act * e * c_r * (k + n)
+                flops = 2.0 * e * c_r * n * k
+                b_all, _ = bound(packed.numel() + rest, flops)
+                b_live, _ = bound(live * packed[0].numel() + rest, flops * live / e)
+                log(f"  ({smi}) quant_gemv_experts routed {name:6s} E={e} C={c_r} live {live} "
+                    f"N={n} K={k} bits={bits} {str(dt)[6:]:8s}: a call {t_k:.4f} ms, device "
+                    f"{t_d:.4f} ms, torch.bmm (bf16) {t_l:.4f} ms, bound {b_all:.4f} ms (all "
+                    f"{e} experts' bytes), {b_live:.4f} ms (the {live} live experts'), rel "
+                    f"{err:.2e}; one launch, = the 2-D launches byte for byte")
+                if bits == 4 and dt is torch.bfloat16:
+                    times = 2 if name == "w_gate" else 1
+                    layer["routed"]["device_ms"] += times * t_d
+                    layer["routed"]["bytes"] += times * (packed.numel() + rest)
+                    layer["routed"]["live_bytes"] += times * (live * packed[0].numel() + rest)
+                del x, xb, got, per, want
             del qt, packed, scale, wd
             torch.cuda.empty_cache()
-        log(f"  ok {name}: C {MOE_C} x bits {MOE_BITS} x f32, bf16, one launch for {e} experts")
+        log(f"  ok {name}: C {MOE_C} x bits {MOE_BITS} x f32, bf16, one launch for {e} experts, "
+            f"and the routed buffer at C {c_r}")
+    dense, rt = layer["dense"], layer["routed"]
+    log(f"  ({smi}) row 1e, a layer's three linears at 4 bits, bf16, C {c_r}: device "
+        f"{dense['device_ms']:.4f} ms on dense x, {rt['device_ms']:.4f} ms on the routed buffer "
+        f"({live} of {e} experts live, {rt['device_ms'] / dense['device_ms']:.3f} of dense); "
+        f"bounds {dense['bytes'] / HBM_BYTES_S * 1e3:.4f} ms (every expert's bytes), "
+        f"{rt['live_bytes'] / HBM_BYTES_S * 1e3:.4f} ms (the live experts')")
+
+
+def sweep_experts(torch, seed: int = SEED + 28, cases=None, check: bool = True,
+                  tiles=()) -> dict:
+    """Row 1e at deepseek-moe-16b's decode (64 experts, C 8): a layer's three
+    expert linears (``MOE_LINEARS``, ``w_gate`` counted twice for ``w_up``)
+    on dense x and on the routed buffer (:func:`routed_buffers`), the
+    device time back to back (``time_batch``) summed, against the bound of
+    every expert's packed bytes and that of the live experts' alone.
+    On the routed buffer it also times three yardsticks: the live experts
+    alone as a stack of their own (``compact``: the least the skip could
+    reach), 64 experts of zeros (``empty``: what the skipped CTAs cost) and
+    the routed stack with its live experts moved to the front (``sorted``:
+    the order the kernel's hint gives its CTAs, made by the caller).
+    ``cases`` keeps the named keys ("e/dense|routed/bits/dtype", default
+    ``SWEEP_EXPERTS``); ``tiles`` also times each linear at those tiles a
+    CTA (the plan's split, so the same bits; this tree's ``launch=``).
+    Returns ``{key: {kernel, bound, bound_live, live, linears: {name: ms},
+    compact, empty, sorted, tiles: {t: {name: ms}}}}``, a linear's
+    yardsticks under ``"compact " + name`` and so on."""
+    from repro_torch import configs
+    from repro_torch.kernels.quant_gemv import kernel as gk
+    from repro_torch.kernels.quant_gemv.ref import quant_gemv_experts_ref
+    from repro_torch.quant.tensor import quantize_tensor
+
+    cfg = configs.get_config(MOE_ARCH)
+    e = cfg.n_experts
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    routed, live = routed_buffers(torch, cfg)
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    keys = [c for c in (cases or SWEEP_EXPERTS) if c.startswith("e/")]
+    out = {}
+    for bits in sorted({int(c.split("/")[2]) for c in keys}):
+        qts = {}
+        for name, (n, k) in MOE_LINEARS.items():
+            qt = quantize_tensor(torch.randn((e, k, n), generator=gen, device="cuda") / k ** 0.5,
+                                 bits)
+            qts[name] = (qt.packed, qt.scale)
+            del qt
+        for key in keys:
+            _, xk, b, dname = key.split("/")
+            if int(b) != bits:
+                continue
+            dt = dts[dname]
+            tot = dict(kernel=0.0, bytes=0.0, live_bytes=0.0, compact=0.0, empty=0.0,
+                       sorted=0.0)
+            each, by_tiles = {}, {t: {} for t in tiles}
+            for name, (n, k) in MOE_LINEARS.items():
+                packed, scale = qts[name]
+                c = routed[k].shape[1]
+                x = (routed[k] if xk == "routed" else
+                     torch.randn((e, c, k), generator=gen, device="cuda")).to(dt)
+                n_live = live if xk == "routed" else e
+                run = lambda: gk.quant_gemv_experts_cuda(x, packed, scale, bits=bits,  # noqa
+                                                         k=k)
+                if check:
+                    err = rel(run(), quant_gemv_experts_ref(x, packed, scale, bits, k))
+                    if not err <= (1e-4 if dname == "f32" else 2e-2):
+                        raise AssertionError(f"expert sweep {key} {name}: rel {err:.3g}")
+                times = 2 if name == "w_gate" else 1
+                each[name] = time_batch(torch, run, reps=20)
+                rest = 4 * n + x.element_size() * e * c * (k + n)
+                tot["kernel"] += times * each[name]
+                tot["bytes"] += times * (packed.numel() + rest)
+                tot["live_bytes"] += times * (n_live * packed[0].numel() + rest)
+                stacks = {"": (x, packed)}
+                if xk == "routed":
+                    held = (x.reshape(e, -1) != 0).any(-1)
+                    first = torch.argsort(~held, stable=True)
+                    stacks["compact "] = (x[held].contiguous(), packed[held].contiguous())
+                    stacks["empty "] = (torch.zeros_like(x), packed)
+                    stacks["sorted "] = (x[first].contiguous(), packed[first].contiguous())
+                for tag, (xs, ps) in stacks.items():
+                    if tag:
+                        each[tag + name] = time_batch(torch, lambda: gk.quant_gemv_experts_cuda(
+                            xs, ps, scale, bits=bits, k=k), reps=20)
+                        tot[tag.strip()] += times * each[tag + name]
+                    for t in tiles:
+                        launch = dataclasses.replace(gk.plan(c, n, k, xs.shape[0]), tiles=t)
+                        by_tiles[t][tag + name] = time_batch(
+                            torch, lambda: gk.quant_gemv_experts_cuda(
+                                xs, ps, scale, bits=bits, k=k, launch=launch), reps=20)
+                del x, stacks
+            out[key] = dict(kernel=tot["kernel"], bound=tot["bytes"] / HBM_BYTES_S * 1e3,
+                            bound_live=tot["live_bytes"] / HBM_BYTES_S * 1e3,
+                            live=live if xk == "routed" else e, linears=each,
+                            compact=tot["compact"], empty=tot["empty"],
+                            sorted=tot["sorted"], tiles=by_tiles)
+            log(f"  row 1e {key}: a layer's three linears {tot['kernel']:.4f} ms back to back "
+                f"({out[key]['live']} of {e} experts live; the live ones alone "
+                f"{tot['compact']:.4f}, {e} empty {tot['empty']:.4f}, live first "
+                f"{tot['sorted']:.4f}); bounds "
+                f"{out[key]['bound']:.4f} ms (every expert), {out[key]['bound_live']:.4f} (the "
+                f"live ones); by linear "
+                + ", ".join(f"{nm} {v:.4f}" for nm, v in each.items())
+                + "".join(f"; tiles {t}: " + ", ".join(f"{nm} {v:.4f}" for nm, v in d.items())
+                          for t, d in by_tiles.items()))
+        del qts
+    return out
 
 
 def moe_drops(torch, cfg, record: list):
-    """Wrap ``models.moe.moe_mlp`` so that every call appends the assignments
-    capacity drops, counted here from the router: each token's top-k experts
-    by probability (ties to the lower index), then sum over experts of
-    max(0, assignments - C).  Returns the restore function."""
+    """Wrap ``models.moe.moe_mlp`` so that every call appends ``(t, C,
+    dropped, live)``: the assignments capacity drops and the experts that
+    hold one, counted here from the router: each token's top-k experts by
+    probability (ties to the lower index), then sum over experts of max(0,
+    assignments - C), and the experts with any.  Returns the restore
+    function."""
     from repro_torch.models import moe
 
     real = moe.moe_mlp
@@ -4151,7 +4371,8 @@ def moe_drops(torch, cfg, record: list):
         per_expert = torch.bincount(top.reshape(-1), minlength=cfg_.n_experts)
         cap = int(t * cfg_.top_k / cfg_.n_experts * cfg_.moe_capacity_factor) + 1
         cap += -cap % 8
-        record.append((t, cap, int((per_expert - cap).clamp_min(0).sum())))
+        record.append((t, cap, int((per_expert - cap).clamp_min(0).sum()),
+                       int((per_expert > 0).sum())))
         return real(p, x, cfg_, **kw)
 
     moe.moe_mlp = counted
@@ -4229,8 +4450,27 @@ def serve_moe(torch, cfg) -> dict:
     gen = torch.Generator().manual_seed(SEED + 14)
     reqs = [Request(uid=i, prompt=torch.randint(1, cfg.vocab_size, (12,), generator=gen).tolist(),
                     max_new_tokens=4) for i in range(4)]
-    profile_steps(torch, eng, reqs)
-    out = {"launches": launches}
+    before = eng.stats()["decode_steps"]
+    prof = profile_steps(torch, eng, reqs)
+    p_steps = eng.stats()["decode_steps"] - before
+    out = {"launches": launches, "step_ms": st["decode_step_median_s"] * 1e3}
+    if prof is not None:
+        # row 1e's device time a decode step (the rerun's admission at C 8
+        # included), and the experts a decode step's MoE calls find live,
+        # counted in the same rerun again (no profile: the count syncs)
+        ms, n = stack_gemv_ms(prof, ROOT / "build" / "phase13b_trace.json")
+        record = []
+        restore = moe_drops(torch, cfg, record)
+        try:
+            eng.run([dataclasses.replace(r, uid=200 + r.uid) for r in reqs])
+        finally:
+            restore()
+        dec = [r[3] for r in record if r[0] <= eng.max_slots]
+        out.update(stack_gemv_ms=ms / p_steps, live=sum(dec) / max(len(dec), 1))
+        log(f"  row 1e in the profile: {ms:.3f} ms of device time over {n} launches, "
+            f"{p_steps} decode steps: {ms / p_steps:.3f} ms a decode step; live experts a "
+            f"decode-step MoE call {out['live']:.2f} of {cfg.n_experts} (mean of {len(dec)} "
+            f"calls; {len(record)} calls in all)")
     del eng, engines
     torch.cuda.empty_cache()
     return out
@@ -4292,14 +4532,14 @@ def moe_modes(torch, cfg) -> None:
         finally:
             restore()
         st = eng.stats()
-        runs[mode] = dict(out=out, rows=collect(), drops=sum(d for _, _, d in record),
+        runs[mode] = dict(out=out, rows=collect(), drops=sum(r[2] for r in record),
                           calls=len(record), st=st)
         extra = (f", spec rounds {st['spec_steps']}, accepted {st['spec_accepted']} of "
                  f"{st['spec_proposed']}" if st["spec_steps"] else "")
         log(f"  ({smi}) {mode:13s}: {wall:.2f} s, {st['decode_steps']} decode steps, "
             f"{st['admissions']} admissions, MoE calls {len(record)}, dropped assignments "
-            f"{runs[mode]['drops']} (largest t {max(t for t, _, _ in record)}, C "
-            f"{max(c for _, c, _ in record)}){extra}; expert launches "
+            f"{runs[mode]['drops']} (largest t {max(r[0] for r in record)}, C "
+            f"{max(r[1] for r in record)}){extra}; expert launches "
             f"{st['launches']['quant_gemv_experts']} GEMV + "
             f"{st['launches']['quant_matmul_experts']} GEMM, plain "
             f"{st['plain_calls']['quant_gemv_experts']} + "

@@ -37,14 +37,37 @@
 //    zero in rank order.  No atomics: the same bits
 //    run to run, whatever M or N.
 //
-// The expert stack (rq_quant_gemv_experts) is the same kernel with the
-// experts on grid z: the TPU kernel under jax.vmap in the MoE layer's
-// qt_matmul (repro/kernels/quant_matmul/ops.py:66-94), x (E, C, K) against
-// packed (E, N, kp), one launch for all E.  Each CTA offsets x, packed and y
-// by its expert, and the scale by `sstride` floats (0: one scale per channel
-// shared by the stack).  The split is the 2-D plan's, so an expert's
-// outputs are the 2-D kernel's on its slice, bit for bit; its bound is every
-// expert's packed bytes, read once.
+// The expert stack (rq_quant_gemv_experts): the TPU kernel under jax.vmap
+// in the MoE layer's qt_matmul (repro/kernels/quant_matmul/ops.py:66-94), x
+// (E, C, K) against packed (E, N, kp), one launch for all E, the experts on
+// grid z.  At a decode step most experts hold no token (deepseek-moe-16b, 4
+// slots, top-6 of 64: about 21 live), and the MoE layer leaves their rows
+// of the capacity buffer exact zeros.  So:
+//  * What it reads first.  Each CTA reads 16 bytes of row 0 of every
+//    expert (the layer writes an expert's first token there) and orders the
+//    experts: those whose 16 bytes hold a nonzero (sign aside), in index
+//    order, then the rest.  CTA slot z takes the z-th: the clusters of the
+//    live experts are dispatched first, the skipped ones fill in behind.
+//    Such a hinted expert is live; any other is read in full, M x K with
+//    16-byte loads, a nonzero with the sign masked off (-0.0 is zero, NaN
+//    live) making it live.
+//  * What it skips.  A CTA whose expert's x is all zero loads none of its
+//    weights and joins no cluster barrier (every rank reads the same x, so
+//    the cluster leaves together): it writes its owned outputs and returns.
+//  * Why those are the same bits.  Zero products sum to zeros in any order;
+//    the fold starts from 0.f, and +0 + -0 = +0, so the full path would
+//    write from_f(+0 * scale[n]), which is what the skip writes (a negative
+//    or NaN scale included).  A live expert runs the 2-D kernel's path with
+//    the 2-D plan's split, so its outputs are the 2-D kernel's on its slice,
+//    bit for bit; the stack's tiles (kernel.py expert_tiles: the 2-D rule's
+//    CTA count, N cut evenly) do not move a channel's bits.
+//  * Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py phase 13 (a),
+//    device time of a layer's three linears, 4 bits, bf16, C 8): 0.0978 ms
+//    on the routed buffer of 4 tokens (20 of 64 experts live; the live
+//    experts' bytes bound it at 0.0290) and 0.2254 ms on dense x (bound
+//    0.0858), where every expert was streamed whatever x held: 0.2497 ms.
+//    Without the order (slot z taking expert z, every x read in full) the
+//    routed buffer took about 0.13 ms (tools/gemv_variants.py noorder).
 #include <cooperative_groups.h>
 
 #include "quant_gemv.cuh"
@@ -58,17 +81,41 @@ __host__ __device__ constexpr size_t gemv_part_bytes(int tiles) {
   return (size_t)(kGemvChannels * tiles + kGemvMaxSplit) * kGemvMaxM * 4;
 }
 
-template <int CB, typename T>
-__global__ void __launch_bounds__(kGemvThreads)
-quant_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
-                  const float* __restrict__ scale, T* __restrict__ y, int M, int N, int K, int kp,
-                  int splits, int tiles, int wvec, int xvec, long long sstride) {
-  extern __shared__ __align__(16) uint8_t gsm[];
-  const size_t ex = blockIdx.z;                // the expert (0 for a 2-D weight)
-  x += ex * M * K;
-  packed += ex * N * kp;
-  y += ex * M * N;
-  scale += ex * sstride;
+__device__ __forceinline__ uint32_t bits_of(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint32_t bits_of(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }
+
+// Whether any of x (M x K, contiguous) is nonzero once its sign bit is
+// masked off (-0.0 counts as zero, NaN as live), decided by the whole CTA.
+// vec16: x may be read 16 bytes at a time (K * sizeof(T) % 16 == 0, x
+// 16-byte aligned).
+template <typename T>
+__device__ bool gemv_any_live(const T* __restrict__ x, int K, int M, int vec16) {
+  constexpr uint32_t kMag = sizeof(T) == 4 ? 0x7FFFFFFFu : 0x7FFF7FFFu;
+  uint32_t seen = 0u;
+  if (vec16) {
+    const uint4* v = reinterpret_cast<const uint4*>(x);
+    for (int it = threadIdx.x; it < M * K / (16 / (int)sizeof(T)); it += blockDim.x) {
+      const uint4 w = __ldg(v + it);
+      seen |= w.x | w.y | w.z | w.w;
+    }
+  } else {
+    for (int it = threadIdx.x; it < M * K; it += blockDim.x) seen |= bits_of(x[it]);
+  }
+  return __syncthreads_or((seen & kMag) != 0u) != 0;
+}
+
+// One CTA's work on one weight (an expert's, offset by the caller): rank
+// s = blockIdx.x of the cluster sums K range s for the channels of block
+// blockIdx.y.  SCAN (the expert stack): unless `hinted` (row 0 of x begins
+// with a nonzero, so x is live), read all of x, and if it is zero skip the
+// weights and write what the sums would give (the design note above).
+template <int CB, typename T, bool SCAN>
+__device__ __forceinline__ void gemv_cta(const T* __restrict__ x,
+                                         const uint8_t* __restrict__ packed,
+                                         const float* __restrict__ scale, T* __restrict__ y,
+                                         int M, int N, int K, int kp, int splits, int tiles,
+                                         int wvec, int xvec, int xscan, bool hinted,
+                                         uint8_t* gsm) {
   constexpr bool XF32 = sizeof(T) == 4;
   using S = GemvShape<CB>;
   float* part = reinterpret_cast<float*>(gsm);
@@ -77,6 +124,21 @@ quant_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   int k0, k1;
   gemv_range(K, splits, s, k0, k1);
+  if constexpr (SCAN) {
+    // Every rank of a cluster reads the same x, so all return here or none
+    // does, before any cluster barrier.  The sums of zero products are
+    // zeros, the fold from 0.f makes them +0, so the outputs are +0 times
+    // the scale, bit for bit what the full path writes.
+    if (!hinted && !gemv_any_live(x, K, M, xscan)) {
+      const int nc = kGemvChannels * tiles;     // this rank's channels, as the fold's below
+      const int c0 = s * nc / splits, c1 = (s + 1) * nc / splits;
+      for (int i = threadIdx.x; i < M * (c1 - c0); i += blockDim.x) {
+        const int m = i / (c1 - c0), n = n0 + c0 + i % (c1 - c0);
+        if (n < N) y[(size_t)m * N + n] = from_f<T>(__fmul_rn(0.f, scale[n]));
+      }
+      return;
+    }
+  }
   const int rounds = (k1 - k0 + S::kRound - 1) / S::kRound;
   const int piece = gemv_piece_bytes<CB>(M, rounds);
 
@@ -124,22 +186,95 @@ quant_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
   }
 }
 
+// The expert that CTA slot z = blockIdx.z of a stack takes, times 2, plus 1
+// if it is hinted: position z of an order of the E experts that puts first,
+// in index order, those whose row 0 holds a nonzero (sign aside) among its
+// first 16 bytes (the MoE layer writes an expert's first token into row 0),
+// then the rest in index order.  Every CTA computes the same order from the
+// same bytes, so each expert is taken once.  The order lets the clusters of
+// the experts that hold a token be dispatched first; a hinted expert is
+// live (no scan), the others are read in full (gemv_cta).
+template <typename T>
+__device__ int gemv_expert_of_slot(const T* __restrict__ x, int E, int M, int K, int xscan) {
+  __shared__ int warp_hint[kGemvWarps];
+  __shared__ int mine;
+  constexpr uint32_t kMag = sizeof(T) == 4 ? 0x7FFFFFFFu : 0x7FFF7FFFu;
+  const int z = blockIdx.z, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lead = K < 16 / (int)sizeof(T) ? K : 16 / (int)sizeof(T);
+  auto hinted = [&](int e) {
+    uint32_t seen = 0u;
+    if (e < E) {
+      const T* row = x + (size_t)e * M * K;
+      if (xscan) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(row));
+        seen = v.x | v.y | v.z | v.w;
+      } else {
+        for (int j = 0; j < lead; ++j) seen |= bits_of(row[j]);
+      }
+    }
+    return (seen & kMag) != 0u;
+  };
+  int total = 0;                               // hinted experts in all
+  for (int e0 = 0; e0 < E; e0 += blockDim.x) total += __syncthreads_count(hinted(e0 + threadIdx.x));
+  int before = 0;                              // hinted experts below this chunk
+  for (int e0 = 0; e0 < E; e0 += blockDim.x) {
+    const int e = e0 + threadIdx.x;
+    const bool h = hinted(e);
+    const unsigned votes = __ballot_sync(0xffffffffu, h);
+    if (lane == 0) warp_hint[warp] = __popc(votes);
+    __syncthreads();
+    int rank = before + __popc(votes & ((1u << lane) - 1u)), chunk = 0;
+    for (int w = 0; w < kGemvWarps; ++w) {
+      rank += w < warp ? warp_hint[w] : 0;
+      chunk += warp_hint[w];
+    }
+    // e - rank: the experts below e that are not hinted
+    if (e < E && (h ? rank : total + e - rank) == z) mine = 2 * e + h;
+    before += chunk;
+    __syncthreads();
+  }
+  return mine;
+}
+
+// One 2-D weight (E 1), or (SCAN) an expert stack of E on grid z.
+template <int CB, typename T, bool SCAN>
+__global__ void __launch_bounds__(kGemvThreads)
+quant_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
+                  const float* __restrict__ scale, T* __restrict__ y, int E, int M, int N, int K,
+                  int kp, int splits, int tiles, int wvec, int xvec, int xscan,
+                  long long sstride) {
+  extern __shared__ __align__(16) uint8_t gsm[];
+  size_t ex = 0;                               // the expert (0 for a 2-D weight)
+  bool hinted = false;
+  if constexpr (SCAN) {
+    const int slot = gemv_expert_of_slot(x, E, M, K, xscan);
+    ex = slot >> 1;
+    hinted = slot & 1;
+  }
+  gemv_cta<CB, T, SCAN>(x + ex * M * K, packed + ex * N * kp, scale + ex * sstride,
+                        y + ex * M * N, M, N, K, kp, splits, tiles, wvec, xvec, xscan, hinted,
+                        gsm);
+}
+
 template <int CB, typename T>
 cudaError_t launch_gemv_cb(const T* x, const uint8_t* packed, const float* scale, T* y, int E,
-                           int M, int N, int K, int kp, int splits, int tiles, long long sstride,
-                           cudaStream_t stream) {
+                           int M, int N, int K, int kp, int splits, int tiles,
+                           long long sstride, bool scan, cudaStream_t stream) {
   constexpr bool XF32 = sizeof(T) == 4;
-  static bool configured = false;      // the attributes, once per instantiation
-  auto kernel = quant_gemv_kernel<CB, T>;
+  static bool configured[2] = {false, false};   // the attributes, once per instantiation
+  auto kernel = scan ? &quant_gemv_kernel<CB, T, true> : &quant_gemv_kernel<CB, T, false>;
   const size_t smem = gemv_part_bytes(tiles) + (XF32 ? 3 : 1) *
                       (size_t)gemv_piece_bytes<CB>(M, gemv_max_rounds<CB>(K, splits));
-  if (!configured) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (!configured[scan]) {
+    cudaFuncAttributes fa;
+    cudaError_t err = cudaFuncGetAttributes(&fa, kernel);   // the static shared memory
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 232448 - (int)fa.sharedSizeBytes);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
-    configured = true;
+    configured[scan] = true;
   }
   cudaLaunchConfig_t cfg = {};
   const int cta_channels = kGemvChannels * tiles;
@@ -155,8 +290,10 @@ cudaError_t launch_gemv_cb(const T* x, const uint8_t* packed, const float* scale
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = splits > 1 ? 1 : 0;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, x, packed, scale, y, M, N, K, kp, splits,
-                                       tiles, gemv_wvec(packed, kp), gemv_xvec(x, K), sstride);
+  const int xscan = (K * sizeof(T)) % 16 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, x, packed, scale, y, E, M, N, K, kp,
+                                       splits, tiles, gemv_wvec(packed, kp), gemv_xvec(x, K),
+                                       xscan, sstride);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -164,18 +301,21 @@ cudaError_t launch_gemv_cb(const T* x, const uint8_t* packed, const float* scale
 template <typename T>
 cudaError_t launch_gemv(const void* x, const void* packed, const void* scale, void* y, int E,
                         int M, int N, int K, int kp, int bits, int splits, int tiles,
-                        long long sstride, cudaStream_t stream) {
+                        long long sstride, bool scan, cudaStream_t stream) {
   const T* xx = static_cast<const T*>(x);
   const uint8_t* pp = static_cast<const uint8_t*>(packed);
   const float* ss = static_cast<const float*>(scale);
   T* yy = static_cast<T*>(y);
   switch (gemv_cb(bits)) {
     case 2:
-      return launch_gemv_cb<2, T>(xx, pp, ss, yy, E, M, N, K, kp, splits, tiles, sstride, stream);
+      return launch_gemv_cb<2, T>(xx, pp, ss, yy, E, M, N, K, kp, splits, tiles, sstride,
+                                     scan, stream);
     case 4:
-      return launch_gemv_cb<4, T>(xx, pp, ss, yy, E, M, N, K, kp, splits, tiles, sstride, stream);
+      return launch_gemv_cb<4, T>(xx, pp, ss, yy, E, M, N, K, kp, splits, tiles, sstride,
+                                     scan, stream);
     default:
-      return launch_gemv_cb<8, T>(xx, pp, ss, yy, E, M, N, K, kp, splits, tiles, sstride, stream);
+      return launch_gemv_cb<8, T>(xx, pp, ss, yy, E, M, N, K, kp, splits, tiles, sstride,
+                                     scan, stream);
   }
 }
 
@@ -185,7 +325,7 @@ cudaError_t launch_gemv(const void* x, const void* packed, const void* scale, vo
 // scale of expert e at scale + e * sstride (sstride 0 or N).
 static int gemv_entry(const void* x, const void* packed, const void* scale, void* y, int E,
                       int M, int N, int K, int kp, int bits, int dtype, int splits, int tiles,
-                      long long sstride, void* stream) {
+                      long long sstride, bool scan, void* stream) {
   if (E < 1 || E > 65535 || M < 1 || M > rq::kGemvMaxM || N < 1 || K < 1 ||
       rq::bad_gemv_bits(bits) || kp != (K + rq::lanes_of(bits) - 1) / rq::lanes_of(bits) ||
       rq::bad_gemv_split(K, splits) || tiles < 1 || tiles > rq::kGemvMaxTiles ||
@@ -194,10 +334,10 @@ static int gemv_entry(const void* x, const void* packed, const void* scale, void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rq::kF32)
     return (int)rq::launch_gemv<float>(x, packed, scale, y, E, M, N, K, kp, bits, splits, tiles,
-                                       sstride, s);
+                                       sstride, scan, s);
   if (dtype == rq::kBF16)
     return (int)rq::launch_gemv<__nv_bfloat16>(x, packed, scale, y, E, M, N, K, kp, bits, splits,
-                                               tiles, sstride, s);
+                                               tiles, sstride, scan, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -207,15 +347,17 @@ static int gemv_entry(const void* x, const void* packed, const void* scale, void
 extern "C" int rq_quant_gemv(const void* x, const void* packed, const void* scale, void* y,
                              int M, int N, int K, int kp, int bits, int dtype, int splits,
                              int tiles, void* stream) {
-  return gemv_entry(x, packed, scale, y, 1, M, N, K, kp, bits, dtype, splits, tiles, 0, stream);
+  return gemv_entry(x, packed, scale, y, 1, M, N, K, kp, bits, dtype, splits, tiles, 0, false,
+                    stream);
 }
 
 // The expert stack: y (E, M, N); x (E, M, K); packed (E, N, kp); the scale
-// (N,) shared (sstride 0) or (E, N) (sstride N); the 2-D plan's splits.
+// (N,) shared (sstride 0) or (E, N) (sstride N); the 2-D plan's splits, the
+// stack's own tiles (kernels/quant_gemv/kernel.py plan).
 extern "C" int rq_quant_gemv_experts(const void* x, const void* packed, const void* scale,
                                      void* y, int E, int M, int N, int K, int kp, int bits,
                                      int dtype, int splits, int tiles, long long sstride,
                                      void* stream) {
   return gemv_entry(x, packed, scale, y, E, M, N, K, kp, bits, dtype, splits, tiles, sstride,
-                    stream);
+                    true, stream);
 }

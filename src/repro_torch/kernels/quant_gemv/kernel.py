@@ -2,8 +2,9 @@
 
 The launch is planned here, in Python, so that the CPU tests can check it
 (:func:`plan`): 128 output channels a tile, as many tiles a CTA as keep one
-wave of CTAs on the card, and K cut into ranges by K alone, the ranges of a
-CTA's channels on the CTAs of one cluster.
+wave of CTAs on the card (an expert stack's spread evenly over N), and K
+cut into ranges by K alone, the ranges of a CTA's channels on the CTAs of
+one cluster.
 """
 from __future__ import annotations
 
@@ -99,18 +100,32 @@ def tiles_of(n: int, splits: int, experts: int = 1) -> int:
     return t
 
 
+def expert_tiles(n: int, k: int, experts: int) -> int:
+    """Tiles a CTA takes in an expert stack: :func:`tiles_of` over all the
+    experts' CTAs, then spread evenly, N's tiles cut into as many blocks as
+    that gives, equal as whole tiles allow (deepseek-moe-16b's w_gate, N 1408
+    = 11 tiles: 6 + 5, not 8 + 3; w_down, N 2048: 8 + 8), chosen by device
+    time over tiles 1-8 on the routed decode buffer and on dense x
+    (``tools/gemv_times.py --tiles``, PERF.md section 6).  The tiles do not
+    move a channel's bits."""
+    n_tiles = -(-n // CHANNELS)
+    blocks = -(-n_tiles // tiles_of(n, split_of(k), experts))
+    return -(-n_tiles // blocks)
+
 @functools.lru_cache(maxsize=256)
 def plan(m: int, n: int, k: int, experts: int = 1) -> GemvPlan:
     """The launch for ``(M, K) x (N, K)``, or ``experts`` of them in one
     launch; its split is :func:`split_of` (K alone, so an expert's outputs
-    are the 2-D launch's), its tiles a CTA :func:`tiles_of` (N, the split
-    and the experts)."""
+    are the 2-D launch's), its tiles a CTA :func:`tiles_of` (N and the
+    split) for a 2-D weight and :func:`expert_tiles` for a stack."""
     if not 1 <= m <= GEMV_MAX_M:
         raise ValueError(f"GEMV is for 1 <= M <= {GEMV_MAX_M}, got M={m}")
     if experts < 1:
         raise ValueError(f"GEMV: {experts} experts")
     splits = split_of(k)
-    return GemvPlan(m, n, k, splits, tiles_of(n, splits, experts), experts)
+    if experts == 1:
+        return GemvPlan(m, n, k, splits, tiles_of(n, splits))
+    return GemvPlan(m, n, k, splits, expert_tiles(n, k, experts), experts)
 
 
 def check_operands(x, packed, scale, bits: int, k: int, name: str) -> tuple[int, int]:
@@ -173,12 +188,20 @@ def check_expert_operands(x, packed, scale, bits: int, k: int, name: str):
 
 
 def quant_gemv_experts_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *,
-                            bits: int, k: int) -> torch.Tensor:
+                            bits: int, k: int, launch: GemvPlan | None = None) -> torch.Tensor:
     """``(E, C, K)`` x against packed ``(E, N, ceil(K/lanes))`` -> ``(E, C, N)`` in x's
-    dtype, C <= GEMV_MAX_M, one launch for all E; the scale broadcasts to ``(E, 1, N)``."""
+    dtype, C <= GEMV_MAX_M, one launch for all E; the scale broadcasts to ``(E, 1, N)``.
+    An expert whose rows of x are all zero reads none of its weights.  ``launch``
+    runs a plan of the caller's own (other tiles: the same bits)."""
     x = x.contiguous()
     e, c, n, sstride = check_expert_operands(x, packed, scale, bits, k, "quant_gemv_experts")
     p = plan(c, n, k, e)
+    if launch is not None:
+        if (launch.m, launch.n, launch.k, launch.experts, launch.splits) != (
+                c, n, k, e, p.splits):
+            raise ValueError(f"quant_gemv_experts: launch {launch} is not a plan of "
+                             f"({e}, {c}, {k}) x ({e}, {n}, {k})")
+        p = launch
     y = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
     rc = _build.lib().rq_quant_gemv_experts(
         x.data_ptr(), packed.data_ptr(), scale.data_ptr(), y.data_ptr(), e, c, n, k,

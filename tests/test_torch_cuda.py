@@ -24,9 +24,12 @@ of M and N, the burst append against the appends one position at a
 time and the plain version, dense and paged, and the expert stacks of the
 GEMV and the GEMM (one launch for all experts) against the 2-D launches bit
 for bit, with a shared and a per-expert scale, and in reduced
-deepseek-moe-16b's MoE layer, and every candidate of the decode-step
-autotuner (``kernels/autotune.py``) bit for bit against the append then
-the attention kernels at S 128, 512 and 2048, dense and paged.
+deepseek-moe-16b's MoE layer, the GEMV's skip of experts whose x is zero
+byte for byte against the 2-D launch (zero and -0.0 experts, trailing zero
+rows, NaN rows, the routed capacity buffer, every tiles a CTA), and every
+candidate of the decode-step autotuner (``kernels/autotune.py``) bit for
+bit against the append then the attention kernels at S 128, 512 and 2048,
+dense and paged.
 """
 import dataclasses
 
@@ -1078,6 +1081,64 @@ def test_nan_flags_ride_the_token_copy_on_the_card(cuda, monkeypatch):
             assert out[u] == ref[u]
 
 
+def _routed(cfg, tokens: int, seed: int, device):
+    """``moe_mlp``'s capacity buffer at ``tokens`` token rows (numpy-seeded
+    tokens and router, the port's own ``_route`` and ``dispatch``): ``(E,
+    C, d)``, zeros where an expert holds no token."""
+    from repro_torch.models import moe
+
+    rng = np.random.default_rng(seed)
+    xf = torch.from_numpy(rng.standard_normal((tokens, cfg.d_model), dtype=np.float32))
+    router = torch.from_numpy(rng.standard_normal((cfg.d_model, cfg.n_experts),
+                                                  dtype=np.float32))
+    e, c = cfg.n_experts, moe.capacity(tokens, cfg)
+    _, _, eidx = moe._route({"router": router.to(device)}, xf.to(device), cfg)
+    _, e_s, t_s, pos, keep = moe.dispatch(eidx, e, c)
+    buf = torch.zeros((e * c + 1, cfg.d_model), device=device)
+    buf[torch.where(keep, e_s * c + pos, e * c)] = xf.to(device)[t_s]
+    return buf[:e * c].view(e, c, cfg.d_model)
+
+
+def _zero_case(case: str, x: torch.Tensor) -> torch.Tensor:
+    """x ``(E, 8, K)`` with experts emptied as ``case`` says."""
+    x = x.clone()
+    e = x.shape[0]
+    x[0::3] = 0.0                                   # whole experts of zeros
+    if case == "trailing_zero_rows":
+        for i in range(1, e, 3):
+            x[i, 1 + i % 7:] = 0.0                 # live rows, then zeros
+    elif case == "negative_zero":
+        x[1] = -0.0                                 # -0.0 counts as zero
+        x[2, :, ::2] = -0.0
+        x[2, :, 1::2] = 0.0
+    elif case == "nan_row":
+        x[1, 3, x.shape[2] // 2] = float("nan")     # a NaN in one row of a live expert
+        x[3] = 0.0
+        x[3, 5, 0] = float("nan")                   # an expert live by its NaN alone
+    return x
+
+
+def _stack_checks(x, packed, scale, bits: int, k: int, per_expert: bool = False):
+    """One launch for the stack, each expert's bytes the 2-D launch's, and the
+    plain version within rows 1 and 2's tolerances where it is finite."""
+    from repro_torch.kernels.quant_matmul.ops import quant_matmul_experts
+    from repro_torch.kernels.quant_matmul.ref import experts_matmul
+
+    kernels.reset_counts()
+    got = quant_matmul_experts(x, packed, scale, bits, k)
+    torch.cuda.synchronize()
+    name = "quant_gemv_experts" if x.shape[1] <= 8 else "quant_matmul_experts"
+    assert kernels.LAUNCHES[name] == 1 and sum(kernels.LAUNCHES.values()) == 1
+    for i in range(x.shape[0]):
+        one = quant_matmul(x[i], packed[i], scale[i if per_expert else 0], bits, k)
+        assert _bits_equal(got[i], one), i
+    ref = experts_matmul(x, packed, scale, bits, k)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    fin = ~torch.isnan(ref)
+    assert _rel(got[fin], ref[fin]) <= (1e-4 if x.dtype is torch.float32 else 2e-2)
+    return got
+
+
 #: expert stacks (E, C, K, N): the GEMV (C <= 8) and the GEMM (C 9 to 300), K
 #: on the TMA path (2048, 1408: deepseek-moe-16b's expert linears) and on the
 #: predicated one (130, 37), N ragged against the channel tiles, C not a
@@ -1093,11 +1154,8 @@ EXPERT_CASES = [(4, 8, 64, 48), (3, 5, 130, 75), (2, 8, 1408, 2048), (4, 9, 64, 
 @pytest.mark.parametrize("per_expert", (False, True), ids=("shared_scale", "expert_scale"))
 def test_expert_launch_equals_the_2d_launches(cuda, bits, e, c, k, n, dtype, per_expert):
     """One launch over the stack equals the 2-D kernel on each expert's slice
-    bit for bit (the plans share their splits), and the plain version within
-    the 2-D kernels' tolerance."""
-    from repro_torch.kernels.quant_matmul.ops import quant_matmul_experts
-    from repro_torch.kernels.quant_matmul.ref import experts_matmul
-
+    byte for byte (the plans share their splits), and the plain version
+    within the 2-D kernels' tolerance."""
     g = torch.Generator(device=cuda).manual_seed(bits * 1000 + e * 10 + c)
     w = torch.randn((e, k, n), generator=g, device=cuda) / k ** 0.5
     if per_expert:
@@ -1108,17 +1166,8 @@ def test_expert_launch_equals_the_2d_launches(cuda, bits, e, c, k, n, dtype, per
         qt = quantize_tensor(w, bits)
         packed, scale = qt.packed, qt.scale                           # (1, 1, N)
     x = torch.randn((e, c, k), generator=g, device=cuda).to(dtype)
-    kernels.reset_counts()
-    got = quant_matmul_experts(x, packed, scale, bits, k)
-    torch.cuda.synchronize()
-    name = "quant_gemv_experts" if c <= 8 else "quant_matmul_experts"
+    got = _stack_checks(x, packed, scale, bits, k, per_expert=per_expert)
     assert got.shape == (e, c, n) and got.dtype == dtype
-    assert kernels.LAUNCHES[name] == 1 and sum(kernels.LAUNCHES.values()) == 1
-    for i in range(e):
-        one = quant_matmul(x[i], packed[i], scale[i if per_expert else 0], bits, k)
-        assert torch.equal(got[i], one), i
-    ref = experts_matmul(x, packed, scale, bits, k)
-    assert _rel(got, ref) <= (1e-4 if dtype is torch.float32 else 2e-2)
 
 
 def test_expert_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -1157,6 +1206,87 @@ def test_moe_layer_launches_one_expert_kernel_a_linear(cuda, tokens):
     name = "quant_gemv_experts" if moe.capacity(tokens, cfg) <= 8 else "quant_matmul_experts"
     assert kernels.LAUNCHES[name] == 6 and torch.equal(got, again)
     assert _rel(got, moe.moe_mlp(p, x, cfg, impl="torch")) <= 1e-4
+
+
+@pytest.mark.parametrize("bits", (2, 4, 6, 8))
+@pytest.mark.parametrize("e,k,n", [(8, 2048, 1408), (7, 130, 75)])
+@pytest.mark.parametrize("case", ("empty_experts", "trailing_zero_rows", "negative_zero",
+                                  "nan_row"))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_expert_gemv_skips_empty_experts_byte_for_byte(cuda, bits, e, k, n, case, dtype):
+    """Row 1e skips the weights of an expert whose x is all zero (sign aside)
+    and writes the bytes the 2-D launch computes for it (+0 times the scale):
+    whole experts of zeros, live rows before trailing zero rows, experts of
+    -0.0, a NaN in a live expert's row and an expert live by a NaN alone;
+    K 2048 takes the 16-byte scan, K 130 the element-wise one.  A scale per
+    expert with a negative and a zero entry checks the skipped outputs'
+    signs too.  Other tiles a CTA give the same bytes."""
+    from repro_torch.kernels.quant_gemv import kernel as gk
+
+    g = torch.Generator(device=cuda).manual_seed(bits * 31 + e + k)
+    w = torch.randn((e, k, n), generator=g, device=cuda) / k ** 0.5
+    qts = [quantize_tensor(w[i], bits) for i in range(e)]
+    packed = torch.stack([q.packed for q in qts])
+    scale = torch.stack([q.scale for q in qts])                       # (E, 1, N)
+    scale[:, 0, 0] = -scale[:, 0, 0]
+    scale[:, 0, 1] = 0.0
+    x = _zero_case(case, torch.randn((e, 8, k), generator=g, device=cuda)).to(dtype)
+    got = _stack_checks(x, packed, scale, bits, k, per_expert=True)
+    for tiles in (1, 3, gk.MAX_TILES):        # other channel blocks, other clusters' votes
+        again = gk.quant_gemv_experts_cuda(x, packed, scale, bits=bits, k=k, launch=(
+            dataclasses.replace(gk.plan(8, n, k, e), tiles=tiles)))
+        assert _bits_equal(again, got), tiles
+    empty = (x.reshape(e, -1) == 0).all(-1)                # -0.0 == 0 too
+    assert empty.any() and (~empty).any()
+    assert (got[empty] == 0).all()
+    assert torch.signbit(got[empty][..., 0]).all() and not torch.signbit(got[empty][..., 1:]).any()
+
+
+@pytest.mark.parametrize("bits", (2, 4, 6, 8))
+@pytest.mark.parametrize("tokens", (4, 64))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_expert_stacks_on_the_routed_buffer(cuda, bits, tokens, dtype):
+    """Reduced deepseek-moe-16b's capacity buffer as the MoE layer builds it
+    (4 tokens: C 8, the GEMV, row 1e; 64 tokens: C 24, the GEMM, row 2e),
+    with experts that hold no token, against the 2-D launches byte for byte,
+    one launch; and the same routing at full width (E 64, d 2048, C 8 at
+    both counts: the GEMV)."""
+    from repro_torch import configs
+
+    for cfg in (configs.get_config("deepseek-moe-16b").reduced(),
+                configs.get_config("deepseek-moe-16b")):
+        x = _routed(cfg, tokens, tokens * 10 + bits, cuda).to(dtype)
+        e, k = cfg.n_experts, cfg.d_model
+        g = torch.Generator(device=cuda).manual_seed(bits + tokens)
+        qt = quantize_tensor(torch.randn((e, k, cfg.d_ff), generator=g, device=cuda) / k ** 0.5,
+                             bits)
+        got = _stack_checks(x, qt.packed, qt.scale, bits, k)
+        empty = (x.reshape(e, -1) == 0).all(-1)
+        assert (got[empty] == 0).all()
+        if tokens == 4:
+            assert empty.any()
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_expert_gemv_tiles_keep_the_bits(cuda, dtype):
+    """deepseek-moe-16b's expert linears at every tiles a CTA, 1 to 8 (the
+    plan's split): the same bytes as the plan's own tiles."""
+    from repro_torch import configs
+    from repro_torch.kernels.quant_gemv import kernel as gk
+
+    cfg = configs.get_config("deepseek-moe-16b")
+    x = _routed(cfg, 4, 7, cuda)
+    for n, k in ((cfg.d_ff, cfg.d_model), (cfg.d_model, cfg.d_ff)):
+        g = torch.Generator(device=cuda).manual_seed(n)
+        qt = quantize_tensor(torch.randn((cfg.n_experts, k, n), generator=g, device=cuda), 4)
+        xk = (x if k == cfg.d_model else torch.randn((cfg.n_experts, 8, k), generator=g,
+                                                     device=cuda) * (x[..., :1] != 0)).to(dtype)
+        want = gk.quant_gemv_experts_cuda(xk, qt.packed, qt.scale, bits=4, k=k)
+        p = gk.plan(8, n, k, cfg.n_experts)
+        for t in range(1, gk.MAX_TILES + 1):
+            got = gk.quant_gemv_experts_cuda(xk, qt.packed, qt.scale, bits=4, k=k,
+                                             launch=dataclasses.replace(p, tiles=t))
+            assert _bits_equal(got, want), t
 
 
 #: the full-width linears of mamba2-2.7b (in_proj's N 10576 is 82.6 tiles of

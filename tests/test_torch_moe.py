@@ -175,6 +175,41 @@ def test_stacked_qt_matmul_matches_jax(c, bits, impl):
         jmm_ops.qt_matmul(jnp.zeros((E + 1, c, D)), jqt, impl=impl)
 
 
+@pytest.mark.parametrize("impl", ("xla", "interpret"))
+@pytest.mark.parametrize("bits", (2, 4, 6, 8))
+def test_routed_buffer_through_stacked_qt_matmul(bits, impl):
+    """A decode step's capacity buffer as ``moe_mlp`` builds it: reduced
+    deepseek-moe-16b's router sends 4 tokens to their top-2 of 8 experts,
+    ``dispatch`` writes them into ``(E, 8, d)`` and the experts that hold no
+    token stay zero; ``w_down`` takes an h zero on the same rows.  The JAX
+    package's vmapped ``qt_matmul`` and the port's plain one agree within
+    rel 1e-5, and the empty experts' outputs are exactly zero in both."""
+    cfg = tconfigs.get_config("deepseek-moe-16b").reduced()
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    rng = np.random.default_rng(bits)
+    xf = torch.from_numpy(rng.standard_normal((4, d), dtype=np.float32))
+    router = torch.from_numpy(rng.standard_normal((d, e), dtype=np.float32))
+    c = tmoe.capacity(4, cfg)
+    _, _, eidx = tmoe._route({"router": router}, xf, cfg)
+    _, e_s, t_s, pos, keep = tmoe.dispatch(eidx, e, c)
+    slot = torch.where(keep, e_s * c + pos, e * c)
+    h_rows = torch.from_numpy(rng.standard_normal((len(slot), f), dtype=np.float32))
+    for k, n, rows in ((d, f, xf[t_s]), (f, d, h_rows)):
+        buf = torch.zeros((e * c + 1, k))
+        buf[slot] = rows
+        x = buf[:e * c].view(e, c, k).numpy()
+        empty = ~x.reshape(e, -1).any(-1)
+        assert c == 8 and empty.any() and not empty.all()
+        jqt = jquantize(jnp.asarray(rng.standard_normal((e, k, n), dtype=np.float32)
+                                    / k ** 0.5), bits)
+        want = np.asarray(jmm_ops.qt_matmul(jnp.asarray(x), jqt, impl=impl))
+        kernels.reset_counts()
+        got = mm_ops.qt_matmul(torch.from_numpy(x), _to_port(jqt)).numpy()
+        assert kernels.PLAIN_CALLS["quant_gemv_experts"] == 1
+        assert not got[empty].any() and not want[empty].any()
+        assert _rel(got[~empty], want[~empty]) <= 1e-5
+
+
 def test_per_expert_scales_and_arrays():
     """A scale per expert, ``(E, 1, N)``, and ``qt_matmul_arrays`` on a 2-D
     weight against the JAX package's."""
@@ -201,13 +236,28 @@ EXPERT_LINEARS = {"w_gu": (1408, 2048), "w_down": (2048, 1408), "reduced_gu": (2
 
 @pytest.mark.parametrize("name", sorted(EXPERT_LINEARS))
 def test_expert_plans_keep_the_2d_splits(name):
+    """The stack's split and K ranges are the 2-D plan's (so an expert's
+    outputs are the 2-D launch's); its tiles are its own: the 2-D rule's
+    CTA count over all the experts, N's tiles cut evenly over those blocks
+    (deepseek-moe-16b's w_gate at 64 experts: 6 + 5 tiles, not 8 + 3)."""
     n, k = EXPERT_LINEARS[name]
+    n_tiles = -(-n // gk.CHANNELS)
     for e in (1, 8, 64):
         for c in range(1, gk.GEMV_MAX_M + 1):
             p, flat = gk.plan(c, n, k, e), gk.plan(c, n, k)
             assert p.splits == flat.splits == gk.split_of(k) and p.experts == e
-            assert p.tiles == gk.tiles_of(n, p.splits, e) and p.tiles >= flat.tiles
             assert p.k_ranges() == flat.k_ranges()
+            if e == 1:
+                assert p.tiles == gk.tiles_of(n, p.splits)
+                continue
+            blocks = -(-n_tiles // gk.tiles_of(n, p.splits, e))
+            assert p.grid == (p.splits, blocks) and p.tiles == gk.expert_tiles(n, k, e)
+            assert p.tiles == -(-n_tiles // blocks) <= gk.tiles_of(n, p.splits, e)
+    if name == "w_gu":
+        assert gk.plan(8, n, k, 64).tiles == 6 and gk.plan(8, n, k, 64).grid == (8, 2)
+    if name == "w_down":
+        assert gk.plan(8, n, k, 64).tiles == 8 and gk.plan(8, n, k, 64).grid == (6, 2)
+    for e in (1, 8, 64):
         for c in (16, 128, 1280):
             for dt in (torch.bfloat16, torch.float32):
                 p, flat = mk.plan(c, n, k, dt, e), mk.plan(c, n, k, dt)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the quantized GEMV (TPU kernel row 1) of one tree.
+"""Time the quantized GEMV (TPU kernel row 1) and its expert stack (row 1e) of one tree.
 
-    python3 tools/gemv_times.py [--src DIR] [--label NAME] [--cases 4/4/bf16,...] [--no-check]
+    python3 tools/gemv_times.py [--src DIR] [--label NAME] [--cases 4/4/bf16,e/routed/4/bf16,...]
+                                [--no-check] [--tiles 1,2,...]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``) and
 builds its kernels there, so that two trees can be timed in one session on
@@ -15,8 +16,12 @@ ways (``lib``, ``lib_cold``), the bound and each linear's kernel time
 back to back, all in ms, in one JSON line beside the card's name and
 power limit; ``--cases`` keeps the named cases ("bits/M/dtype"), and
 ``--no-check`` skips the comparison with the plain version (for the
-timing-only trees of ``tools/gemv_variants.py``).  Exits 2 without a CUDA
-device.
+timing-only trees of ``tools/gemv_variants.py``).  The expert cases
+("e/dense|routed/bits/dtype", default ``SWEEP_EXPERTS``) are ``sweep_experts``:
+deepseek-moe-16b's three expert linears of a layer at the decode's C 8 on
+dense x and on the routed buffer, device time back to back, both bounds
+(``experts``); ``--tiles`` also times each linear at those tiles a CTA (a
+tree whose expert wrapper takes ``launch=``).  Exits 2 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ def main() -> int:
     ap.add_argument("--cases", default="", help="comma-separated bits/M/dtype keys")
     ap.add_argument("--no-check", action="store_true",
                     help="skip the comparison with the plain version (timing-only variants)")
+    ap.add_argument("--tiles", default="", help="comma-separated tiles a CTA for row 1e")
     args = ap.parse_args()
     import torch
 
@@ -49,10 +55,15 @@ def main() -> int:
     import chip_smoke as cs
 
     cs.log = lambda *a: print(*a, file=sys.stderr, flush=True)   # the cases' lines aside
-    times = cs.sweep_gemv(torch, cases=[c for c in args.cases.split(",") if c],
-                          check=not args.no_check)
+    cases = [c for c in args.cases.split(",") if c]
+    flat = [c for c in cases if not c.startswith("e/")]
+    stack = [c for c in cases if c.startswith("e/")]
+    times = cs.sweep_gemv(torch, cases=flat, check=not args.no_check) if flat or not cases else {}
+    experts = (cs.sweep_experts(torch, cases=stack, check=not args.no_check,
+                                tiles=[int(t) for t in args.tiles.split(",") if t])
+               if stack or not cases else {})
     print(json.dumps({"label": args.label, "src": args.src, "card": cs.smi_line(),
-                      "times": times}), flush=True)
+                      "times": times, "experts": experts}), flush=True)
     return 0
 
 

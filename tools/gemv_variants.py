@@ -20,6 +20,11 @@ outputs; they say what that work costs, nothing more.
   noload     no weight bytes loaded (zeros)
   nostage    no x staged in shared memory
   nofold     the owner does not add the ranks' partials (stores and barrier kept)
+  occ4       four CTAs an SM (at most 64 registers)
+
+Row 1e (the expert stack):
+
+  noorder    CTA slot z takes expert z, unhinted (every expert's x read in full)
 """
 from __future__ import annotations
 
@@ -39,6 +44,10 @@ VARIANTS = {
     "group4": [(BODY, "constexpr int kGemvGroup = 1;", "constexpr int kGemvGroup = 4;")],
     "occ3": [(KERNEL, "__global__ void __launch_bounds__(kGemvThreads)\nquant_gemv_kernel(",
               "__global__ void __launch_bounds__(kGemvThreads, 3)\nquant_gemv_kernel(")],
+    "occ4": [(KERNEL, "__global__ void __launch_bounds__(kGemvThreads)\nquant_gemv_kernel(",
+              "__global__ void __launch_bounds__(kGemvThreads, 4)\nquant_gemv_kernel(")],
+    "noorder": [(KERNEL, "const int slot = gemv_expert_of_slot(x, E, M, K, xscan);",
+                 "const int slot = 2 * blockIdx.z;")],
     "nocompute": [(BODY, "      for (int p = 0; p < P; ++p) {",
                    "      acc[0][0] += (float)((ua[0] ^ ua[1] ^ ua[2] ^ ua[3] ^ ub[0] ^ ub[1] ^"
                    " ub[2] ^ ub[3]) & 1);\n      for (int p = 0; p < 0; ++p) {")],
