@@ -381,7 +381,7 @@ SOURCES = {
     "fake_quant_ste_bwd": "src/repro_torch/csrc/fake_quant.cu",
     "quant_kv_decode_step_proj": "src/repro_torch/csrc/quant_kv_proj.cu",
     "quant_gemv_experts": "src/repro_torch/csrc/quant_gemv.cu",
-    "quant_matmul_experts": "src/repro_torch/csrc/quant_matmul.cu",
+    "quant_matmul_experts": "src/repro_torch/csrc/quant_matmul_experts.cu",
 }
 
 
@@ -2385,6 +2385,36 @@ def profile_steps(torch, eng, reqs):
     return prof
 
 
+def profile_admission(torch, eng, cfg) -> dict:
+    """Row 2e's device time an admission: 4 prompts of 32 tokens (128 token
+    rows, so C 16 in every MoE layer) admitted together under
+    ``torch.profiler``, the persistent expert GEMM's kernels read from the
+    trace (``build/phase13b_admission_trace.json``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import Request
+
+    gen = torch.Generator().manual_seed(SEED + 15)
+    reqs = [Request(uid=300 + i, prompt=torch.randint(1, cfg.vocab_size, (32,),
+                                                      generator=gen).tolist(),
+                    max_new_tokens=2) for i in range(4)]
+    before = eng.stats()["admissions"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.run(reqs)
+        torch.cuda.synchronize()
+    adm = eng.stats()["admissions"] - before
+    path = ROOT / "build" / "phase13b_admission_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    durs = [ev["dur"] for ev in json.loads(path.read_text())["traceEvents"]
+            if ev.get("cat") == "kernel" and "quant_matmul_experts_kernel" in ev.get("name", "")]
+    ms = sum(durs) / 1e3
+    log(f"  row 2e in the profile: {ms:.3f} ms of device time over {len(durs)} launches, "
+        f"{adm} admission(s) of 4 x 32 tokens (C 16): {ms / max(adm, 1):.3f} ms an admission")
+    return {"row2e_ms": ms, "row2e_launches": len(durs), "row2e_admissions": adm}
+
+
 def stack_gemv_ms(prof, path: Path) -> tuple[float, int]:
     """Device ms and launches of the GEMV kernel over an expert stack (grid
     z > 1: row 1e, not row 1) in ``prof``, read from its trace's kernel
@@ -4073,10 +4103,16 @@ MOE_BITS = (2, 4, 6, 8)
 #: the kernels line's rows 1e and 2e: a layer's three expert linears at 4 bits in
 #: bf16, at the decode capacity (8) and at (b)'s admissions' (16)
 MOE_ROW_C = {"quant_gemv_experts": 8, "quant_matmul_experts": 16}
+#: (a)'s row-2e lines: an admission's capacity (16), a 1000-token prefill's (128)
+#: and a 10900-token prefill's (1280)
+MOE_GEMM_C = (16, 128, 1280)
 #: the routed buffers' decode: 4 token rows (phase 4's slots) at capacity 8
 MOE_TOKENS = SERVE_M
 #: tools/gemv_times.py's expert-stack cases ("e/x/bits/dtype", x dense or routed)
 SWEEP_EXPERTS = tuple(f"e/{xk}/4/{d}" for xk in ("dense", "routed") for d in ("bf16", "f32"))
+#: tools/gemm_times.py's expert-GEMM cases ("g/C/bits/dtype"): row 2e at C 16, 128, 1280
+SWEEP_EXPERT_GEMM = tuple(f"g/{c}/{b}/{d}" for c in MOE_GEMM_C for b in (4, 8)
+                          for d in ("bf16", "f32"))
 #: (b): phase 4's geometry through the serve command line
 MOE_SERVE_ARGV = ["--arch", MOE_ARCH, "--wbits", "mixed", "--requests", "8", "--max-new", "16",
                   "--slots", "4", "--max-seq", "256", "--seed", str(SEED + 13)]
@@ -4120,7 +4156,9 @@ def check_experts(torch, gen, results: dict) -> None:
     deepseek-moe-16b's shapes, 64 experts: each launch byte for byte the 2-D
     kernels on every expert's slice, within rows 1 and 2's tolerances of the
     plain version, and timed (a call, device, plain, ``torch.bmm`` on the
-    dequantized bf16 stack, the bound of every expert's packed bytes).  Then
+    dequantized bf16 stack a call and its device time, the bound of every
+    expert's packed bytes); row 2e's line for a layer's three linears at each
+    of ``MOE_GEMM_C`` beside both bounds and ``torch.bmm``'s device time.  Then
     the GEMV on the routed decode buffer (:func:`routed_buffers`), where most
     experts hold no token: the same checks, one launch, and its times beside
     a second bound that counts only the live experts' packed bytes."""
@@ -4139,7 +4177,10 @@ def check_experts(torch, gen, results: dict) -> None:
     routed, live = routed_buffers(torch, moe_cfg)
     c_r = routed[moe_cfg.d_model].shape[1]
     # a layer's three linears at 4 bits in bf16, dense x and routed
-    layer = {xk: dict(device_ms=0.0, bytes=0.0, live_bytes=0.0) for xk in ("dense", "routed")}
+    layer = {xk: dict(device_ms=0.0, bytes=0.0, live_bytes=0.0, bmm_ms=0.0)
+             for xk in ("dense", "routed")}
+    gemm = {c: dict(device_ms=0.0, bmm_ms=0.0, bmm_call=0.0, bytes=0.0, flops=0.0)
+            for c in MOE_GEMM_C}
     for name, (n, k) in MOE_LINEARS.items():
         for bits in MOE_BITS:
             w = torch.randn((e, k, n), generator=gen, device="cuda") / k ** 0.5
@@ -4177,6 +4218,7 @@ def check_experts(torch, gen, results: dict) -> None:
                                   warmup=1)
                     xb = x.to(torch.bfloat16)
                     t_l = time_ms(torch, lambda: torch.bmm(xb, wd), reps=10)
+                    t_ld = time_batch(torch, lambda: torch.bmm(xb, wd))
                     act = x.element_size()
                     nbytes = packed.numel() + 4 * n + act * e * c * (k + n)
                     flops = 2.0 * e * c * n * k
@@ -4184,11 +4226,16 @@ def check_experts(torch, gen, results: dict) -> None:
                     b_ms, b_by = bound(nbytes, flops, rate)
                     log(f"  ({smi}) {kern:20s} {name:6s} E={e} C={c:4d} N={n} K={k} bits={bits} "
                         f"{str(dt)[6:]:8s}: a call {t_k:.4f} ms, device {t_d:.4f} ms, plain "
-                        f"{t_p:.4f} ms, torch.bmm (bf16) {t_l:.4f} ms, bound {b_ms:.4f} ms "
-                        f"({b_by}), rel {err:.2e}; = the 2-D launches byte for byte")
+                        f"{t_p:.4f} ms, torch.bmm (bf16) {t_l:.4f} ms a call, {t_ld:.4f} ms "
+                        f"device, bound {b_ms:.4f} ms ({b_by}), rel {err:.2e}; = the 2-D "
+                        f"launches byte for byte")
+                    times = 2 if name == "w_gate" else 1
+                    if bits == 4 and dt is torch.bfloat16 and c in gemm:
+                        for key, val in (("device_ms", t_d), ("bmm_ms", t_ld), ("bmm_call", t_l),
+                                         ("bytes", nbytes), ("flops", flops)):
+                            gemm[c][key] += times * val
                     if bits == 4 and dt is torch.bfloat16 and c == MOE_ROW_C[kern]:
                         # the kernels line: a layer's three linears (w_gate, w_up, w_down)
-                        times = 2 if name == "w_gate" else 1
                         for key, val in (("ms", t_k), ("device_ms", t_d), ("plain_ms", t_p),
                                          ("library_ms", t_l), ("bytes", nbytes),
                                          ("flops", flops)):
@@ -4196,6 +4243,7 @@ def check_experts(torch, gen, results: dict) -> None:
                         if kern == "quant_gemv_experts":
                             layer["dense"]["device_ms"] += times * t_d
                             layer["dense"]["bytes"] += times * nbytes
+                            layer["dense"]["bmm_ms"] += times * t_ld
                     del x, xb, got, per, want
             # the routed decode buffer: most experts hold no token
             for dt in (torch.float32, torch.bfloat16):
@@ -4226,6 +4274,7 @@ def check_experts(torch, gen, results: dict) -> None:
                 t_k, t_d = time_ms(torch, run, reps=10), time_batch(torch, run)
                 xb = x.to(torch.bfloat16)
                 t_l = time_ms(torch, lambda: torch.bmm(xb, wd), reps=10)
+                t_ld = time_batch(torch, lambda: torch.bmm(xb, wd))
                 act = x.element_size()
                 rest = 4 * n + act * e * c_r * (k + n)
                 flops = 2.0 * e * c_r * n * k
@@ -4233,7 +4282,8 @@ def check_experts(torch, gen, results: dict) -> None:
                 b_live, _ = bound(live * packed[0].numel() + rest, flops * live / e)
                 log(f"  ({smi}) quant_gemv_experts routed {name:6s} E={e} C={c_r} live {live} "
                     f"N={n} K={k} bits={bits} {str(dt)[6:]:8s}: a call {t_k:.4f} ms, device "
-                    f"{t_d:.4f} ms, torch.bmm (bf16) {t_l:.4f} ms, bound {b_all:.4f} ms (all "
+                    f"{t_d:.4f} ms, torch.bmm (bf16) {t_l:.4f} ms a call, {t_ld:.4f} ms device, "
+                    f"bound {b_all:.4f} ms (all "
                     f"{e} experts' bytes), {b_live:.4f} ms (the {live} live experts'), rel "
                     f"{err:.2e}; one launch, = the 2-D launches byte for byte")
                 if bits == 4 and dt is torch.bfloat16:
@@ -4241,6 +4291,7 @@ def check_experts(torch, gen, results: dict) -> None:
                     layer["routed"]["device_ms"] += times * t_d
                     layer["routed"]["bytes"] += times * (packed.numel() + rest)
                     layer["routed"]["live_bytes"] += times * (live * packed[0].numel() + rest)
+                    layer["routed"]["bmm_ms"] += times * t_ld
                 del x, xb, got, per, want
             del qt, packed, scale, wd
             torch.cuda.empty_cache()
@@ -4251,7 +4302,15 @@ def check_experts(torch, gen, results: dict) -> None:
         f"{dense['device_ms']:.4f} ms on dense x, {rt['device_ms']:.4f} ms on the routed buffer "
         f"({live} of {e} experts live, {rt['device_ms'] / dense['device_ms']:.3f} of dense); "
         f"bounds {dense['bytes'] / HBM_BYTES_S * 1e3:.4f} ms (every expert's bytes), "
-        f"{rt['live_bytes'] / HBM_BYTES_S * 1e3:.4f} ms (the live experts')")
+        f"{rt['live_bytes'] / HBM_BYTES_S * 1e3:.4f} ms (the live experts'); torch.bmm device "
+        f"{dense['bmm_ms']:.4f} ms dense, {rt['bmm_ms']:.4f} ms routed")
+    for c, t in gemm.items():
+        tb, to = t["bytes"] / HBM_BYTES_S * 1e3, t["flops"] / BF16_FLOP_S * 1e3
+        log(f"  ({smi}) row 2e, a layer's three linears at 4 bits, bf16, C {c}: device "
+            f"{t['device_ms']:.4f} ms; torch.bmm (bf16) device {t['bmm_ms']:.4f} ms, a call "
+            f"{t['bmm_call']:.4f} ms; bounds {tb:.4f} ms (bytes), {to:.4f} ms (operations); "
+            f"{100 * max(tb, to) / t['device_ms']:.1f} % of the larger; kernel "
+            f"{'no slower' if t['device_ms'] <= t['bmm_ms'] else 'SLOWER'} than torch.bmm")
 
 
 def sweep_experts(torch, seed: int = SEED + 28, cases=None, check: bool = True,
@@ -4349,6 +4408,70 @@ def sweep_experts(torch, seed: int = SEED + 28, cases=None, check: bool = True,
                 + ", ".join(f"{nm} {v:.4f}" for nm, v in each.items())
                 + "".join(f"; tiles {t}: " + ", ".join(f"{nm} {v:.4f}" for nm, v in d.items())
                           for t, d in by_tiles.items()))
+        del qts
+    return out
+
+
+def sweep_expert_gemm(torch, seed: int = SEED + 29, cases=None, check: bool = True) -> dict:
+    """Row 2e at deepseek-moe-16b's admissions and prefills (64 experts): a
+    layer's three expert linears (``MOE_LINEARS``, ``w_gate`` counted twice
+    for ``w_up``) at each case's C, bits and x type, the kernel's device time
+    back to back (``time_batch``) summed, ``torch.bmm``'s on the dequantized
+    bf16 stack the same way, and the bounds of the bytes (every expert's
+    packed bytes, x and y) and of the operations (bf16 or f32 peak by x's
+    type).  ``cases`` keeps the named keys ("g/C/bits/dtype", default
+    ``SWEEP_EXPERT_GEMM``).  Returns ``{key: {kernel, bmm, bound_bytes,
+    bound_ops, linears: {name: ms}, bmm_linears: {name: ms}}}``."""
+    from repro_torch import configs
+    from repro_torch.kernels.quant_matmul.kernel import quant_matmul_experts_cuda
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_experts_ref
+    from repro_torch.quant.tensor import quantize_tensor
+
+    e = configs.get_config(MOE_ARCH).n_experts
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    keys = [c for c in (cases or SWEEP_EXPERT_GEMM) if c.startswith("g/")]
+    out = {}
+    for bits in sorted({int(c.split("/")[2]) for c in keys}):
+        qts = {}
+        for name, (n, k) in MOE_LINEARS.items():
+            qt = quantize_tensor(torch.randn((e, k, n), generator=gen, device="cuda") / k ** 0.5,
+                                 bits)
+            qts[name] = (qt.packed, qt.scale, qt.dequantize(torch.bfloat16).contiguous())
+            del qt
+        for key in keys:
+            _, c, b, dname = key.split("/")
+            if int(b) != bits:
+                continue
+            c, dt = int(c), dts[dname]
+            tot = dict(kernel=0.0, bmm=0.0, bytes=0.0, flops=0.0)
+            each, each_l = {}, {}
+            for name, (n, k) in MOE_LINEARS.items():
+                packed, scale, wd = qts[name]
+                x = torch.randn((e, c, k), generator=gen, device="cuda").to(dt)
+                run = lambda: quant_matmul_experts_cuda(x, packed, scale, bits=bits,  # noqa
+                                                        k=k)
+                if check:
+                    err = rel(run(), quant_matmul_experts_ref(x, packed, scale, bits, k))
+                    if not err <= (1e-4 if dname == "f32" else 2e-2):
+                        raise AssertionError(f"expert GEMM sweep {key} {name}: rel {err:.3g}")
+                xb = x.to(torch.bfloat16)
+                times = 2 if name == "w_gate" else 1
+                each[name] = time_batch(torch, run)
+                each_l[name] = time_batch(torch, lambda: torch.bmm(xb, wd))
+                tot["kernel"] += times * each[name]
+                tot["bmm"] += times * each_l[name]
+                tot["bytes"] += times * (packed.numel() + 4 * n + x.element_size() * e * c * (k + n))
+                tot["flops"] += times * 2.0 * e * c * n * k
+                del x, xb
+            rate = F32_FLOP_S if dt is torch.float32 else BF16_FLOP_S
+            out[key] = dict(kernel=tot["kernel"], bmm=tot["bmm"],
+                            bound_bytes=tot["bytes"] / HBM_BYTES_S * 1e3,
+                            bound_ops=tot["flops"] / rate * 1e3, linears=each, bmm_linears=each_l)
+            log(f"  row 2e {key}: a layer's three linears {tot['kernel']:.4f} ms back to back, "
+                f"torch.bmm (bf16) {tot['bmm']:.4f} ms; bounds {out[key]['bound_bytes']:.4f} ms "
+                f"(bytes), {out[key]['bound_ops']:.4f} ms (operations); by linear "
+                + ", ".join(f"{nm} {v:.4f}" for nm, v in each.items()))
         del qts
     return out
 
@@ -4471,6 +4594,7 @@ def serve_moe(torch, cfg) -> dict:
             f"{p_steps} decode steps: {ms / p_steps:.3f} ms a decode step; live experts a "
             f"decode-step MoE call {out['live']:.2f} of {cfg.n_experts} (mean of {len(dec)} "
             f"calls; {len(record)} calls in all)")
+        out.update(profile_admission(torch, eng, cfg))
     del eng, engines
     torch.cuda.empty_cache()
     return out

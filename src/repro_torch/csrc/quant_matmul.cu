@@ -50,46 +50,35 @@
 // The epilogue stages the tile in shared memory and writes four channels a
 // store.
 //
-// The expert stack (rq_quant_matmul_experts) is the same kernel over x
-// (E, C, K) and packed (E, N, kp): the TPU kernel under jax.vmap in the MoE
-// layer's qt_matmul (repro/kernels/quant_matmul/ops.py:66-94), C > 8 (the
-// prefill).  The experts are folded into grid y (E x the token tiles), since
-// the cluster holds z; the tensor maps run over the flattened stacks, (E C,
-// K) and (E N, kp), and a tile starts at its expert's row.  A tile that
-// reaches past C tokens or N channels reads the next expert's rows into
-// outputs it never stores (the epilogue masks token >= C and channel >= N),
-// and past the last expert TMA fills zeros.  The split is the 2-D plan's, so
-// an expert's outputs are the 2-D kernel's on its slice, bit for bit.
+// The expert stack's f32 x (rq_quant_matmul_experts, quant_matmul_experts.cu)
+// runs this kernel over x (E, C, K) and packed (E, N, kp): the experts are
+// folded into grid y (E x the token tiles), since the cluster holds z; the
+// tensor maps run over the flattened stacks, (E C, K) and (E N, kp), and a
+// tile starts at its expert's row.  A tile that reaches past C tokens or N
+// channels reads the next expert's rows into outputs it never stores (the
+// epilogue masks token >= C and channel >= N), and past the last expert TMA
+// fills zeros.  The split is the 2-D plan's, so an expert's outputs are the
+// 2-D kernel's on its slice, bit for bit.  bf16 x has a persistent kernel of
+// its own there.
 //
 // What holds it back (timed on the H100 with parts of the kernel cut out,
 // PERF.md section 6): one CTA per SM, so its launch, first copies and
 // epilogue stall the tensor cores, and one CTA's MMA chain does not keep
 // them busy at 128 tokens; at M in the thousands the copies from L2 come
-// close to the products' time too.  A persistent CTA that overlaps a tile's epilogue
-// with the next tile's loop is the next step.
+// close to the products' time too.
 #include <cooperative_groups.h>
-#include <cuda.h>
-#include <cudaTypedefs.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "quant_matmul.cuh"
 #include "wgmma.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace rq {
 
-constexpr int kBK = 64;           // K values per step: one 128-byte swizzled bf16 row
-constexpr int kWChunk = 128;      // bytes of each packed row per weight chunk
 constexpr int kWSlots = 3;        // weight chunks in flight
-
-template <int CB> struct WTile {
-  static constexpr int kLanes = 8 / CB;
-  static constexpr int kRowBytes = kBK / kLanes;                // per step: 16, 32, 64
-  static constexpr int kStepBytes = kRowBytes / 4;              // per k16 step: 4, 8, 16
-  static constexpr int kSteps = kWChunk / kRowBytes;            // steps per chunk: 8, 4, 2
-};
 
 // Warpgroups per block: two (128 channels, so x is read from L2 once per
 // 128 output channels) for bf16 x; one for f32 x, whose split pieces take
@@ -115,74 +104,6 @@ struct Layout {
   static constexpr int kBOff = kPOff + kPieces;
   static constexpr int kBytes = 1024 + kBOff + 8 * (kStages + kWSlots);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-// The box of `map` at (c0 innermost, c1); what lies outside the tensor
-// arrives as zeros.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-// Four neighbouring outputs in one store (`out` 4-value aligned).
-__device__ __forceinline__ void store4(float* out, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(out) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* out, float a, float b, float c, float d) {
-  *reinterpret_cast<uint2*>(out) = make_uint2(bf16x2_bits(a, b), bf16x2_bits(c, d));
-}
-
-// Two consecutive levels (k, k+1) of one packed row as a bf16x2 register
-// (k in the low half); `pair` holds their two CB-bit fields, k's lowest.
-template <int CB>
-__device__ __forceinline__ uint32_t levels_bf16x2(uint32_t pair) {
-  if constexpr (CB == 8) {
-    // 2^23 + u for u = byte ^ 0x80, minus 2^23 + 128: exact in f32, then in bf16
-    const float lo = __uint_as_float(0x4B000000u | ((pair ^ 0x80u) & 0xFFu)) - 8388736.f;
-    const float hi = __uint_as_float(0x4B000000u | (((pair >> 8) ^ 0x80u) & 0xFFu)) - 8388736.f;
-    return bf16x2_bits(lo, hi);
-  } else {
-    // bf16 128 + (field ^ half) minus 128 + half, half = 2^(CB-1): exact.
-    // (pair & mask) * (1 + 2^(16-CB)) puts field k at bit 0 and k+1 at 16.
-    constexpr uint32_t kMask = (1u << (2 * CB)) - 1;
-    constexpr uint32_t kBias = 0x4300u | (1u << (CB - 1));
-    constexpr uint32_t kField = (1u << CB) - 1;
-    const uint32_t w = (((pair & kMask) * (1u + (1u << (16 - CB)))) & (kField | (kField << 16))) ^
-                       (kBias | (kBias << 16));
-    const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&w),
-                                     __halves2bfloat162(__ushort_as_bfloat16((unsigned short)kBias),
-                                                        __ushort_as_bfloat16((unsigned short)kBias)));
-    return *reinterpret_cast<const uint32_t*>(&v);
-  }
-}
 
 // The A fragment of k16 step j of chunk step q for this thread: channel
 // rows r0 (g) and r1 (g + 8) of its warp, values 2t, 2t+1 (regs 0, 1) and
@@ -213,39 +134,6 @@ __device__ __forceinline__ void load_a(const uint8_t* chunk, int r0, int q, int 
     }
     a[h] = levels_bf16x2<CB>(p0);
     a[2 + h] = levels_bf16x2<CB>(p1);
-  }
-}
-
-// The path for rows that are not 16-byte aligned: predicated loads, zeros
-// outside, in the layouts the TMA path leaves.  x step `it` (K values 64 it
-// ..) of rows tok0.. into an x stage:
-template <bool XF32, int NT, typename T>
-__device__ void load_x_any(uint8_t* stage, const T* __restrict__ x, int M, int K, int tok0, int it) {
-  constexpr int CHUNKS = Layout<XF32, NT>::kXRow / 16, PER = 16 / sizeof(T);
-  const int k0 = it * kBK;
-  for (int id = threadIdx.x; id < NT * CHUNKS; id += blockDim.x) {
-    const int r = id / CHUNKS, c = id % CHUNKS;
-    const int tok = tok0 + r, k = k0 + c * PER;
-    // bf16: the swizzled B tile (unit c of row r at c ^ (r % 8)); f32: plain rows
-    uint8_t* dst = stage + (XF32 ? r * Layout<XF32, NT>::kXRow + c * 16 : r * 128 + ((c ^ (r & 7)) << 4));
-    alignas(16) T v[PER];
-#pragma unroll
-    for (int e = 0; e < PER; ++e)
-      v[e] = (tok < M && k + e < K) ? x[(size_t)tok * K + k + e] : from_f<T>(0.f);
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
-  }
-}
-// and the packed chunk from byte b0 of rows ch0.. into a weight slot.
-__device__ __forceinline__ void load_w_any(uint8_t* slot, const uint8_t* __restrict__ packed,
-                                           int N, int kp, int ch0, int rows, int b0) {
-  for (int id = threadIdx.x; id < rows * (kWChunk / 16); id += blockDim.x) {
-    const int r = id / (kWChunk / 16), c = id % (kWChunk / 16);
-    const int n = ch0 + r, b = b0 + c * 16;
-    alignas(16) uint8_t v[16];
-#pragma unroll
-    for (int e = 0; e < 16; ++e) v[e] = (n < N && b + e < kp) ? packed[(size_t)n * kp + b + e] : 0;
-    *reinterpret_cast<uint4*>(slot + r * kWChunk + (((c ^ r) & 7) << 4)) =
-        *reinterpret_cast<const uint4*>(v);
   }
 }
 
@@ -331,7 +219,7 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap xmap,
   auto wslot = [&](int c) { return wring + (c % kWSlots) * L::kW; };
   auto load_x = [&](int i) {
     if (!vec) {
-      load_x_any<XF32, NT, T>(xstage(i), x, M, K, tok0, kb + i);
+      load_x_any<NT>(xstage(i), x, M, K, tok0, kb + i, threadIdx.x, blockDim.x);
     } else if (threadIdx.x == 0) {
       mbar_expect_tx(xfull + i % S, L::kX);
       tma_load_2d(xstage(i), &xmap, (kb + i) * kBK, ex * M + tok0, xfull + i % S);
@@ -340,7 +228,7 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap xmap,
   auto load_w = [&](int c) {
     const int b0 = (kb + c * WK) * RB;
     if (!vec) {
-      load_w_any(wslot(c), packed, N, kp, ch0, CH, b0);
+      load_w_any(wslot(c), packed, N, kp, ch0, CH, b0, threadIdx.x, blockDim.x);
     } else if (threadIdx.x == 0) {
       mbar_expect_tx(wfull + c % kWSlots, L::kW);
       tma_load_2d(wslot(c), &wmap, b0, ex * N + ch0, wfull + c % kWSlots);
@@ -510,59 +398,6 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap xmap,
   if (csize > 1) cluster.sync();   // keep every rank's partials alive until read
 }
 
-// cuTensorMapEncodeTiled from the driver, found once.
-inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (!encode) {
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      encode = nullptr;
-  }
-  return encode;
-}
-
-// What a tensor map is encoded from: the same key, the same map.
-struct MapKey {
-  const void* base;
-  int type, rows, cols, box_rows, box_cols, swizzle;
-  bool operator==(const MapKey& o) const {
-    return base == o.base && type == o.type && rows == o.rows && cols == o.cols &&
-           box_rows == o.box_rows && box_cols == o.box_cols && swizzle == o.swizzle;
-  }
-};
-
-// A row-major (rows, cols) tensor of `elem`-byte values as boxes of
-// (box_rows, box_cols).  Encoding costs host time on every launch, so the
-// maps are kept in a direct-mapped cache: a layer's weights give the same
-// key on every call, and x often does (the allocator reuses its buffers).
-inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base,
-                      int rows, int cols, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
-  constexpr int kSlots = 512;
-  struct Slot { MapKey key; CUtensorMap map; bool full; };
-  thread_local Slot cache[kSlots] = {};
-  const MapKey key{base, (int)type, rows, cols, box_rows, box_cols, (int)swizzle};
-  Slot& slot = cache[(reinterpret_cast<uintptr_t>(base) >> 4 ^ (uintptr_t)rows * 31 ^
-                      (uintptr_t)box_rows * 7) % kSlots];
-  if (slot.full && slot.key == key) {
-    *map = slot.map;
-    return true;
-  }
-  auto encode = tensor_map_encoder();
-  if (!encode) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  if (encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  slot = Slot{key, *map, true};
-  return true;
-}
-
 template <int CB, bool XF32, int NT, typename T>
 cudaError_t launch_nt(const void* x, const void* packed, const void* scale, void* y, int E,
                       int M, int N, int K, int kp, int wgs, int splits, int csize, int vec,
@@ -588,10 +423,10 @@ cudaError_t launch_nt(const void* x, const void* packed, const void* scale, void
     // x: boxes of NT rows x 64 values (bf16 in the 128-byte swizzle wgmma
     // reads); packed: boxes of 128 (64) rows x 128 bytes, swizzled the same way;
     // an expert stack as its E M and E N rows
-    if (!encode_2d(&xmap, XF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+    if (!encode_map(&xmap, XF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                    sizeof(T), x, E * M, K, NT, kBK,
                    XF32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B) ||
-        !encode_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, packed, E * N, kp, L::kCh, kWChunk,
+        !encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, packed, E * N, kp, L::kCh, kWChunk,
                    CU_TENSOR_MAP_SWIZZLE_128B))
       return cudaErrorInvalidValue;
   }
@@ -636,16 +471,15 @@ cudaError_t launch_cb(const void* x, const void* packed, const void* scale, void
   return cudaErrorInvalidValue;
 }
 
-}  // namespace rq
-
-// Both entry points: E experts of x (E, M, K) against packed (E, N, kp), the
-// scale of expert e at scale + e * sstride (sstride 0 or N).  The launch
-// plan (token tile nt, warpgroups wgs, K ranges splits, cluster size csize: 1
-// or splits) comes from the wrapper; TMA is taken where every row start is
-// 16-byte aligned.
-static int matmul_entry(const void* x, const void* packed, const void* scale, void* y, int E,
-                        int M, int N, int K, int kp, int bits, int dtype, int nt, int wgs,
-                        int splits, int csize, long long sstride, void* stream) {
+// E experts of x (E, M, K) against packed (E, N, kp), the scale of expert e
+// at scale + e * sstride (sstride 0 or N): rq_quant_matmul (E 1) and the
+// expert stack's f32 x (quant_matmul_experts.cu).  The launch plan (token
+// tile nt, warpgroups wgs, K ranges splits, cluster size csize: 1 or splits)
+// comes from the wrapper; TMA is taken where every row start is 16-byte
+// aligned.
+int matmul_entry(const void* x, const void* packed, const void* scale, void* y, int E, int M,
+                 int N, int K, int kp, int bits, int dtype, int nt, int wgs, int splits,
+                 int csize, long long sstride, void* stream) {
   if (E < 1 || M < 1 || N < 1 || K < 1 || (bits != 2 && bits != 4 && bits != 6 && bits != 8) ||
       kp != (K + rq::lanes_of(bits) - 1) / rq::lanes_of(bits) || wgs < 1 || wgs > 2 ||
       splits < 1 || splits > 8 || splits > (K + 63) / 64 ||
@@ -664,20 +498,12 @@ static int matmul_entry(const void* x, const void* packed, const void* scale, vo
   }
 }
 
+}  // namespace rq
+
 // y (M, N) in x's type; x (M, K); packed (N, kp) int8; scale (N,) f32.
 extern "C" int rq_quant_matmul(const void* x, const void* packed, const void* scale, void* y,
                                int M, int N, int K, int kp, int bits, int dtype, int nt, int wgs,
                                int splits, int csize, void* stream) {
-  return matmul_entry(x, packed, scale, y, 1, M, N, K, kp, bits, dtype, nt, wgs, splits, csize,
-                      0, stream);
-}
-
-// The expert stack: y (E, M, N); x (E, M, K); packed (E, N, kp); the scale
-// (N,) shared (sstride 0) or (E, N) (sstride N); the 2-D plan's splits.
-extern "C" int rq_quant_matmul_experts(const void* x, const void* packed, const void* scale,
-                                       void* y, int E, int M, int N, int K, int kp, int bits,
-                                       int dtype, int nt, int wgs, int splits, int csize,
-                                       long long sstride, void* stream) {
-  return matmul_entry(x, packed, scale, y, E, M, N, K, kp, bits, dtype, nt, wgs, splits, csize,
-                      sstride, stream);
+  return rq::matmul_entry(x, packed, scale, y, 1, M, N, K, kp, bits, dtype, nt, wgs, splits,
+                          csize, 0, stream);
 }

@@ -37,9 +37,9 @@ SIGNATURES = {
     "rq_quant_gemv_experts": [_P] * 4 + [_I] * 9 + [_L, _P],
     # x, packed, scale, y, M, N, K, kp, bits, dtype, nt, wgs, splits, cluster, stream
     "rq_quant_matmul": [_P, _P, _P, _P] + [_I] * 10 + [_P],
-    # x, packed, scale, y, E, M, N, K, kp, bits, dtype, nt, wgs, splits, cluster, sstride,
-    # stream
-    "rq_quant_matmul_experts": [_P] * 4 + [_I] * 11 + [_L, _P],
+    # x, packed, scale, y, E, M, N, K, kp, bits, dtype, nt, wgs, splits, cluster, ctas,
+    # sstride, stream
+    "rq_quant_matmul_experts": [_P] * 4 + [_I] * 12 + [_L, _P],
     # pos, q, k_new, v_new, k_packed, k_scale, v_packed, v_scale, mask, out,
     # B, n_kv, g, S, hd, block, k_bits, v_bits, cluster, dtype, stream
     "rq_quant_kv_decode_step": [_P] * 10 + [_I] * 10 + [_P],

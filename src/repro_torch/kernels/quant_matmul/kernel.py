@@ -1,8 +1,10 @@
-"""ctypes binding of the CUDA GEMM (``csrc/quant_matmul.cu``), M > GEMV_MAX_M.
+"""ctypes binding of the CUDA GEMM (``csrc/quant_matmul.cu``), M > GEMV_MAX_M, and of
+its expert stack (``csrc/quant_matmul_experts.cu``).
 
 The launch is planned here, in Python, so that the CPU tests can check it:
 the token tile (wgmma's N), the warpgroups per block (64 output channels
-each) and the split of K over a thread-block cluster.
+each) and the split of K over a thread-block cluster; for the expert stack
+in bf16, the persistent kernel's token tile, CTA count and tile list.
 """
 from __future__ import annotations
 
@@ -31,6 +33,18 @@ FOLD_MAX_TOKENS = 128
 #: tiles: its partials' exchange is then paid over enough steps, and its tile
 #: can be the widest (measured on the H100: w_down at M = 2560)
 CLUSTER_MIN_STEPS = 16
+#: the expert stack's persistent kernel (bf16 x): its token tiles (wgmma N), and
+#: the token tiles up to which a tile is 256 channels (two consumer warpgroups
+#: of two 64-channel blocks each), not 128
+EXPERT_TOKEN_TILES = (16, 32, 64, 128)
+EXPERT_WIDE_TOKENS = 32
+
+
+def k_ranges(k: int, splits: int) -> list[tuple[int, int]]:
+    """The K range ``[k0, k1)`` of each of ``splits`` ranges, as the kernels cut them."""
+    nk = -(-k // K_STEP)
+    cuts = [s * nk // splits for s in range(splits + 1)]
+    return [(min(a * K_STEP, k), min(b * K_STEP, k)) for a, b in zip(cuts, cuts[1:])]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,10 +83,57 @@ class MatmulPlan:
 
     def k_ranges(self) -> list[tuple[int, int]]:
         """The K range ``[k0, k1)`` of each split, as the kernel cuts it."""
-        nk = -(-self.k // K_STEP)
-        cuts = [s * nk // self.splits for s in range(self.splits + 1)]
-        return [(min(a * K_STEP, self.k), min(b * K_STEP, self.k))
-                for a, b in zip(cuts, cuts[1:])]
+        return k_ranges(self.k, self.splits)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertPlan:
+    """One launch of the expert stack's persistent kernel (bf16 x): ``ctas``
+    CTAs walk the list of ``tiles``, CTA b taking tiles b, b + ctas, ...
+
+    A tile is (expert, token tile of ``nt`` rows, channel tile of
+    ``channels``), channel tiles fastest within an expert's token tile.
+    Every tile sums the 2-D plan's ``splits`` K ranges in order, so an
+    expert's outputs are the 2-D launch's bytes whatever ``ctas``.
+    """
+
+    experts: int
+    m: int
+    n: int
+    k: int
+    nt: int
+    splits: int
+    ctas: int
+
+    @property
+    def channels(self) -> int:
+        """Output channels of a tile: 256 at the narrow token tiles, else 128."""
+        return 4 * CHANNELS if self.nt <= EXPERT_WIDE_TOKENS else 2 * CHANNELS
+
+    @property
+    def token_tiles(self) -> int:
+        return -(-self.m // self.nt)
+
+    @property
+    def channel_tiles(self) -> int:
+        return -(-self.n // self.channels)
+
+    @property
+    def tiles(self) -> int:
+        return self.experts * self.token_tiles * self.channel_tiles
+
+    def tile(self, t: int) -> tuple[int, int, int]:
+        """Tile ``t`` of the list as (expert, token tile, channel tile)."""
+        rest, ct = divmod(t, self.channel_tiles)
+        ex, mt = divmod(rest, self.token_tiles)
+        return ex, mt, ct
+
+    def walk(self, cta: int) -> list[tuple[int, int, int]]:
+        """The tiles CTA ``cta`` sums, in its order."""
+        return [self.tile(t) for t in range(cta, self.tiles, self.ctas)]
+
+    def k_ranges(self) -> list[tuple[int, int]]:
+        return k_ranges(self.k, self.splits)
 
 
 def split_of(n: int, k: int) -> int:
@@ -118,6 +179,24 @@ def plan(m: int, n: int, k: int, dtype: torch.dtype, experts: int = 1) -> Matmul
     return MatmulPlan(m, n, k, nt, wgs, splits, cluster, experts)
 
 
+@functools.lru_cache(maxsize=256)
+def expert_plan(m: int, n: int, k: int, experts: int, sms: int = SMS) -> ExpertPlan:
+    """The persistent launch for ``experts`` stacks of ``(M, K) x (N, K)`` in
+    bf16: the narrowest token tile that holds M (the widest, 128, walks M in
+    tiles), so that a tile at C <= 16 reads only its expert's rows; tiles of
+    256 channels up to 32 tokens, 128 above; the 2-D split of K; one CTA an
+    SM, or one a tile where the tiles are fewer."""
+    nt = next((t for t in EXPERT_TOKEN_TILES if t >= m), EXPERT_TOKEN_TILES[-1])
+    p = ExpertPlan(experts, m, n, k, nt, split_of(n, k), 1)
+    return dataclasses.replace(p, ctas=min(p.tiles, sms))
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def quant_matmul_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *,
                       bits: int, k: int, launch: MatmulPlan | None = None) -> torch.Tensor:
     """``(M, K)`` x against packed ``(N, ceil(K/lanes))`` -> ``(M, N)`` in x's dtype.
@@ -144,25 +223,37 @@ def quant_matmul_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor
 
 def quant_matmul_experts_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *,
                               bits: int, k: int,
-                              launch: MatmulPlan | None = None) -> torch.Tensor:
+                              launch: MatmulPlan | ExpertPlan | None = None) -> torch.Tensor:
     """``(E, C, K)`` x against packed ``(E, N, ceil(K/lanes))`` -> ``(E, C, N)`` in x's
     dtype, one launch for all E; the scale broadcasts to ``(E, 1, N)``.
 
-    ``launch`` replaces ``plan(C, N, K, dtype, E)``.
+    bf16 x runs the persistent kernel on ``expert_plan(C, N, K, E, SMs)``; f32
+    x runs the 2-D GEMM's kernel on ``plan(C, N, K, dtype, E)``.  ``launch``
+    replaces the plan (an ``ExpertPlan`` for bf16, a ``MatmulPlan`` for f32).
     """
     x = x.contiguous()
     e, c, n, sstride = check_expert_operands(x, packed, scale, bits, k, "quant_matmul_experts")
     y = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
     if c == 0:
         return y
-    p = launch or plan(c, n, k, x.dtype, e)
+    code = _build.dtype_code(x, "quant_matmul_experts")
+    if x.dtype is torch.bfloat16:
+        p = launch or expert_plan(c, n, k, e, sm_count(x.device.index))
+        if not isinstance(p, ExpertPlan):
+            raise TypeError("quant_matmul_experts: bf16 x takes an ExpertPlan")
+        nt, wgs, splits, cluster, ctas = p.nt, p.channels // CHANNELS, p.splits, 1, p.ctas
+    else:
+        p = launch or plan(c, n, k, x.dtype, e)
+        if not isinstance(p, MatmulPlan):
+            raise TypeError("quant_matmul_experts: f32 x takes a MatmulPlan")
+        nt, wgs, splits, cluster, ctas = p.nt, p.wgs, p.splits, p.cluster, 0
     if (p.m, p.n, p.k, p.experts) != (c, n, k, e):
         raise ValueError(f"quant_matmul_experts: a plan for {(p.experts, p.m, p.n, p.k)} "
                          f"given for {(e, c, n, k)}")
     rc = _build.lib().rq_quant_matmul_experts(
         x.data_ptr(), packed.data_ptr(), scale.data_ptr(), y.data_ptr(), e, c, n, k,
-        packed.shape[2], bits, _build.dtype_code(x, "quant_matmul_experts"), p.nt, p.wgs,
-        p.splits, p.cluster, sstride, _build.stream_of(x))
+        packed.shape[2], bits, code, nt, wgs, splits, cluster, ctas, sstride,
+        _build.stream_of(x))
     LAUNCHES["quant_matmul_experts"] += 1
     _build.check(rc, "quant_matmul_experts")
     return y

@@ -23,7 +23,9 @@ the GEMV against the CPU mirror of its arithmetic with its bits independent
 of M and N, the burst append against the appends one position at a
 time and the plain version, dense and paged, and the expert stacks of the
 GEMV and the GEMM (one launch for all experts) against the 2-D launches bit
-for bit, with a shared and a per-expert scale, and in reduced
+for bit, with a shared and a per-expert scale (the GEMM's persistent bf16
+kernel at C 9 to 1280, on the predicated path, run to run and on fewer
+CTAs with the same bits), and in reduced
 deepseek-moe-16b's MoE layer, the GEMV's skip of experts whose x is zero
 byte for byte against the 2-D launch (zero and -0.0 experts, trailing zero
 rows, NaN rows, the routed capacity buffer, every tiles a CTA), and every
@@ -1168,6 +1170,42 @@ def test_expert_launch_equals_the_2d_launches(cuda, bits, e, c, k, n, dtype, per
     x = torch.randn((e, c, k), generator=g, device=cuda).to(dtype)
     got = _stack_checks(x, packed, scale, bits, k, per_expert=per_expert)
     assert got.shape == (e, c, n) and got.dtype == dtype
+
+
+#: row 2e's persistent kernel (bf16 x): deepseek-moe-16b's expert linears at
+#: an admission's capacities, a prefill's and a long prefill's (C 9 to 1280:
+#: token tiles 16, 32, 128), and shapes off the 16-byte path (K 130: kp 65;
+#: K 37), where the producer warpgroup fills the rings with predicated loads
+PERSISTENT_CASES = ([(8, c, k, n) for c in (9, 16, 24, 128, 1280)
+                     for k, n in ((2048, 1408), (1408, 2048))]
+                    + [(4, 40, 130, 75), (3, 17, 37, 70), (5, 300, 130, 192)])
+
+
+@pytest.mark.parametrize("bits", (2, 4, 6, 8))
+@pytest.mark.parametrize("e,c,k,n", PERSISTENT_CASES)
+@pytest.mark.parametrize("per_expert", (False, True), ids=("shared_scale", "expert_scale"))
+def test_persistent_expert_gemm_equals_the_2d_launches(cuda, bits, e, c, k, n, per_expert):
+    """bf16: the persistent kernel (``csrc/quant_matmul_experts.cu``) on the
+    stack equals the 2-D kernel on each expert's slice byte for byte, with a
+    shared and a per-expert scale (sstride N); a second call gives the same
+    bits, and so does the same tile list walked by 7 CTAs and by one."""
+    g = torch.Generator(device=cuda).manual_seed(bits * 1000 + e * 10 + c + k)
+    w = torch.randn((e, k, n), generator=g, device=cuda) / k ** 0.5
+    if per_expert:
+        qts = [quantize_tensor(w[i], bits) for i in range(e)]
+        packed = torch.stack([q.packed for q in qts])
+        scale = torch.stack([q.scale for q in qts])                  # (E, 1, N)
+    else:
+        qt = quantize_tensor(w, bits)
+        packed, scale = qt.packed, qt.scale                           # (1, 1, N)
+    x = torch.randn((e, c, k), generator=g, device=cuda).to(torch.bfloat16)
+    got = _stack_checks(x, packed, scale, bits, k, per_expert=per_expert)
+    p = qk.expert_plan(c, n, k, e, qk.sm_count(cuda.index or 0))
+    assert p.nt == min(t for t in qk.EXPERT_TOKEN_TILES if t >= min(c, 128))
+    for launch in (None, dataclasses.replace(p, ctas=7), dataclasses.replace(p, ctas=1)):
+        again = qk.quant_matmul_experts_cuda(x, packed, scale, bits=bits, k=k, launch=launch)
+        torch.cuda.synchronize()
+        assert _bits_equal(got, again), launch
 
 
 def test_expert_wrappers_refuse_what_the_kernels_do_not_take(cuda):

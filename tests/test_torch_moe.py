@@ -12,6 +12,8 @@ package's vmapped one ("xla" and "interpret"), the expert launch plans
 against the 2-D plans, and packing, layer specs, the draft containers and
 the roofline against the JAX package's.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -258,18 +260,47 @@ def test_expert_plans_keep_the_2d_splits(name):
     if name == "w_down":
         assert gk.plan(8, n, k, 64).tiles == 8 and gk.plan(8, n, k, 64).grid == (6, 2)
     for e in (1, 8, 64):
-        for c in (16, 128, 1280):
-            for dt in (torch.bfloat16, torch.float32):
-                p, flat = mk.plan(c, n, k, dt, e), mk.plan(c, n, k, dt)
-                assert p.splits == flat.splits == mk.split_of(n, k)
-                assert p.k_ranges() == flat.k_ranges() and p.wgs == flat.wgs
-                assert p.cluster in (1, p.splits) and (p.cluster > 1 or p.splits == 1
-                                                       or p.nt <= mk.FOLD_MAX_TOKENS)
-                gx, gy, gz = p.grid
-                assert gy == e * -(-c // p.nt) <= 65535 and gz == p.cluster
-                # a cluster while the experts' tiles alone leave SMs idle
-                if p.splits > 1 and p.units // p.cluster < mk.SMS:
-                    assert p.cluster == p.splits
+        for c in (9, 16, 17, 128, 1280):
+            # f32 x: the 2-D kernel's tiled body with the experts in its grid
+            p, flat = mk.plan(c, n, k, torch.float32, e), mk.plan(c, n, k, torch.float32)
+            assert p.splits == flat.splits == mk.split_of(n, k)
+            assert p.k_ranges() == flat.k_ranges() and p.wgs == flat.wgs
+            assert p.cluster in (1, p.splits) and (p.cluster > 1 or p.splits == 1
+                                                   or p.nt <= mk.FOLD_MAX_TOKENS)
+            gx, gy, gz = p.grid
+            assert gy == e * -(-c // p.nt) <= 65535 and gz == p.cluster
+            # a cluster while the experts' tiles alone leave SMs idle
+            if p.splits > 1 and p.units // p.cluster < mk.SMS:
+                assert p.cluster == p.splits
+            # bf16 x: the persistent kernel sums the 2-D plan's ranges, and its
+            # token tile is the narrowest that holds C (16 exactly up to C 16)
+            q, flat = mk.expert_plan(c, n, k, e), mk.plan(c, n, k, torch.bfloat16)
+            assert q.splits == flat.splits == mk.split_of(n, k) and q.experts == e
+            assert q.k_ranges() == flat.k_ranges()
+            assert (q.nt == 16) == (c <= 16)
+            assert q.nt == min(t for t in mk.EXPERT_TOKEN_TILES if t >= min(c, 128))
+            assert q.ctas == min(q.tiles, mk.SMS)
+            assert q.channels == (256 if q.nt <= mk.EXPERT_WIDE_TOKENS else 128)
+
+
+@pytest.mark.parametrize("e", (1, 8, 64))
+@pytest.mark.parametrize("c", (9, 16, 17, 128, 1280))
+def test_expert_tile_list_covers_every_tile_once(e, c):
+    """The persistent kernel's CTAs, each walking tiles b, b + ctas, ..., sum
+    every (expert, token tile, channel tile) of deepseek-moe-16b's expert
+    linears exactly once, channel tiles fastest within an expert's token
+    tile; fewer CTAs (a smaller card, or ``launch=``) walk the same list."""
+    for n, k in ((1408, 2048), (2048, 1408)):
+        p = mk.expert_plan(c, n, k, e)
+        want = {(x, t, ch) for x in range(e) for t in range(-(-c // p.nt))
+                for ch in range(-(-n // p.channels))}
+        assert p.tiles == len(want)
+        assert [p.tile(t) for t in range(min(p.tiles, 3))] == sorted(want)[:3]
+        for ctas in {p.ctas, 7, 1}:
+            q = dataclasses.replace(p, ctas=ctas)
+            seen = [tl for b in range(q.ctas) for tl in q.walk(b)]
+            assert len(seen) == len(want) and set(seen) == want
+            assert max(len(q.walk(b)) for b in range(q.ctas)) == -(-q.tiles // q.ctas)
 
 
 @pytest.fixture(scope="module")
