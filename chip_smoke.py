@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a)
-and runs twenty phases; any failure raises, so the exit code is nonzero and
+and runs twenty-one phases; any failure raises, so the exit code is nonzero and
 the last line is not the ``ok`` line:
 
   1. environment: the card's name and power limit, torch/CUDA versions, and
@@ -262,7 +262,17 @@ the last line is not the ``ok`` line:
      --paged --speculate``, ``examples/torch_serve_quantized.py`` and
      ``examples/torch_quickstart.py`` on the card, their output under
      ``build/``;
- 20. one ``{"kernels": [...]}`` JSON line (each row's launches summed over
+ 20. the multi-device layer on one card: (a) ``decoder.prefill_sp`` at
+     full width (gemma-2b, 18 layers, bf16, mixed policy) over a 1 x 1
+     ``DeviceMesh`` through NCCL (a world of one from a ``FileStore``), B 2
+     at 4096 tokens bit for bit against ``prefill`` and at 512 within
+     ``SP_DIRECT_REL`` of its direct path, row 2 launched 7 times a layer
+     (the wrapper's count and a profile's), both timed; (b) ``python -m
+     repro_torch.launch.dryrun --arch gemma-2b --shape decode_32k`` on the
+     fake world of 256 ranks, its record and wall time; (c)
+     ``examples/torch_elastic_remesh.py`` with its 8 ranks on the card over
+     gloo: the backend, the losses, the resume at step 10 on (2, 2);
+ 21. one ``{"kernels": [...]}`` JSON line (each row's launches summed over
      the main paths that run it), the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -6123,6 +6133,206 @@ def examples_on_card(torch) -> None:
         log(f"  ok {' '.join([f'examples/{name}.py', *argv])} on the card in {wall:.1f} s "
             f"(output in build/phase19_{name}.log): {last[-1].strip()}")
 
+# ---------------------------------------------------------------------------
+# phase 20: the multi-device layer on one card
+# ---------------------------------------------------------------------------
+
+SP_B = 2
+SP_PROMPTS = (4096, 512)           # prefill's flash path (bit for bit) and its direct path
+#: logits rel (max |diff| / max |ref|) of prefill_sp (flash) against prefill's
+#: direct path at 512 tokens in bf16: phase 9's flash-vs-direct bf16 limit per
+#: attention, compounded over the 18 layers
+SP_DIRECT_REL = 5e-2
+DRYRUN_ARGV = ["--arch", "gemma-2b", "--shape", "decode_32k"]
+
+
+def _run_bounded(cmd: list, timeout: float, env: dict | None = None) -> tuple[int, str, float]:
+    """Run ``cmd`` in its own session, stopping it and every process it
+    started if ``timeout`` passes -> (exit code, output, seconds)."""
+    import os
+    import signal
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"{' '.join(map(str, cmd))} passed its {timeout:.0f} s limit; "
+                             f"its last output: {out[-2000:]}")
+    return proc.returncode, out, time.perf_counter() - t0
+
+
+def _sp_env() -> dict:
+    import os
+
+    return dict(os.environ, PYTHONPATH=str(SRC) + (":" + os.environ["PYTHONPATH"]
+                                                    if os.environ.get("PYTHONPATH") else ""))
+
+
+def _sp_profile(torch, fn) -> dict:
+    """One profile of ``fn``: launches of row 2's kernel
+    (``quant_matmul_kernel``; None where the profile holds no device
+    events), the functional all-gathers called (``_c10d_functional``) and
+    the all-gathers that ProcessGroupNCCL ran (its ``nccl:`` events), with
+    every collective event's name and count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device_events = [e for e in events if e.device_type == DeviceType.CUDA]
+    gathers = [e for e in events if e.device_type == DeviceType.CPU
+               and ("gather" in e.key.lower() or e.key.startswith("nccl"))]
+    return {
+        "row2": (sum(e.count for e in device_events if "quant_matmul_kernel" in e.key)
+                 if device_events else None),
+        "functional": sum(e.count for e in gathers
+                          if e.key == "_c10d_functional::all_gather_into_tensor"),
+        "nccl": sum(e.count for e in gathers if e.key.startswith("nccl:")
+                    and "gather" in e.key.lower()),
+        "events": {e.key: e.count for e in gathers},
+    }
+
+
+def prefill_sp_on_card(torch, cfg) -> dict:
+    """Phase 20 (a): ``decoder.prefill_sp`` at full width (gemma-2b, 18 layers,
+    bf16, ``dryrun_policy("mixed")``, random weights) over a 1 x 1
+    ``DeviceMesh`` through NCCL, the world of one brought up from a
+    ``FileStore`` in a temporary directory: its all-gathers are real NCCL
+    calls over a group of one, its linears row 2 through ``qdense``'s
+    dispatch.  B 2 at 4096 tokens (bit for bit against ``prefill``, both on
+    the flash path) and 512 (``prefill`` on its direct path: logits within
+    ``SP_DIRECT_REL``, layer 0's K/V bit for bit), both timed, row 2's
+    launches counted by the wrapper and by a profile."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import decoder, layers
+
+    serve, _ = packed_model(torch, cfg, SEED + 40)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    per_pass = 7 * cfg.n_layers          # wq, wk, wv, wo, w_gate, w_up, w_down a layer
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="phase20_") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh_for((1, 1), ("data", "model"))
+            log(f"  world: backend {dist.get_backend()}, mesh {tuple(mesh.shape)} "
+                f"{mesh.mesh_dim_names} on {mesh.device_type}")
+            for s in SP_PROMPTS:
+                tokens = torch.randint(0, cfg.vocab_size, (SP_B, s), generator=gen,
+                                       device="cuda")
+                with torch.no_grad():
+                    kernels.reset_counts()
+                    lg, caches = decoder.prefill_sp(serve, cfg, tokens, mesh=mesh)
+                    torch.cuda.synchronize()
+                    for name, n in kernels.LAUNCHES.items():
+                        launches[name] = launches.get(name, 0) + n
+                    n_row2 = kernels.LAUNCHES["quant_matmul"]
+                    plain = kernels.PLAIN_CALLS["quant_matmul"]
+                    ref_l, ref_c = decoder.prefill(serve, cfg, tokens)
+                    sp_l = lg.full_tensor()
+                    sp_c = [{k: c[k].full_tensor() for k in ("k", "v")} for c in caches]
+                    if n_row2 != per_pass or plain:
+                        raise AssertionError(f"phase 20 (a) S {s}: row 2 launched {n_row2} "
+                                             f"times (expected {per_pass}), {plain} plain calls")
+                    if not torch.isfinite(sp_l).all() or sp_l.shape != (SP_B, 1, cfg.vocab_size):
+                        raise AssertionError(f"phase 20 (a) S {s}: logits {tuple(sp_l.shape)} "
+                                             f"not finite or not (B, 1, V)")
+                    if s > layers.FLASH_THRESHOLD:
+                        same = torch.equal(sp_l, ref_l) and all(
+                            torch.equal(a[k], b[k]) for a, b in zip(sp_c, ref_c)
+                            for k in ("k", "v"))
+                        if not same:
+                            raise AssertionError(f"phase 20 (a) S {s}: prefill_sp differs from "
+                                                 f"prefill (logits rel {rel(sp_l, ref_l):.3g})")
+                        verdict = "bit for bit equal to prefill (logits and every layer's K/V)"
+                    else:
+                        r = rel(sp_l, ref_l)
+                        kv0 = all(torch.equal(sp_c[0][k], ref_c[0][k]) for k in ("k", "v"))
+                        if r > SP_DIRECT_REL or not kv0:
+                            raise AssertionError(f"phase 20 (a) S {s}: logits rel {r:.3g} "
+                                                 f"(limit {SP_DIRECT_REL:g}), layer 0 K/V "
+                                                 f"equal: {kv0}")
+                        verdict = (f"logits rel {r:.3g} of prefill's direct path (limit "
+                                   f"{SP_DIRECT_REL:g}), layer 0 K/V bit for bit, argmax "
+                                   f"{'equal' if torch.equal(sp_l.argmax(-1), ref_l.argmax(-1)) else 'differs'}")
+                    del ref_c, sp_c, caches
+                    sp_ms = time_ms(torch, lambda: decoder.prefill_sp(serve, cfg, tokens,
+                                                                      mesh=mesh), reps=3, warmup=1)
+                    ref_ms = time_ms(torch, lambda: decoder.prefill(serve, cfg, tokens), reps=3,
+                                     warmup=1)
+                    prof = _sp_profile(torch, lambda: decoder.prefill_sp(serve, cfg, tokens,
+                                                                         mesh=mesh))
+                    # K and V all-gathered a layer, each run by ProcessGroupNCCL
+                    want = 2 * cfg.n_layers
+                    if prof["functional"] != want or prof["nccl"] != want:
+                        raise AssertionError(f"phase 20 (a) S {s}: {prof['functional']} "
+                                             f"functional and {prof['nccl']} NCCL all-gathers "
+                                             f"in the profile, {want} expected: "
+                                             f"{prof['events']}")
+                row2 = prof["row2"]
+                log(f"  ok prefill_sp B {SP_B} S {s}: {verdict}; row 2 launched {n_row2} times "
+                    f"({per_pass} expected, 0 plain calls), profile: "
+                    f"{'not measured' if row2 is None else f'{row2} quant_matmul_kernel launches'}"
+                    f", all-gathers {prof['functional']} functional = {prof['nccl']} run by NCCL "
+                    f"({prof['events']}); prefill_sp {sp_ms:.3f} ms, prefill {ref_ms:.3f} ms")
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    del serve
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dryrun_on_card() -> None:
+    """Phase 20 (b): ``python -m repro_torch.launch.dryrun --arch gemma-2b
+    --shape decode_32k`` in a subprocess: the fake world of 256 ranks exists
+    in this machine's PyTorch, the cell completes, its record is printed."""
+    code, out, secs = _run_bounded([sys.executable, "-m", "repro_torch.launch.dryrun",
+                                    *DRYRUN_ARGV], timeout=300, env=_sp_env())
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    if code != 0 or "1/1 cells OK" not in out or not lines:
+        raise AssertionError(f"phase 20 (b) dry-run exit {code}: {out[-3000:]}")
+    rec = json.loads(lines[-1])
+    log(f"  ok launch.dryrun {' '.join(DRYRUN_ARGV)} in {secs:.1f} s (traced in "
+        f"{rec['compile_s']} s, {rec['ops']} ops): per device flops {rec['per_device_flops']:.4g}, "
+        f"bytes {rec['per_device_bytes']:.4g}, args {rec['arg_bytes_per_device']:.4g} B, "
+        f"collectives {rec['collectives']}, dominant {rec['dominant']} on {rec['hw']}")
+    log(f"  record: {lines[-1]}")
+
+
+def elastic_on_card() -> None:
+    """Phase 20 (c): ``examples/torch_elastic_remesh.py`` on the card, its 8
+    ranks sharing the GPU over gloo: the backend, the losses, the step it
+    resumes at on the re-planned mesh (output in build/phase20_elastic.log)."""
+    code, out, secs = _run_bounded([sys.executable, str(ROOT / "examples" /
+                                                        "torch_elastic_remesh.py")],
+                                   timeout=600, env=_sp_env())
+    (ROOT / "build").mkdir(exist_ok=True)
+    (ROOT / "build" / "phase20_elastic.log").write_text(out)
+    need = ("backend: gloo, 8 ranks on cuda (CUDA tensors all-reduced in place)",
+            "data-parallel gradient of step 0",
+            "replanned mesh: (2, 2)", "resumed cleanly at step 10")
+    if code != 0 or any(m not in out for m in need):
+        raise AssertionError(f"phase 20 (c) elastic example exit {code}: {out[-3000:]}")
+    for ln in out.splitlines():
+        if ln.startswith(("backend:", "step ", "data-parallel", "4 devices")):
+            log(f"    {ln}")
+    log(f"  ok examples/torch_elastic_remesh.py on the card in {secs:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -6332,14 +6542,21 @@ def main() -> int:
     replayed = replay_serving(torch, cfg)
     examples_on_card(torch)
     log(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    log(f"== 20. {cfg.name}: the multi-device layer on one card: prefill_sp through NCCL and "
+        f"row 2, the dry-run, the elastic example")
+    t_phase = time.perf_counter()
+    sp_launches = prefill_sp_on_card(torch, cfg)
+    dryrun_on_card()
+    elastic_on_card()
+    log(f"  phase 20 took {time.perf_counter() - t_phase:.1f} s")
     # the later main paths' launches join the earlier ones' (each read right
     # after its own run, the counts set to 0 just before it)
     for extra in (moe_train, vlm["launches"], ssm["launches"], zamba["launches"], zamba_window,
-                  zamba_train, whisper, whisper_train, replayed):
+                  zamba_train, whisper, whisper_train, replayed, sp_launches):
         for name, n in extra.items():
             launches[name] += n
 
-    log(f"== 20. summary (the script so far: {time.perf_counter() - t_script:.1f} s)")
+    log(f"== 21. summary (the script so far: {time.perf_counter() - t_script:.1f} s)")
     rows = []
     for name in kernels.KERNELS:
         r = results[name]

@@ -1,7 +1,7 @@
 """Assigned architecture configs, copied as data from the JAX package."""
 from importlib import import_module
 
-from .base import SHAPES, ArchConfig, ShapeSpec  # noqa: F401
+from .base import SHAPES, ArchConfig, ShapeSpec, applicable_shapes, smoke_shape  # noqa: F401
 
 ARCH_MODULES = {
     "whisper-tiny": "whisper_tiny",

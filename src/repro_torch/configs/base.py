@@ -7,6 +7,7 @@ four assigned input cells.  A copy, as data, of ``repro/configs/base.py``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,3 +101,21 @@ SHAPES: dict[str, ShapeSpec] = {
     "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
     "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
 }
+
+#: archs allowed to run long_500k (sub-quadratic sequence mixing only)
+SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
+
+
+def applicable_shapes(cfg: ArchConfig) -> Iterator[ShapeSpec]:
+    for spec in SHAPES.values():
+        if spec.name == "long_500k" and cfg.family not in SUBQUADRATIC_FAMILIES:
+            continue  # quadratic attention at 524k seq — skip per DESIGN.md §4
+        yield spec
+
+
+def smoke_shape(kind: str) -> ShapeSpec:
+    return {
+        "train": ShapeSpec("smoke_train", "train", 32, 2),
+        "prefill": ShapeSpec("smoke_prefill", "prefill", 32, 2),
+        "decode": ShapeSpec("smoke_decode", "decode", 64, 2),
+    }[kind]

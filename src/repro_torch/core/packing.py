@@ -63,7 +63,7 @@ def pack(levels: torch.Tensor, bits: int) -> torch.Tensor:
     grouped = lev.reshape(*lev.shape[:-1], -1, lanes)
     mask = (1 << bits) - 1
     sh = bits * torch.arange(lanes, dtype=torch.int32, device=lev.device)
-    out = ((grouped & mask) << sh).sum(dim=-1)
+    out = torch.bitwise_left_shift(grouped & mask, sh).sum(dim=-1)
     return out.to(torch.uint8).view(torch.int8)
 
 
@@ -87,6 +87,8 @@ def unpack(packed: torch.Tensor, bits: int, k: int) -> torch.Tensor:
         return packed.to(torch.int32)[..., :k]
     u = packed.view(torch.uint8).to(torch.int32).unsqueeze(-1)       # (..., kp, 1)
     sh = bits * torch.arange(lanes, dtype=torch.int32, device=packed.device)
-    field = (u >> sh) & ((1 << bits) - 1)
+    # the named op, not ``>>``: DTensor's rule for ``__rshift__`` drops the
+    # broadcast of ``sh`` (the dry-run unpacks replicated DTensors)
+    field = torch.bitwise_right_shift(u, sh) & ((1 << bits) - 1)
     vals = torch.where(field >= (1 << (bits - 1)), field - (1 << bits), field)
     return vals.reshape(*packed.shape[:-1], -1)[..., :k]

@@ -11,11 +11,14 @@ value the JAX package computes, see ``qmax``.
 from __future__ import annotations
 
 import functools
+from typing import Literal
 
 import numpy as np
 import torch
 
 from .packing import VALID_BITS  # noqa: F401  (canonical bit-set, re-exported)
+
+ScaleMode = Literal["max", "sigma"]
 
 #: ln 2 rounded to f32, the constant ``jnp.exp2`` multiplies by
 LN2_F32 = np.float32(0.693147182)
@@ -49,15 +52,21 @@ def _reduce_axes(w: torch.Tensor, channel_axis: int | None) -> tuple[int, ...]:
 
 
 def weight_scale(w: torch.Tensor, bits: float, *, channel_axis: int | None = -1,
-                 mode: str = "max") -> torch.Tensor:
-    """Quantization step ``max|w| / Q`` in keepdims layout, f32 (``mode="max"`` only).
+                 mode: str = "max", sigma_k: float = 3.0) -> torch.Tensor:
+    """Quantization step ``amax / Q`` in keepdims layout, f32: ``amax`` is
+    ``max|w|`` (``mode="max"``) or ``sigma_k`` population standard
+    deviations (``mode="sigma"``).
 
-    The channel maximum and its guard are taken in ``w``'s dtype and the
+    The channel statistic and its guard are taken in ``w``'s dtype and the
     division in f32, as the JAX package promotes them.
     """
-    if mode != "max":
-        raise ValueError(f"unknown scale mode {mode!r} (the port implements 'max')")
-    amax = torch.amax(w.abs(), dim=_reduce_axes(w, channel_axis), keepdim=True)
+    axes = _reduce_axes(w, channel_axis)
+    if mode == "max":
+        amax = torch.amax(w.abs(), dim=axes, keepdim=True)
+    elif mode == "sigma":
+        amax = sigma_k * torch.std(w, dim=axes, keepdim=True, correction=0)
+    else:
+        raise ValueError(f"unknown scale mode {mode!r}")
     # guard all-zero channels: the scale stays strictly positive
     amax = torch.clamp_min(amax, 1e-12)
     return div_exact(amax.to(torch.float32), qmax(bits))
@@ -74,9 +83,83 @@ def dequantize(levels: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_dequantize(w: torch.Tensor, bits: float, *, channel_axis: int | None = -1,
-                        mode: str = "max") -> torch.Tensor:
+                        mode: str = "max", sigma_k: float = 3.0) -> torch.Tensor:
     """Round-trip ``w`` through the b-bit grid (no gradient tricks)."""
-    scale = weight_scale(w, bits, channel_axis=channel_axis, mode=mode)
+    scale = weight_scale(w, bits, channel_axis=channel_axis, mode=mode, sigma_k=sigma_k)
     q = qmax(bits)
     lev = torch.clamp(torch.round(w / scale), -q, q)
     return (lev * scale).to(w.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Straight-through estimator fake-quant (QAT forward op)
+# ---------------------------------------------------------------------------
+
+
+class _FakeQuant(torch.autograd.Function):
+    """Forward: quantize-dequantize; backward: the gradient where ``|w| <=
+    Q * scale``, zero elsewhere (the reference's ``_fq_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, w, bits, channel_axis, mode):
+        scale = weight_scale(w, bits, channel_axis=channel_axis, mode=mode)
+        q = qmax(bits)
+        lev = torch.clamp(torch.round(w / scale), -q, q)
+        ctx.save_for_backward((w.abs() <= q * scale).to(w.dtype))
+        return (lev * scale).to(w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inside,) = ctx.saved_tensors
+        return g * inside, None, None, None
+
+
+def fake_quant(w: torch.Tensor, bits, channel_axis: int | None = -1,
+               mode: str = "max") -> torch.Tensor:
+    """STE fake-quant: forward = quantize-dequantize, backward = clipped
+    identity (gradients flow where ``|w|`` lies inside the clip range).
+    ``bits`` may be a number or a scalar tensor; it gets no gradient."""
+    return _FakeQuant.apply(w, float(bits), channel_axis, mode)
+
+
+# ---------------------------------------------------------------------------
+# Activation quantization (asymmetric, percentile clipped), paper §IV-C
+# ---------------------------------------------------------------------------
+
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _exp2_f32(x: float) -> float:
+    """``jnp.exp2`` of an f32 value: ``exp(f32(ln 2) * x)``, as ``qmax``."""
+    return float(np.float32(np.exp(np.float64(LN2_F32 * np.float32(x)))))
+
+
+def activation_range(x: torch.Tensor, percentile: float = 99.9
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Asymmetric clip range from the +/- percentile of the batch, f32
+    scalars (``jnp.percentile``'s arithmetic, ``quant.calibration.percentiles``)."""
+    from repro_torch.quant.calibration import percentiles
+
+    lo, hi = percentiles(x, (100.0 - percentile, percentile))
+    hi = torch.maximum(hi, lo + _F32_TINY)
+    return lo.to(torch.float32), hi.to(torch.float32)
+
+
+def fake_quant_activation(x: torch.Tensor, bits: float = 8, *, lo=None, hi=None,
+                          percentile: float = 99.9) -> torch.Tensor:
+    """Asymmetric b-bit fake-quant of activations with percentile clipping.
+
+    Without calibrated ``(lo, hi)`` the range comes from the batch itself.
+    The gradient is the identity (``x + (y - x).detach()``, the reference's
+    ``stop_gradient`` form, so the forward rounds as the reference's does).
+    """
+    if lo is None or hi is None:
+        lo, hi = activation_range(x, percentile)
+    lo = torch.as_tensor(lo, dtype=torch.float32, device=x.device)
+    hi = torch.as_tensor(hi, dtype=torch.float32, device=x.device)
+    levels = torch.tensor(_exp2_f32(float(bits)) - np.float32(1.0), dtype=torch.float32,
+                          device=x.device)
+    scale = torch.clamp_min((hi - lo) / levels, _F32_TINY)
+    q = torch.round((torch.clamp(x, lo, hi) - lo) / scale)
+    y = q * scale + lo
+    return x + (y.to(x.dtype) - x).detach()

@@ -80,6 +80,16 @@ class TokenTask:
         return float(h_bern + e * h_prior)
 
 
+@dataclasses.dataclass(frozen=True)
+class PipelineState:
+    """The whole restore state of the input layer (checkpointed as one int)."""
+
+    step: int = 0
+
+    def next(self) -> "PipelineState":
+        return PipelineState(self.step + 1)
+
+
 def global_batch(task: TokenTask, cfg, shape, step: int) -> dict:
     """The full batch at ``step`` on the CPU: ``{"tokens", "labels"}`` (B, S)
     int64; for ``input_kind == "embeddings"`` (the VLM's frontend stub)
@@ -100,6 +110,15 @@ def global_batch(task: TokenTask, cfg, shape, step: int) -> dict:
                              generator=_generator(task.seed, step, 1)) * 0.02
         return {"frames": frames.to(dt), "tokens": stream[:, :-1], "labels": stream[:, 1:]}
     return {"tokens": stream[:, :-1], "labels": stream[:, 1:]}
+
+
+def host_batch(task: TokenTask, cfg, shape, step: int, host_id: int, n_hosts: int) -> dict:
+    """This host's slice of the global batch (batch axis split over hosts):
+    rows ``host_id * B / n_hosts`` onwards of :func:`global_batch`, so the
+    hosts' slices concatenate to it exactly."""
+    full = global_batch(task, cfg, shape, step)
+    per = shape.global_batch // n_hosts
+    return {k: v[host_id * per:(host_id + 1) * per] for k, v in full.items()}
 
 
 def batch_on(raw: dict, device) -> dict:

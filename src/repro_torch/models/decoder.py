@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from repro_torch.core import packing
 from repro_torch.core.quantizer import div_exact
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import shard_batch_act
 from repro_torch.kernels.fake_quant.ops import fake_quant_ste
 from repro_torch.kvcache.cache import DEFAULT_BLOCK, QuantizedKVLayer, init_kv_layer, resolve_block
 from repro_torch.kvcache.paged import PagedKVLayer, init_paged_layer
@@ -108,6 +109,7 @@ def _ffn(lp: dict, hn: torch.Tensor, cfg, impl: str, lb=None) -> torch.Tensor:
 
 
 def _layer_body(x, lp: dict, cfg, positions, lb, impl: str):
+    x = shard_batch_act(x)          # pin the batch sharding of the layer carry
     h = x + layers.attention(lp["attn"], layers.norm(lp["ln1"], x, cfg.norm, cfg.norm_eps),
                              cfg, positions, causal=True,
                              bits=None if lb is None else lb.get("attn"), impl=impl)
@@ -134,6 +136,7 @@ def forward(params: dict, cfg, tokens: torch.Tensor | None = None,
     """
     x = _inputs(params, tokens, embeds, cfg, bits=None if bits is None else bits.get("embed"),
                 impl=impl)
+    x = shard_batch_act(x)
     b, s = x.shape[:2]
     positions = layers.position_ids(b, s, cfg.rope, device=x.device)
     stacked = _unbind(params["layers"])
@@ -172,6 +175,7 @@ def lm_loss(params: dict, cfg, tokens: torch.Tensor | None = None,
 def lm_loss_from_hidden(params: dict, cfg, hidden: torch.Tensor, labels: torch.Tensor, *,
                         bits=None, impl: str = "auto", loss_chunk: int = 2048) -> torch.Tensor:
     """Chunked softmax cross-entropy of ``hidden`` against the LM head."""
+    hidden = shard_batch_act(hidden)
     b, s, _ = hidden.shape
     chunk = min(loss_chunk, s)
     assert s % chunk == 0, (s, chunk)
@@ -180,8 +184,10 @@ def lm_loss_from_hidden(params: dict, cfg, hidden: torch.Tensor, labels: torch.T
     for c in range(0, s, chunk):
         logits = logits_fn(params, hidden[:, c:c + chunk], cfg, bits=bits,
                            impl=impl).to(torch.float32)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, c:c + chunk, None])[..., 0]
+        # (B, C, 1) throughout: DTensor's masked partial of a vocab-sharded
+        # gather cannot drop the gathered dim (the dry-run's layouts)
+        logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+        gold = torch.gather(logits, -1, labels[:, c:c + chunk, None])
         total = total + torch.sum(logz - gold)
     return div_exact(total, float(b * s))
 
@@ -222,6 +228,12 @@ def init_cache(cfg, batch: int, seq: int, dtype=torch.bfloat16, *, state_bits=No
             for _ in range(cfg.n_layers)]
 
 
+def abstract_cache(cfg, batch: int, seq: int, dtype=torch.bfloat16) -> list[dict]:
+    """The fp cache's shapes and dtypes on the ``meta`` device (the dry-run:
+    no allocation)."""
+    return init_cache(cfg, batch, seq, dtype, device="meta")
+
+
 def prefill(params: dict, cfg, tokens: torch.Tensor | None = None,
             embeds: torch.Tensor | None = None, *, impl: str = "auto", lengths=None,
             logits: bool = True):
@@ -234,7 +246,7 @@ def prefill(params: dict, cfg, tokens: torch.Tensor | None = None,
     the head would dequantize the whole tied embedding for nothing.
     """
     del lengths
-    x = _inputs(params, tokens, embeds, cfg)
+    x = shard_batch_act(_inputs(params, tokens, embeds, cfg))
     b, s = x.shape[:2]
     positions = layers.position_ids(b, s, cfg.rope, device=x.device)
     caches = []
@@ -329,6 +341,81 @@ def decode_step(params: dict, cfg, caches: list, token: torch.Tensor, pos, *,
         x = h + _ffn(lp, hn, cfg, impl)
     hidden = layers.norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     return logits_fn(params, hidden, cfg, impl=impl), caches
+
+
+def _gather_sequence(x: torch.Tensor, group) -> torch.Tensor:
+    """All-gather ``x`` along dim 1 over ``group``, ranks in order (the
+    reference's ``all_gather(..., axis=1, tiled=True)``), through the
+    functional collectives, which a dispatch mode sees."""
+    from torch.distributed import _functional_collectives as fc
+
+    gather = getattr(fc, "all_gather_single", None) or fc.all_gather_tensor
+    out = gather(x.contiguous(), 1, group)
+    return out.wait() if isinstance(out, fc.AsyncCollectiveTensor) else out
+
+
+def prefill_sp(params: dict, cfg, tokens: torch.Tensor, *, mesh, impl: str = "auto"):
+    """Sequence-parallel prefill, SPMD over ``torch.distributed``: each rank
+    runs this function on its own block.
+
+    Rationale (the reference's): 1-D tensor parallelism pays two
+    all-reduces of the full (B_loc, S, d) activations per layer.  Instead the
+    packed weights are replicated (SigmaQuant's compression affords it), the
+    batch is sharded over the batch axes ("pod", "data") and the *sequence*
+    over "model": the projections and the MLP run with no collective, and
+    attention all-gathers only the GQA-small K/V per layer: 2 all-gathers of
+    B_loc * S * n_kv * hd elements a layer and device.
+
+    ``mesh`` is a ``DeviceMesh`` with a "model" axis; ``tokens`` the global
+    (B, S) ids on every rank (this rank takes its block by its mesh
+    coordinates) or a ``DTensor`` laid out (batch axes, "model").  Rank r of
+    the model axis holds positions ``r * S_loc .. (r + 1) * S_loc - 1``;
+    its queries attend over the gathered K/V from ``q_offset = r * S_loc``.
+    Returns DTensors with the reference's global view: logits (B, 1, V) of
+    the global last position (each rank's local-last logits, the model
+    axis' last taken), and per-layer ``{"k", "v"}`` caches (B, S, n_kv, hd)
+    that stay sequence-sharded.
+    """
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.shape))
+    coord = dict(zip(names, mesh.get_coordinate()))
+    batch_axes = tuple(a for a in ("pod", "data") if a in names)
+    n_model, r = sizes["model"], coord["model"]
+    if isinstance(tokens, DTensor):
+        toks = tokens.to_local()
+    else:
+        b_glob, s_glob = tokens.shape
+        n_b, bi = 1, 0
+        for a in batch_axes:
+            n_b, bi = n_b * sizes[a], bi * sizes[a] + coord[a]
+        b_loc, s_loc = b_glob // n_b, s_glob // n_model
+        toks = tokens[bi * b_loc:(bi + 1) * b_loc, r * s_loc:(r + 1) * s_loc]
+    b, s_loc = toks.shape
+    group = mesh.get_group("model")
+    x = embed_tokens(params, toks, cfg)
+    positions = r * s_loc + layers.position_ids(b, s_loc, cfg.rope, device=x.device)
+    caches = []
+    for lp in params["layers"]:
+        xn = layers.norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
+        q, k, v = layers._qkv(lp["attn"], xn, cfg, positions, impl=impl)
+        caches.append({"k": k, "v": v})            # the cache stays sequence-sharded
+        kg, vg = _gather_sequence(k, group), _gather_sequence(v, group)
+        o = layers._flash_attention(q, kg, vg, cfg.n_kv_heads, causal=True, q_offset=r * s_loc)
+        h = x + layers.qdense(lp["attn"]["wo"], o.reshape(b, s_loc, -1), impl=impl)
+        hn = layers.norm(lp["ln2"], h, cfg.norm, cfg.norm_eps)
+        x = h + _ffn(lp, hn, cfg, impl)
+    hidden = layers.norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    local = logits_fn(params, hidden[:, -1:], cfg, impl=impl)      # rank-local last
+    place = tuple(Shard(0) if a in batch_axes else Shard(1) if a == "model" else Replicate()
+                  for a in names)
+
+    def glob(t: torch.Tensor) -> DTensor:       # the blocks are even: shapes multiply
+        return DTensor.from_local(t, mesh, place, run_check=False)
+
+    # dim 1 stacks each model rank's local-last logits; the global last is the last rank's
+    return glob(local)[:, -1:], [{"k": glob(c["k"]), "v": glob(c["v"])} for c in caches]
 
 
 def decode_verify(params: dict, cfg, caches: list, tokens: torch.Tensor, pos, *,

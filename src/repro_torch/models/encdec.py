@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import shard_batch_act
 from . import decoder, layers
 
 
@@ -83,6 +84,7 @@ def _norm(p, x, cfg):
 
 
 def _enc_layer(lp: dict, h: torch.Tensor, cfg, positions, lb, impl: str) -> torch.Tensor:
+    h = shard_batch_act(h)
     h = h + layers.attention(lp["attn"], _norm(lp["ln1"], h, cfg), cfg, positions, causal=False,
                              bits=layers._b(lb, "attn"), impl=impl)
     return h + layers.mlp(lp["mlp"], _norm(lp["ln2"], h, cfg), cfg.mlp,
@@ -100,7 +102,7 @@ def encode(params: dict, cfg, frames: torch.Tensor, *, bits=None,
     """frames (B, encoder_seq, d), the frontend stub's embeddings -> the
     normed encoder output.  The layers run in a Python loop over the
     stacked layout, without recompute, as the decoder's do."""
-    x = _frames_in(frames, cfg)
+    x = shard_batch_act(_frames_in(frames, cfg))
     positions = layers.position_ids(x.shape[0], x.shape[1], "none", device=x.device)
     enc_bits = layers._b(bits, "enc_layers")
     stacked = decoder._unbind(params["enc_layers"])
@@ -112,6 +114,7 @@ def encode(params: dict, cfg, frames: torch.Tensor, *, bits=None,
 
 def _dec_layer(lp: dict, h: torch.Tensor, enc_out: torch.Tensor, cfg, positions, lb,
                impl: str) -> torch.Tensor:
+    h = shard_batch_act(h)
     h = h + layers.attention(lp["self_attn"], _norm(lp["ln1"], h, cfg), cfg, positions,
                              causal=True, bits=layers._b(lb, "self_attn"), impl=impl)
     kv = layers.cross_kv(lp["cross_attn"], enc_out, cfg, bits=layers._b(lb, "cross_attn"),
@@ -127,7 +130,7 @@ def decode_train(params: dict, cfg, tokens: torch.Tensor, enc_out: torch.Tensor,
     """The teacher-forced decoder -> normed hidden states (B, S, d)."""
     b, s = tokens.shape
     x = decoder.embed_tokens(params, tokens, cfg, bits=layers._b(bits, "embed"), impl=impl)
-    x = x + sinusoid(s, cfg.d_model, device=x.device).to(x.dtype)
+    x = shard_batch_act(x + sinusoid(s, cfg.d_model, device=x.device).to(x.dtype))
     positions = layers.position_ids(b, s, "none", device=x.device)
     dec_bits = layers._b(bits, "dec_layers")
     stacked = decoder._unbind(params["dec_layers"])
@@ -176,10 +179,11 @@ def prepare_decode(params: dict, cfg, frames: torch.Tensor, *, impl: str = "auto
             for lp in params["dec_layers"]]
 
 
-def init_cache(cfg, batch: int, seq: int, dtype=torch.bfloat16, *, device=None) -> dict:
+def init_cache(cfg, batch: int, seq: int, dtype=torch.bfloat16, abstract=False, *,
+               device=None) -> dict:
     """fp self-attention caches of ``seq`` positions and cross caches of
-    ``encoder_seq``, a layer each."""
-    device = resolve_device(device)
+    ``encoder_seq``, a layer each (on the ``meta`` device when ``abstract``)."""
+    device = resolve_device("meta" if abstract else device)
     hd = cfg.resolved_head_dim
 
     def kv(s):
@@ -219,7 +223,7 @@ def prefill(params: dict, cfg, tokens: torch.Tensor | None = None,
     enc_out = _encode_unrolled(params, cfg, frames, impl=impl)
     b, s = tokens.shape
     x = decoder.embed_tokens(params, tokens, cfg)
-    x = x + sinusoid(s, cfg.d_model, device=x.device).to(x.dtype)
+    x = shard_batch_act(x + sinusoid(s, cfg.d_model, device=x.device).to(x.dtype))
     positions = layers.position_ids(b, s, "none", device=x.device)
     self_caches, cross_caches = [], []
     for lp in params["dec_layers"]:

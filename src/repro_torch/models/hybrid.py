@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import shard_batch_act
 from repro_torch.kvcache.cache import DEFAULT_BLOCK, QuantizedKVLayer, init_kv_layer
 from . import decoder, layers, mamba2
 
@@ -78,7 +79,8 @@ def forward(params: dict, cfg, tokens: torch.Tensor | None = None,
     application, so autograd sums their gradients.  ``bits`` as
     ``quant.apply.bits_for_scan`` builds it (``"shared_attn"`` one float a
     leaf, ``"layers"`` per-layer lists)."""
-    x = decoder._inputs(params, tokens, embeds, cfg, bits=layers._b(bits, "embed"), impl=impl)
+    x = shard_batch_act(decoder._inputs(params, tokens, embeds, cfg,
+                                        bits=layers._b(bits, "embed"), impl=impl))
     b, s = x.shape[:2]
     positions = layers.position_ids(b, s, cfg.rope, device=x.device)
     sp = params["shared_attn"]
@@ -86,6 +88,7 @@ def forward(params: dict, cfg, tokens: torch.Tensor | None = None,
     layer_bits = layers._b(bits, "layers")
     stacked = decoder._unbind(params["layers"])
     for i in range(cfg.n_layers):
+        x = shard_batch_act(x)
         if i % cfg.attn_every == 0:
             x = _apply_shared(sp, x, cfg, positions, bits=shared_bits, impl=impl)
         lp = decoder._per_layer(stacked, i)
@@ -104,12 +107,17 @@ def forward(params: dict, cfg, tokens: torch.Tensor | None = None,
 unstack_layers = decoder.unstack_layers
 
 
-def init_decode_state(cfg, batch: int, seq: int, dtype=torch.bfloat16, *, state_bits=None,
-                      block: int | None = None, device=None) -> dict:
+def init_decode_state(cfg, batch: int, seq: int, dtype=torch.bfloat16, abstract=False, *,
+                      state_bits=None, block: int | None = None, device=None) -> dict:
     """Mamba states and the shared attention's caches, one per application.
 
     ``state_bits`` (per application ``[(k_bits, v_bits), ...]``) packs the
-    attention caches as ``QuantizedKVLayer``; the SSM states stay f32."""
+    attention caches as ``QuantizedKVLayer``; the SSM states stay f32.
+    ``abstract`` puts the fp state on the ``meta`` device (the dry-run)."""
+    if abstract:
+        if state_bits is not None:
+            raise NotImplementedError("abstract quantized decode state")
+        device = "meta"
     device = resolve_device(device)
     hd = cfg.resolved_head_dim
     n_app = n_attn_applications(cfg)
@@ -177,7 +185,7 @@ def prefill(params: dict, cfg, tokens: torch.Tensor | None = None,
     decode by each slot's ``kv_valid``.  Above ``FLASH_THRESHOLD`` the shared
     block runs the flash path under the window.  ``logits=False`` skips the
     LM head."""
-    x = decoder._inputs(params, tokens, embeds, cfg)
+    x = shard_batch_act(decoder._inputs(params, tokens, embeds, cfg))
     b, s = x.shape[:2]
     positions = layers.position_ids(b, s, cfg.rope, device=x.device)
     sp = params["shared_attn"]

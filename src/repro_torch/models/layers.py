@@ -20,6 +20,7 @@ from repro_torch.kernels.quant_kv.ops import (can_fuse_qkv, quant_kv_decode_step
                                                quant_kv_decode_step_proj)
 from repro_torch.kernels.quant_matmul.ops import qt_matmul
 from repro_torch.quant.tensor import QuantizedTensor
+from repro_torch.dist import sharding
 
 # ---------------------------------------------------------------------------
 # initializers (stacked over ``lead`` leading dims, e.g. (n_layers,))
@@ -111,7 +112,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections: tuple[int, .
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, device=x.device)
     sec_id = torch.repeat_interleave(torch.arange(len(sections), device=x.device),
-                                     torch.tensor(sections, device=x.device))
+                                     torch.tensor(sections, device=x.device),
+                                     output_size=sum(sections))
     pos_per_freq = positions[sec_id].permute(1, 2, 0)              # (B, S, hd/2)
     ang = pos_per_freq.to(torch.float32) * freqs
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
@@ -159,7 +161,13 @@ def attention_init(generator, cfg, dtype=torch.float32, *, lead=(), device) -> d
 
 def _split_heads(x: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
     b, s, _ = x.shape
-    return x.reshape(b, s, n_heads, hd)
+    return sharding.keep_heads_whole(x, n_heads).reshape(b, s, n_heads, hd)
+
+
+def _group_heads(x: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """(b, s, hq, hd) -> (b, s, n_kv, hq // n_kv, hd): the query heads by KV group."""
+    b, s, hq, hd = x.shape
+    return sharding.keep_heads_whole(x, n_kv, dim=2).reshape(b, s, n_kv, hq // n_kv, hd)
 
 
 def _qkv(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor, *, bits=None,
@@ -229,7 +237,7 @@ def _direct_attention(q, k, v, n_kv: int, *, causal: bool, window: int = 0,
     b, sq, hq, hd = q.shape
     skv = k.shape[1]
     g = hq // n_kv
-    qg = q.reshape(b, sq, n_kv, g, hd)
+    qg = _group_heads(q, n_kv)
     s = torch.einsum("bqkgh,btkh->bkgqt", qg.to(torch.float32), k.to(torch.float32))
     s = s * (1.0 / math.sqrt(hd))
     q_pos = torch.arange(sq, device=q.device)[:, None]
@@ -294,7 +302,7 @@ def _flash_forward(q, k, v, n_kv: int, causal: bool, window: int, q_chunk: int,
     scale = 1.0 / math.sqrt(hd)
     off = (skv - sq) if q_offset is None else q_offset
     dev = q.device
-    qg = q.reshape(b, sq, n_kv, g, hd)
+    qg = _group_heads(q, n_kv)
     outs, lses = [], []
     for q0 in range(0, sq, q_chunk):
         qblk = _f32(qg[:, q0:q0 + q_chunk])
@@ -336,13 +344,13 @@ def _flash_backward(q, k, v, out, lse, do, n_kv: int, causal: bool, window: int,
     scale = 1.0 / math.sqrt(hd)
     off = (skv - sq) if q_offset is None else q_offset
     dev = q.device
-    qg = _f32(q.reshape(b, sq, n_kv, g, hd))
-    dog = _f32(do.reshape(b, sq, n_kv, g, hd))
-    delta = torch.einsum("bqkgh,bqkgh->bkgq", dog, _f32(out.reshape(b, sq, n_kv, g, hd)))
+    qg = _f32(_group_heads(q, n_kv))
+    dog = _f32(_group_heads(do, n_kv))
+    delta = torch.einsum("bqkgh,bqkgh->bkgq", dog, _f32(_group_heads(out, n_kv)))
     q_pos = torch.arange(sq, device=dev) + off
-    dq = torch.zeros((b, sq, n_kv, g, hd), dtype=torch.float32, device=dev)
-    dk = torch.zeros((b, skv, n_kv, hd), dtype=torch.float32, device=dev)
-    dv = torch.zeros((b, skv, n_kv, hd), dtype=torch.float32, device=dev)
+    # like the operands (a DTensor's in the dry-run), zero, f32, contiguous
+    dq, dk, dv = (torch.zeros_like(t, dtype=torch.float32, memory_format=torch.contiguous_format)
+                  for t in (qg, k, v))
     for k0 in range(0, skv, kv_chunk):
         r0 = min(max(k0 - off, 0), sq) if causal else 0
         if r0 == sq:
@@ -448,8 +456,8 @@ def decode_attend_one(cache, q, k_new, v_new, pos, cfg, *, window: int = 0,
         # the write clamps into the cache as the JAX package's dynamic update
         # does (an idle slot's stale position may lie past it)
         wpos = posb.clamp(0, skv - 1)
-        cache["k"][rows, wpos] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, wpos] = v_new[:, 0].to(cache["v"].dtype)
+        for name, new in (("k", k_new), ("v", v_new)):
+            _write_position(cache[name], rows, wpos, new[:, 0].to(cache[name].dtype))
         kv_valid = torch.arange(skv, device=q.device)[None, :] <= posb[:, None]
         if window:
             kv_valid &= torch.arange(skv, device=q.device)[None, :] > (posb[:, None] - window)
@@ -464,6 +472,15 @@ def decode_attend_one(cache, q, k_new, v_new, pos, cfg, *, window: int = 0,
     # ONE dispatch per layer: requantize the touched block + attend
     return quant_kv_decode_step(q, cache, posv, k_new, v_new, kv_valid, impl=impl,
                                 out_dtype=q.dtype)
+
+
+def _write_position(buf: torch.Tensor, rows, wpos, val) -> None:
+    """``buf[rows, wpos] = val`` in place; a DTensor cache (the dry-run's)
+    writes shard-locally (``dist.sharding.write_positions``)."""
+    if type(buf) is torch.Tensor:
+        buf[rows, wpos] = val
+    else:
+        sharding.write_positions(buf, wpos, val)
 
 
 def _decode_positions(pos, b: int, device) -> torch.Tensor:

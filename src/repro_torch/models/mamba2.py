@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import shard_batch_act
 from . import decoder, layers
 
 
@@ -227,6 +228,11 @@ def init_state(cfg, batch: int, *, device=None) -> dict:
     }
 
 
+def abstract_state(cfg, batch: int) -> dict:
+    """:func:`init_state`'s shapes and dtypes on the ``meta`` device."""
+    return init_state(cfg, batch, device="meta")
+
+
 # ---------------------------------------------------------------------------
 # the attention-free LM (mamba2-2.7b)
 # ---------------------------------------------------------------------------
@@ -255,10 +261,12 @@ def forward(params: dict, cfg, tokens: torch.Tensor | None = None,
     recompute, as the decoder's do; ``bits`` as ``quant.apply.bits_for_scan``
     builds it."""
     x = decoder._inputs(params, tokens, embeds, cfg, bits=layers._b(bits, "embed"), impl=impl)
+    x = shard_batch_act(x)
     stacked = decoder._unbind(params["layers"])
     for i in range(cfg.n_layers):
         lp = decoder._per_layer(stacked, i)
         lb = None if bits is None else decoder._per_layer(bits["layers"], i)
+        x = shard_batch_act(x)
         x = x + block_forward(lp, layers.rmsnorm(lp["ln"], x, cfg.norm_eps), cfg, bits=lb,
                               impl=impl)
     return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -281,7 +289,7 @@ def prefill(params: dict, cfg, tokens: torch.Tensor | None = None,
     ``lengths`` masks right-pad tokens out of the state (see
     :func:`block_forward`), so a padded batched admission's state equals
     each request's unpadded one.  ``logits=False`` skips the LM head."""
-    x = decoder._inputs(params, tokens, embeds, cfg)
+    x = shard_batch_act(decoder._inputs(params, tokens, embeds, cfg))
     states = []
     for lp in params["layers"]:
         y, st = block_forward(lp, layers.rmsnorm(lp["ln"], x, cfg.norm_eps), cfg, impl=impl,

@@ -29,8 +29,9 @@ class ModelAPI:
     unstack: Callable
     prefill: Callable            # accepts lengths= (per-row valid prompt lengths)
     decode_step: Callable
-    # (cfg, batch, seq, dtype, *, state_bits, block, paged, pool_blocks, device)
-    #   -> decode state
+    # (cfg, batch, seq, dtype, abstract, *, state_bits, block, paged, pool_blocks,
+    #  device) -> decode state; abstract=True puts it on the meta device
+    #  (the dry-run) and refuses a quantized one
     init_decode_state: Callable
     # speculative verify: (params, cfg, state, tokens (B, T), pos (B,)) ->
     # (logits (B, T, V), state, burst_kv); None where the state cannot rewind
@@ -45,8 +46,12 @@ class ModelAPI:
     prefill_chunk: Callable | None = None
 
 
-def _decoder_state(cfg, batch, seq, dtype=torch.bfloat16, *, state_bits=None, block=None,
-                   paged=False, pool_blocks=None, device=None):
+def _decoder_state(cfg, batch, seq, dtype=torch.bfloat16, abstract=False, *, state_bits=None,
+                   block=None, paged=False, pool_blocks=None, device=None):
+    if abstract:
+        if state_bits is not None or paged:
+            raise NotImplementedError("abstract quantized decode state")
+        return decoder.abstract_cache(cfg, batch, seq, dtype)
     return decoder.init_cache(cfg, batch, seq, dtype, state_bits=state_bits, block=block,
                               paged=paged, pool_blocks=pool_blocks, device=device)
 
@@ -62,11 +67,13 @@ def _mamba_loss(params, cfg, batch, *, bits=None, impl="auto"):
     return lm_loss_from_hidden(params, cfg, hidden, batch["labels"], bits=bits, impl=impl)
 
 
-def _mamba_state(cfg, batch, seq, dtype=torch.bfloat16, *, state_bits=None, block=None,
-                 paged=False, pool_blocks=None, device=None):
+def _mamba_state(cfg, batch, seq, dtype=torch.bfloat16, abstract=False, *, state_bits=None,
+                 block=None, paged=False, pool_blocks=None, device=None):
     del seq, dtype, block, pool_blocks
     if state_bits is not None or paged:
         raise ValueError("ssm family has no quantizable KV state")
+    if abstract:
+        return [mamba2.abstract_state(cfg, batch) for _ in range(cfg.n_layers)]
     return [mamba2.init_state(cfg, batch, device=device) for _ in range(cfg.n_layers)]
 
 
@@ -76,23 +83,23 @@ def _hybrid_loss(params, cfg, batch, *, bits=None, impl="auto"):
     return lm_loss_from_hidden(params, cfg, hidden, batch["labels"], bits=bits, impl=impl)
 
 
-def _hybrid_state(cfg, batch, seq, dtype=torch.bfloat16, *, state_bits=None, block=None,
-                  paged=False, pool_blocks=None, device=None):
+def _hybrid_state(cfg, batch, seq, dtype=torch.bfloat16, abstract=False, *, state_bits=None,
+                  block=None, paged=False, pool_blocks=None, device=None):
     del pool_blocks
     if paged:
         raise NotImplementedError(
             "paged KV cache covers the decoder families; the hybrid shared-"
             "attention caches stay dense (DESIGN.md §12)")
-    return hybrid.init_decode_state(cfg, batch, seq, dtype, state_bits=state_bits, block=block,
-                                    device=device)
+    return hybrid.init_decode_state(cfg, batch, seq, dtype, abstract, state_bits=state_bits,
+                                    block=block, device=device)
 
 
-def _encdec_state(cfg, batch, seq, dtype=torch.bfloat16, *, state_bits=None, block=None,
-                  paged=False, pool_blocks=None, device=None):
+def _encdec_state(cfg, batch, seq, dtype=torch.bfloat16, abstract=False, *, state_bits=None,
+                  block=None, paged=False, pool_blocks=None, device=None):
     del block, pool_blocks
     if state_bits is not None or paged:
         raise ValueError("encdec serving has no engine-managed KV state")
-    return encdec.init_cache(cfg, batch, seq, dtype, device=device)
+    return encdec.init_cache(cfg, batch, seq, dtype, abstract, device=device)
 
 
 _DECODER_API = ModelAPI(

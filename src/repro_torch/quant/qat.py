@@ -62,15 +62,16 @@ def make_cnn_eval(cfg: cnn_mod.CNNConfig):
 # ---------------------------------------------------------------------------
 
 
-def make_lm_qat_step(cfg, tcfg: TrainConfig | None = None):
-    """LM train step with the QAT ``bits`` tree as an input; -> (step, tcfg)."""
+def make_lm_qat_step(cfg, tcfg: TrainConfig | None = None, *, reduce_grads=None):
+    """LM train step with the QAT ``bits`` tree as an input; -> (step, tcfg).
+    ``reduce_grads`` as ``train_step.make_train_step`` takes it."""
     tcfg = tcfg or TrainConfig(optimizer=opt_mod.OptimizerConfig(lr=1e-3, warmup_steps=10))
     api = registry.get_api(cfg)
 
     def loss_fn(params, batch, bits):
         return api.loss(params, cfg, batch, bits=bits)
 
-    return make_train_step(cfg, tcfg, loss_fn), tcfg
+    return make_train_step(cfg, tcfg, loss_fn, reduce_grads=reduce_grads), tcfg
 
 
 def make_lm_eval(cfg):

@@ -70,3 +70,13 @@ def concat_quantized(qts: list[QuantizedTensor]) -> QuantizedTensor:
     n = sum(qt.n for qt in qts)
     return QuantizedTensor(packed=packed, scale=scale, bits=bits,
                            shape=qts[0].shape[:-1] + (n,))
+
+
+def abstract_quantized(shape: tuple[int, ...], bits: int) -> QuantizedTensor:
+    """The packed container's shapes and dtypes on the ``meta`` device
+    (the dry-run: no allocation)."""
+    *lead, k, n = shape
+    lanes = packing.LANES[bits]
+    packed = torch.empty((*lead, n, -(-k // lanes)), dtype=torch.int8, device="meta")
+    scale = torch.empty((*lead, 1, n), dtype=torch.float32, device="meta")
+    return QuantizedTensor(packed=packed, scale=scale, bits=int(bits), shape=tuple(shape))

@@ -108,3 +108,16 @@ def apply(cfg: OptimizerConfig, grads: list, state: dict, params: Any) -> tuple[
             m.copy_(m32.to(sdt))
     state["step"] = step + 1
     return params, state, {"grad_norm": gnorm, "lr": float(lr)}
+
+
+def state_specs(opt_state: dict, param_specs: Any) -> dict:
+    """Optimizer-state PartitionSpecs mirror the param specs: the moments,
+    which the port keeps as lists in ``leaves`` order, take the param specs
+    in that order, and the step count is replicated."""
+    from repro_torch.dist.sharding import PartitionSpec as P, spec_leaves
+
+    out: dict = {"step": P()}
+    for k in ("m", "v"):
+        if k in opt_state:
+            out[k] = spec_leaves(param_specs)
+    return out

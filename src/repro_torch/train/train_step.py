@@ -49,9 +49,15 @@ def _slice_microbatch(batch: dict, i: int, n: int) -> dict:
     return {k: sl(v) for k, v in batch.items()}
 
 
-def make_train_step(cfg, tcfg: TrainConfig, loss_fn: Callable) -> Callable:
+def make_train_step(cfg, tcfg: TrainConfig, loss_fn: Callable, *,
+                    reduce_grads: Callable | None = None) -> Callable:
     """``loss_fn(params, batch, bits)`` -> scalar.  Returns
-    ``step(params, opt_state, batch, bits=None) -> (params, opt_state, metrics)``."""
+    ``step(params, opt_state, batch, bits=None) -> (params, opt_state, metrics)``.
+
+    ``reduce_grads(loss, grads) -> (loss, grads)`` runs between the gradients
+    and the update: a data-parallel step averages them over the data ranks
+    there (what the reference's batch-sharded step computes in one program).
+    """
 
     def compute_grads(params, batch, bits):
         if tcfg.microbatches <= 1:
@@ -69,6 +75,8 @@ def make_train_step(cfg, tcfg: TrainConfig, loss_fn: Callable) -> Callable:
 
     def step(params, opt_state, batch, bits=None):
         loss, grads = compute_grads(params, batch, bits)
+        if reduce_grads is not None:
+            loss, grads = reduce_grads(loss, grads)
         params, opt_state, metrics = opt_mod.apply(tcfg.optimizer, grads, opt_state, params)
         return params, opt_state, dict(metrics, loss=loss)
 

@@ -100,3 +100,21 @@ def test_train_lm_qat_survives_the_injected_failure(capsys):
     assert [lr for _, _, lr in rows] == ["1.50e-05", "4.50e-05"]
     assert all(abs(float(loss) - math.log(32_000)) < 0.5 for _, loss, _ in rows)
     assert "task entropy floor: 1.886" in stdout
+
+
+def test_elastic_remesh_resumes_on_the_replanned_mesh():
+    """``examples/torch_elastic_remesh.py --device cpu``: 8 gloo ranks on
+    (4, 2), the data-parallel gradient of step 0 equal to the single-process
+    full-batch gradient (rtol 1e-4, atol 1e-6, asserted by the example), 4
+    ranks lost, re-planned to (2, 2), resumed at step 10 from the checkpoint."""
+    import subprocess
+
+    out = subprocess.run([sys.executable, str(EXAMPLES / "torch_elastic_remesh.py"), "--device",
+                          "cpu"], capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    text = out.stdout
+    assert "initial mesh plan: (4, 2) ('data', 'model')" in text
+    assert "backend: gloo, 8 ranks on cpu" in text
+    assert "data-parallel gradient of step 0 = the full-batch gradient" in text
+    assert "4 devices lost -> replanned mesh: (2, 2) ('data', 'model')" in text
+    assert "step 10-19 on (2, 2)" in text and "resumed cleanly at step 10" in text

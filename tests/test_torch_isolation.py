@@ -41,7 +41,10 @@ def test_every_submodule_imports_without_jax():
             "repro_torch.models.decoder", "repro_torch.models.registry",
             "repro_torch.data.pipeline", "repro_torch.serve.engine",
             "repro_torch.train.train_step", "repro_torch.quant.env",
-            "repro_torch.kernels.autotune", "repro_torch.core.hardware"} <= set(mods)
+            "repro_torch.kernels.autotune", "repro_torch.core.hardware",
+            "repro_torch.dist.sharding", "repro_torch.launch.mesh", "repro_torch.launch.specs",
+            "repro_torch.launch.dryrun", "repro_torch.roofline.extract",
+            "repro_torch.roofline.hlo_cost", "repro_torch.roofline.reprice"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -50,6 +53,8 @@ def test_every_submodule_imports_without_jax():
             "    importlib.import_module(m)\n"
             "assert not any(k == 'jax' or k.startswith('jax.') for k in sys.modules\n"
             "               if sys.modules[k] is not None)\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized(), 'an import started a process group'\n"
             "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
@@ -72,8 +77,9 @@ def test_no_jax_or_reference_package_imports(path):
 
 def test_examples_import_without_jax():
     """The port's examples import with JAX and the JAX package blocked."""
-    assert [p.name for p in EXAMPLES] == ["torch_budget_search_serve.py", "torch_quickstart.py",
-                                          "torch_serve_quantized.py", "torch_train_lm_qat.py"]
+    assert [p.name for p in EXAMPLES] == ["torch_budget_search_serve.py", "torch_elastic_remesh.py",
+                                          "torch_quickstart.py", "torch_serve_quantized.py",
+                                          "torch_train_lm_qat.py"]
     code = ("import importlib.util, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
