@@ -268,8 +268,10 @@ the last line is not the ``ok`` line:
      at 4096 tokens bit for bit against ``prefill`` and at 512 within
      ``SP_DIRECT_REL`` of its direct path, row 2 launched 7 times a layer
      (the wrapper's count and a profile's), both timed; (b) ``python -m
-     repro_torch.launch.dryrun --arch gemma-2b --shape decode_32k`` on the
-     fake world of 256 ranks, its record and wall time; (c)
+     repro_torch.launch.dryrun`` on the fake world of 256 ranks for
+     gemma-2b's and deepseek-moe-16b's decode_32k and whisper-tiny's
+     train_4k, each in a bounded subprocess of its own, the three at once,
+     each requiring ``1/1 cells OK``, its record and wall time; (c)
      ``examples/torch_elastic_remesh.py`` with its 8 ranks on the card over
      gloo: the backend, the losses, the resume at step 10 on (2, 2);
  21. one ``{"kernels": [...]}`` JSON line (each row's launches summed over
@@ -629,10 +631,11 @@ def sweep_gemm(torch, gen, aside) -> None:
                 for key, val in (*t.items(), ("bytes", nbytes), ("flops", 2.0 * m * n * k)):
                     tot[key] += val
                 p = plan(m, n, k, torch.bfloat16)
+                b_one, by_one = bound(nbytes, 2.0 * m * n * k)
                 log(f"    {name:6s} bits={bits} M={m:4d}: kernel {t['kernel']:.4f} ms "
                     f"(cold {t['cold']:.4f})  torch.matmul {t['lib']:.4f} (cold "
-                    f"{t['lib_cold']:.4f})  plain {t['plain']:.4f}  nt={p.nt} splits={p.splits} "
-                    f"cluster={p.cluster} grid={p.grid}")
+                    f"{t['lib_cold']:.4f})  plain {t['plain']:.4f}  bound {b_one:.4f} "
+                    f"({by_one})  nt={p.nt} splits={p.splits} cluster={p.cluster} grid={p.grid}")
                 del x
             b_ms, b_by = bound(tot["bytes"], tot["flops"])
             verdict = "no slower" if tot["kernel"] <= tot["lib"] else "SLOWER"
@@ -3709,6 +3712,16 @@ TRAIN_FAIL_AT = 5
 CALIB_SEQ = (128, 129)
 
 
+def ttft_samples(torch, eng) -> dict:
+    """TTFT p50 and p99 (s) from the engine's raw samples, one a request that
+    emitted a token (``lifecycles[uid].ttft()``), by linear interpolation:
+    the ``stats()`` histogram's edges double from 1 us, so its percentiles are
+    bucket edges, not times."""
+    got = [lc.ttft() for lc in eng.lifecycles.values() if lc.ttft() is not None]
+    x = torch.tensor(got, dtype=torch.float64)
+    return {"p50": float(x.quantile(0.5)), "p99": float(x.quantile(0.99))}
+
+
 def _nonzero(launches: dict) -> dict:
     return {k: v for k, v in launches.items() if v}
 
@@ -4566,7 +4579,7 @@ def serve_moe(torch, cfg) -> dict:
         raise AssertionError(f"phase 13 (b): launches {launches} for {steps} decode steps and "
                              f"{adm} admissions (want 3 x {layers_} expert launches a pass, "
                              f"the GEMV's at every decode step)")
-    ttft = st["latency"]["ttft_s"]
+    ttft = ttft_samples(torch, eng)
     log(f"  ({smi}) launch.serve.main {' '.join(MOE_SERVE_ARGV)}: rc {rc}, {wall:.2f} s in all, "
         f"{marks['packed_s']:.2f} s to init and pack; packed weights "
         f"{eng.weight_container_bytes() / 1e9:.3f} GB, KV state "
@@ -5171,7 +5184,7 @@ def serve_family(torch, cfg, phase: str, *, kv_state: bool) -> dict:
         raise AssertionError(f"{phase}: rc {rc}, completed {st['completed']}, launches "
                              f"{_nonzero(launches)} (want {_nonzero(want)} for {steps} decode "
                              f"steps and {adm} admissions), plain {_nonzero(plain)}")
-    ttft = st["latency"]["ttft_s"]
+    ttft = ttft_samples(torch, eng)
     slot_bytes = eng.state_container_bytes() / eng.max_slots
     log(f"  ({smi}) launch.serve.main {' '.join(argv)}: rc {rc}, {wall:.2f} s in all, "
         f"{marks['packed_s']:.2f} s to init and pack; packed weights "
@@ -5553,7 +5566,7 @@ def serve_window(torch, cfg) -> dict:
         torch.cuda.synchronize()
         st = eng.stats()
         runs[mode] = dict(out=out, rows=collect(), st=st)
-        ttft = st["latency"]["ttft_s"]
+        ttft = ttft_samples(torch, eng)
         log(f"  ({smi}) {mode:7s}: {time.perf_counter() - t0:.2f} s, {st['decode_steps']} "
             f"decode steps (median {st['decode_step_median_s'] * 1e3:.3f} ms), "
             f"{st['admissions']} admission (TTFT p50 {ttft['p50'] * 1e3:.1f} ms, the "
@@ -6143,7 +6156,11 @@ SP_PROMPTS = (4096, 512)           # prefill's flash path (bit for bit) and its 
 #: direct path at 512 tokens in bf16: phase 9's flash-vs-direct bf16 limit per
 #: attention, compounded over the 18 layers
 SP_DIRECT_REL = 5e-2
-DRYRUN_ARGV = ["--arch", "gemma-2b", "--shape", "decode_32k"]
+#: phase 20 (b)'s dry-run cells: a dense decode, the MoE family's decode (its
+#: dispatch global, its buffer shard-local) and whisper-tiny's training step
+DRYRUN_CELLS = (["--arch", "gemma-2b", "--shape", "decode_32k"],
+                ["--arch", "deepseek-moe-16b", "--shape", "decode_32k"],
+                ["--arch", "whisper-tiny", "--shape", "train_4k"])
 
 
 def _run_bounded(cmd: list, timeout: float, env: dict | None = None) -> tuple[int, str, float]:
@@ -6297,20 +6314,44 @@ def prefill_sp_on_card(torch, cfg) -> dict:
 
 
 def dryrun_on_card() -> None:
-    """Phase 20 (b): ``python -m repro_torch.launch.dryrun --arch gemma-2b
-    --shape decode_32k`` in a subprocess: the fake world of 256 ranks exists
-    in this machine's PyTorch, the cell completes, its record is printed."""
-    code, out, secs = _run_bounded([sys.executable, "-m", "repro_torch.launch.dryrun",
-                                    *DRYRUN_ARGV], timeout=300, env=_sp_env())
-    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
-    if code != 0 or "1/1 cells OK" not in out or not lines:
-        raise AssertionError(f"phase 20 (b) dry-run exit {code}: {out[-3000:]}")
-    rec = json.loads(lines[-1])
-    log(f"  ok launch.dryrun {' '.join(DRYRUN_ARGV)} in {secs:.1f} s (traced in "
-        f"{rec['compile_s']} s, {rec['ops']} ops): per device flops {rec['per_device_flops']:.4g}, "
-        f"bytes {rec['per_device_bytes']:.4g}, args {rec['arg_bytes_per_device']:.4g} B, "
-        f"collectives {rec['collectives']}, dominant {rec['dominant']} on {rec['hw']}")
-    log(f"  record: {lines[-1]}")
+    """Phase 20 (b): ``python -m repro_torch.launch.dryrun`` on each of
+    ``DRYRUN_CELLS``, each in a bounded subprocess of its own, the three at
+    once (the dry-run runs on meta tensors and the host's cores): the fake
+    world of 256 ranks exists in this machine's PyTorch, each cell completes,
+    its record is printed."""
+    import os
+    import signal
+
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *argv],
+                              cwd=ROOT, env=_sp_env(), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, start_new_session=True)
+             for argv in DRYRUN_CELLS]
+    try:
+        for argv, proc in zip(DRYRUN_CELLS, procs):
+            try:
+                out, _ = proc.communicate(timeout=max(1.0, 420 - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"phase 20 (b) dry-run {' '.join(argv)} passed its 420 s "
+                                     f"limit")
+            secs = time.perf_counter() - t0
+            lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+            if proc.returncode != 0 or "1/1 cells OK" not in out or not lines:
+                raise AssertionError(f"phase 20 (b) dry-run {' '.join(argv)} exit "
+                                     f"{proc.returncode}: {out[-3000:]}")
+            rec = json.loads(lines[-1])
+            log(f"  ok launch.dryrun {' '.join(argv)} within {secs:.1f} s (traced in "
+                f"{rec['compile_s']} s, {rec['ops']} ops): per device flops "
+                f"{rec['per_device_flops']:.4g}, bytes {rec['per_device_bytes']:.4g}, args "
+                f"{rec['arg_bytes_per_device']:.4g} B, live peak "
+                f"{rec['peak_bytes_per_device'] - rec['arg_bytes_per_device']:.4g} B, "
+                f"collectives {rec['collectives']}, dominant {rec['dominant']} on {rec['hw']}")
+            log(f"  record: {lines[-1]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
 
 
 def elastic_on_card() -> None:

@@ -387,6 +387,107 @@ def keep_heads_whole(x: torch.Tensor, n_groups: int, dim: int = -1) -> torch.Ten
                                           for i, p in enumerate(x.placements)])
 
 
+def whole_dim(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Before a reduction over ``dim`` whose result meets ``x`` again (a
+    LayerNorm's mean and variance), a DTensor whose ``dim`` is sharded is
+    replicated over those mesh dims: the statistics are then whole on every
+    rank, where DTensor would keep them as ``Partial(avg)`` and meet the
+    ``Partial(sum)`` gradient of a sharded matmul in the backward, which it
+    cannot redistribute.  Any other tensor passes through."""
+    return keep_heads_whole(x, 1, dim)
+
+
+def batch_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)``.  Two DTensors sharded only on dims that
+    both operands and the result carry (attention's batch and heads), each
+    mesh dim on the same dim or on one operand only (the other is sliced to
+    match, no data moves), are multiplied shard by shard: the result is exact,
+    and some PyTorch versions' DTensor einsum flattens those dims together
+    and refuses to flatten a sharded one.  Any other pair goes to
+    ``torch.einsum``."""
+    if type(a) is torch.Tensor and type(b) is torch.Tensor:
+        return torch.einsum(eq, a, b)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)) or a.device_mesh != b.device_mesh:
+        return torch.einsum(eq, a, b)
+    ins, out = eq.replace(" ", "").split("->")
+    sa, sb = ins.split(",")
+
+    def letters(x, subs):
+        if not all(isinstance(p, (Replicate, Shard)) for p in x.placements):
+            return None
+        return [subs[p.dim] if isinstance(p, Shard) else None for p in x.placements]
+
+    la, lb = letters(a, sa), letters(b, sb)
+    if la is None or lb is None or any(x and y and x != y for x, y in zip(la, lb)):
+        return torch.einsum(eq, a, b)
+    sharded = [x or y for x, y in zip(la, lb)]
+    if all(c is None for c in sharded) or any(
+            c and (c not in sa or c not in sb or c not in out
+                   or a.shape[sa.index(c)] != b.shape[sb.index(c)]) for c in sharded):
+        return torch.einsum(eq, a, b)
+    mesh = a.device_mesh
+    a_l = a.redistribute(mesh, [Shard(sa.index(c)) if c else Replicate() for c in sharded])
+    b_l = b.redistribute(mesh, [Shard(sb.index(c)) if c else Replicate() for c in sharded])
+    # contiguous, as the global stride below says (later reshapes view it)
+    y = torch.einsum(eq, a_l.to_local(), b_l.to_local()).contiguous()
+    size = {**dict(zip(sb, b.shape)), **dict(zip(sa, a.shape))}
+    shape = torch.Size(size[c] for c in out)
+    return DTensor.from_local(y, mesh, [Shard(out.index(c)) if c else Replicate()
+                                        for c in sharded],
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+class _OnGrad(torch.autograd.Function):
+    """The identity, whose backward passes the gradient through ``fn``."""
+
+    @staticmethod
+    def forward(ctx, x, fn):
+        ctx.fn = fn
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.fn(g), None
+
+
+def _on_grad(x: torch.Tensor, fn) -> torch.Tensor:
+    if type(x) is torch.Tensor:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    return _OnGrad.apply(x, fn) if isinstance(x, DTensor) else x
+
+
+def _contiguous_shard(g):
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(g, DTensor) and not g.to_local().is_contiguous():
+        return DTensor.from_local(g.to_local().contiguous(), g.device_mesh, g.placements,
+                                  run_check=False, shape=g.shape, stride=g.stride())
+    return g
+
+
+def contiguous_grad(x: torch.Tensor) -> torch.Tensor:
+    """A matmul's output whose gradient may arrive as a DTensor with a padded,
+    non-contiguous local shard (a dim sharded unevenly, gathered and cut back
+    to size, as whisper's 1500 frames over 16 ranks are): the backward makes
+    the shard contiguous before the matmul's own backward views it flat, which
+    DTensor's metadata says it may.  Plain tensors pass through untouched."""
+    return _on_grad(x, _contiguous_shard)
+
+
+def grad_heads_whole(x: torch.Tensor, n_groups: int, dim: int = -1) -> torch.Tensor:
+    """The backward's twin of :func:`keep_heads_whole`, for a tensor whose
+    ``dim`` was flattened from ``n_groups`` leading groups (attention's KV
+    groups x query heads): its gradient is unflattened there, and DTensor may
+    hand it sharded over a mesh dim (an FSDP axis of the next projection) that
+    does not divide the groups.  Plain tensors pass through untouched."""
+    return _on_grad(x, lambda g: keep_heads_whole(g, n_groups, dim))
+
+
 def write_positions(buf, pos: torch.Tensor, val) -> None:
     """``buf[b, pos[b]] = val[b]`` for every row b of a (B, S, ...) DTensor,
     in place and shard-locally: each rank writes the rows and the position

@@ -52,7 +52,7 @@ def qdense(w: Any, x: torch.Tensor, *, bits=None, impl: str = "auto") -> torch.T
         return qt_matmul(x, w, impl=impl, out_dtype=x.dtype)
     if bits is not None:
         w = fake_quant_ste(w, bits, impl)
-    return torch.matmul(x, w.to(x.dtype))
+    return sharding.contiguous_grad(torch.matmul(x, w.to(x.dtype)))
 
 
 def _b(bits, name):
@@ -69,8 +69,9 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Te
 def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """``(x - mean) * rsqrt(var + eps) * scale + bias`` in f32.  The population
     variance is written out as ``jnp.var`` computes it: ``torch.var``'s f32
-    backward parts from the JAX package's (``models/cnn.py`` ``_norm_act``)."""
-    x32 = x.to(torch.float32)
+    backward parts from the JAX package's (``models/cnn.py`` ``_norm_act``).
+    On a DTensor the model dim is made whole first (``sharding.whole_dim``)."""
+    x32 = sharding.whole_dim(x).to(torch.float32)
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
     y = (x32 - mu) * torch.rsqrt(var + eps)
@@ -238,7 +239,7 @@ def _direct_attention(q, k, v, n_kv: int, *, causal: bool, window: int = 0,
     skv = k.shape[1]
     g = hq // n_kv
     qg = _group_heads(q, n_kv)
-    s = torch.einsum("bqkgh,btkh->bkgqt", qg.to(torch.float32), k.to(torch.float32))
+    s = sharding.batch_einsum("bqkgh,btkh->bkgqt", qg.to(torch.float32), k.to(torch.float32))
     s = s * (1.0 / math.sqrt(hd))
     q_pos = torch.arange(sq, device=q.device)[:, None]
     k_pos = torch.arange(skv, device=q.device)[None, :]
@@ -256,8 +257,9 @@ def _direct_attention(q, k, v, n_kv: int, *, causal: bool, window: int = 0,
             mask &= kv_valid[None, :]
         s = torch.where(mask, s, -1e30)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqt,btkh->bqkgh", p.to(v.dtype).to(torch.float32), v.to(torch.float32))
-    return o.reshape(b, sq, hq, hd).to(q.dtype)
+    o = sharding.batch_einsum("bkgqt,btkh->bqkgh", p.to(v.dtype).to(torch.float32),
+                              v.to(torch.float32))
+    return sharding.grad_heads_whole(o.reshape(b, sq, hq, hd), n_kv, dim=2).to(q.dtype)
 
 
 def _largest_divisor_leq(n: int, target: int) -> int:

@@ -24,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import expert_parallel
 from repro_torch.kernels.fake_quant.ops import fake_quant_ste
 from repro_torch.kernels.quant_matmul.ops import qt_matmul
 from repro_torch.quant.tensor import QuantizedTensor
@@ -77,6 +78,29 @@ def _expert_weight(w, bits, dtype=None, impl: str = "auto"):
     return w
 
 
+def _expert_weights(p: dict, bits, dtype, impl: str) -> tuple:
+    """The three stacks as the expert linears take them: packed, or float
+    (fake-quantized under QAT)."""
+    if isinstance(p["w_gate"], QuantizedTensor):
+        return p["w_gate"], p["w_up"], p["w_down"]
+    return tuple(_expert_weight(p[n], None if bits is None else bits.get(n), dtype, impl)
+                 for n in ("w_gate", "w_up", "w_down"))
+
+
+def _experts(buf: torch.Tensor, ws: tuple, dtype, impl: str) -> torch.Tensor:
+    """The expert MLP on an ``(E, C, d)`` buffer: a packed stack in one launch
+    per linear."""
+    wg, wu, wd = ws
+    if isinstance(wg, QuantizedTensor):
+        g = qt_matmul(buf, wg, impl=impl, out_dtype=dtype)
+        u = qt_matmul(buf, wu, impl=impl, out_dtype=dtype)
+        h = F.silu(g) * u
+        return qt_matmul(h, wd, impl=impl, out_dtype=dtype)
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg.to(dtype))) * torch.einsum(
+        "ecd,edf->ecf", buf, wu.to(dtype))
+    return torch.einsum("ecf,efd->ecd", h, wd.to(dtype))
+
+
 def _route(p: dict, xf: torch.Tensor, cfg):
     """Top-k expert ids ``(t, k)`` and renormalized gates, the router in f32."""
     logits = torch.matmul(xf.to(torch.float32), p["router"].to(torch.float32))
@@ -101,15 +125,11 @@ def dispatch(eidx: torch.Tensor, n_experts: int, c: int):
     return order, e_s, t_s, pos, pos < c
 
 
-def moe_mlp(p: dict, x: torch.Tensor, cfg, *, bits=None, impl: str = "auto") -> torch.Tensor:
-    b, s, d = x.shape
-    t = b * s
-    e, k = cfg.n_experts, cfg.top_k
-    c = capacity(t, cfg)
-    xf = x.reshape(t, d)
-
-    # 1. routing (pad tokens route and take capacity, as in the reference)
-    _, gates, eidx = _route(p, xf, cfg)
+def _routed(p: dict, xf: torch.Tensor, gates, eidx, e: int, c: int, bits,
+            impl: str) -> torch.Tensor:
+    """Steps 2-5 on one device's tokens ``(t, d)``."""
+    t, d = xf.shape
+    k = eidx.shape[1]
 
     # 2. sort assignments by expert
     order, e_s, t_s, pos, keep = dispatch(eidx, e, c)
@@ -118,34 +138,47 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg, *, bits=None, impl: str = "auto") -> 
     # 3. the kept assignments into the capacity buffer: each kept (e, pos) is
     # one row, so a plain write; dropped ones go to a spare row past the end
     slot = torch.where(keep, e_s * c + pos, e * c)
-    buf = torch.zeros((e * c + 1, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((e * c + 1, d), dtype=xf.dtype, device=xf.device)
     buf[slot] = xf[t_s]
     buf = buf[:e * c].view(e, c, d)
 
-    # 4. the expert matmuls: a packed stack in one launch per linear
-    if isinstance(p["w_gate"], QuantizedTensor):
-        g = qt_matmul(buf, p["w_gate"], impl=impl, out_dtype=x.dtype)
-        u = qt_matmul(buf, p["w_up"], impl=impl, out_dtype=x.dtype)
-        h = F.silu(g) * u
-        y_e = qt_matmul(h, p["w_down"], impl=impl, out_dtype=x.dtype)
-    else:
-        wg, wu, wd = (_expert_weight(p[n], None if bits is None else bits.get(n), x.dtype,
-                                     impl) for n in ("w_gate", "w_up", "w_down"))
-        h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg.to(x.dtype))) * torch.einsum(
-            "ecd,edf->ecf", buf, wu.to(x.dtype))
-        y_e = torch.einsum("ecf,efd->ecd", h, wd.to(x.dtype))
+    # 4. the expert matmuls
+    y_e = _experts(buf, _expert_weights(p, bits, xf.dtype, impl), xf.dtype, impl)
 
     # 5. gather back and combine: each token's k contributions in ascending
     # expert order (the sorted order), summed from zero in x's dtype
-    y_tok = y_e[e_s, torch.where(keep, pos, 0)] * (g_s * keep)[:, None].to(x.dtype)
+    y_tok = y_e[e_s, torch.where(keep, pos, 0)] * (g_s * keep)[:, None].to(xf.dtype)
     per_tok = torch.empty_like(y_tok)
     per_tok[order] = y_tok
     per_tok = per_tok.view(t, k, d)
     by_expert = torch.argsort(eidx, dim=1)
-    rows = torch.arange(t, device=x.device)
-    y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
+    rows = torch.arange(t, device=xf.device)
+    y = torch.zeros((t, d), dtype=xf.dtype, device=xf.device)
     for j in range(k):
         y = y + per_tok[rows, by_expert[:, j]]
+    return y
+
+
+def moe_mlp(p: dict, x: torch.Tensor, cfg, *, bits=None, impl: str = "auto") -> torch.Tensor:
+    b, s, d = x.shape
+    t = b * s
+    e = cfg.n_experts
+    c = capacity(t, cfg)
+    xf = x.reshape(t, d)
+
+    # 1. routing (pad tokens route and take capacity, as in the reference)
+    _, gates, eidx = _route(p, xf, cfg)
+
+    # 2-5 on DTensors (the dry-run's mesh): the same global dispatch on every
+    # rank, the buffer written and read shard-locally, the experts split over
+    # the mesh as their weights are
+    if expert_parallel.is_distributed(x):
+        y = expert_parallel.routed_experts(
+            x, gates, eidx, n_experts=e, capacity=c,
+            weights=_expert_weights(p, bits, x.dtype, impl), dispatch=dispatch,
+            experts=lambda buf, ws: _experts(buf, ws, x.dtype, impl))
+    else:
+        y = _routed(p, xf, gates, eidx, e, c, bits, impl)
     y = y.reshape(b, s, d)
 
     if "shared" in p:

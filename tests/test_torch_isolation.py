@@ -42,7 +42,8 @@ def test_every_submodule_imports_without_jax():
             "repro_torch.data.pipeline", "repro_torch.serve.engine",
             "repro_torch.train.train_step", "repro_torch.quant.env",
             "repro_torch.kernels.autotune", "repro_torch.core.hardware",
-            "repro_torch.dist.sharding", "repro_torch.launch.mesh", "repro_torch.launch.specs",
+            "repro_torch.dist.sharding", "repro_torch.dist.expert_parallel",
+            "repro_torch.launch.mesh", "repro_torch.launch.specs",
             "repro_torch.launch.dryrun", "repro_torch.roofline.extract",
             "repro_torch.roofline.hlo_cost", "repro_torch.roofline.reprice"} <= set(mods)
     code = ("import sys\n"
