@@ -76,7 +76,8 @@ the last line is not the ``ok`` line:
      state) with the controller's trace, each phase's wall time, the QAT
      step median, a profiled step's device-busy and fake-quant shares, peak
      memory and wall time; fake-quant launches exactly 128 per forward and
-     STE launches 128 per training step, and one fused decode step (row 3)
+     255 per training step (its recompute reruns all but the lookup's), STE
+     launches 128 per training step, and one fused decode step (row 3)
      per layer for each step of the state env; (c) the artifact saved,
      loaded back, packed with ``quantize_for_serve(artifact)``, checked by
      ``verify_packed_bits`` and served (8 requests) by
@@ -112,8 +113,13 @@ the last line is not the ``ok`` line:
      ones (seed 20) on 4 slots of 4608 positions, whole-prompt (the flash
      prefill, the GEMM at M = 4 x 4096) and 256-token chunked admission,
      dense and paged, as phase 8 (b), with TTFT, step median and peak
-     memory; (c) one ``lm_loss`` forward and backward at seq 4096 through
-     the flash path and the fake-quant kernels, loss, time and peak memory;
+     memory; (c) one QAT step's loss and gradients at seq 4096 (or the
+     longest of 3072 and 2560 that fits without recompute) through the flash
+     path and the fake-quant kernels, the loss in two chunks, once with each
+     layer body recomputed in the backward (``remat=True``) and once
+     without: loss and gradients equal, both peaks, wall times and launch
+     counts (257 and 131 fake-quant, 129 STE), whether the recomputing step
+     fits at 4096;
  10. degradation, faults and tracing: (a) phase 6's artifact, paged over
      40 blocks under the checker, the chat fleet at priority 0 and four
      more at priority 2 from turn 4, one fault at each of ``nan_logit``,
@@ -155,7 +161,8 @@ the last line is not the ``ok`` line:
      saved under ``build/`` with its budget, policy and phase sections; (c)
      ``launch.train.main`` on gemma-2b cut to 2 layers (the tied 256000 x
      2048 embedding stays), 8 steps of 8 x 128 at 4 bits, a save every 4
-     (keep 1): the step median, fake-quant and STE launches 16 a step; then
+     (keep 1): the step median, fake-quant launches 31 a step (16 a forward,
+     15 recomputed) and STE launches 16; then
      the same run through ``TrainLoop`` failing at step 5, which restores
      step 3 and replays: params and optimizer state bit for bit the clean
      run's; (d) ``bop_greedy_policy`` and ``uniform_policy`` on gemma-2b's
@@ -187,8 +194,8 @@ the last line is not the ``ok`` line:
  14. deepseek-moe-16b's width cut to 2 layers (about 1.6 G parameters):
      (a) one QAT step's loss and gradients in f32 through the kernels, the
      plain versions and the kernels again, every leaf bit-equal, row 10 on
-     the (E, K, N) expert stacks as (E*K, N) views (22 fake-quant and STE
-     launches a pass); (b) ``launch.train.main``, 8 steps of 8 x 128 at 4
+     the (E, K, N) expert stacks as (E*K, N) views (43 fake-quant launches
+     a step, 22 of the forward and 21 recomputed, and 22 STE); (b) ``launch.train.main``, 8 steps of 8 x 128 at 4
      bits (the saves skipped: phase 12 holds them), the step median and the
      launches a step; (c) ``launch.search.main`` under ``size_mib=1250``
      (the weight phase, the launches its steps predict), each phase's wall
@@ -229,7 +236,8 @@ the last line is not the ``ok`` line:
      1e-3 on one state), then on one state a decode step's logits
      bit-equal with the rows older than the window changed and only the
      blocks at ``pos`` requantized; (d) its width cut to 12 layers: one QAT
-     step in f32, kernels against plain and again, every leaf bit-equal;
+     step in f32, kernels against plain and again, every leaf bit-equal
+     (the shared block recomputed at each of its applications);
      ``launch.train.main`` (8 steps of 8 x 128 at 4 bits);
      ``launch.search.main`` under a size and a state limit, its artifact
      through ``launch.serve.main --policy``;
@@ -282,6 +290,12 @@ Phases 5, 6, 8, 10 (c) and 13 hold two engines' streams equal, so their
 engines pass a shed policy whose straggler shed cannot fire (it reads the
 host clock); phase 6's keeps K fixed as well (its launch counts rest on
 it).  Only phase 10 (a) walks the whole ladder.
+
+Every training step recomputes each layer body and each loss chunk in its
+backward, as the JAX package's ``jax.checkpoint`` does: its fake-quant
+launches are the forward's plus the recomputed regions'
+(``_fq_recomputed``: all but the embedding lookup's), its STE launches the
+forward's; an evaluation pass launches the forward's.
 
 Weights are random, made from a seeded CUDA generator.  Nothing of JAX is
 imported.  Exits 2 without a CUDA device or without the package beside it.
@@ -2446,17 +2460,27 @@ def stack_gemv_ms(prof, path: Path) -> tuple[float, int]:
 # ---------------------------------------------------------------------------
 
 
-def _fq_per_forward(cfg, specs) -> int:
-    """Fake-quant launches one forward pass makes: one per quantizable weight,
-    the tied embedding twice (the lookup and the head), and the hybrid's
-    shared block once at each of its applications."""
+def _fq_recomputed(cfg, specs, n_chunks: int = 1) -> int:
+    """Fake-quant launches the backward's recompute adds to a training step:
+    those of the forward inside a checkpointed region, which are all but the
+    embedding lookup's: each layer's quantizable weights, the hybrid's shared
+    block once at each of its applications, and the head (tied or not) once
+    for each of the ``n_chunks`` loss chunks."""
     names = {l.name for l in specs}
-    n = len(specs) + (1 if cfg.tie_embeddings and "embed" in names else 0)
+    head = "lm_head" in names or (cfg.tie_embeddings and "embed" in names)
+    n = len(specs) - ("embed" in names) - ("lm_head" in names) + head * n_chunks
     if cfg.family == "hybrid":
         from repro_torch.models.hybrid import n_attn_applications
 
         n += (n_attn_applications(cfg) - 1) * sum(nm.startswith("shared_attn.") for nm in names)
     return n
+
+
+def _fq_per_forward(cfg, specs, n_chunks: int = 1) -> int:
+    """Fake-quant launches one forward pass from tokens makes (and STE
+    launches one backward makes): the recomputed regions' once
+    (``_fq_recomputed``), and the embedding lookup's."""
+    return _fq_recomputed(cfg, specs, n_chunks) + any(l.name == "embed" for l in specs)
 
 
 def qat_step_parity(torch, cfg) -> None:
@@ -2481,6 +2505,7 @@ def qat_step_parity(torch, cfg) -> None:
         TokenTask(cfg.vocab_size), cfg, ShapeSpec("search", "train", 64, 8), 0).items()}
     api = registry.get_api(cfg)
     per_fwd = _fq_per_forward(cfg, specs)
+    step = (per_fwd + _fq_recomputed(cfg, specs), per_fwd)     # the recompute reruns the forward's
     runs = {}
     for key, impl in (("kernels", "auto"), ("plain", "torch"), ("kernels again", "auto")):
         kernels.reset_counts()
@@ -2490,11 +2515,12 @@ def qat_step_parity(torch, cfg) -> None:
             bits)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        want = (per_fwd, per_fwd) if impl == "auto" else (0, 0)
+        want = step if impl == "auto" else (0, 0)
         got = (kernels.LAUNCHES["fake_quant"], kernels.LAUNCHES["fake_quant_ste_bwd"])
         plain = (kernels.PLAIN_CALLS["fake_quant"], kernels.PLAIN_CALLS["fake_quant_ste_bwd"])
-        if got != want or plain != ((0, 0) if impl == "auto" else (per_fwd, per_fwd)):
-            raise AssertionError(f"phase 7 (a) {key}: launches {got}, plain calls {plain}")
+        if got != want or plain != ((0, 0) if impl == "auto" else step):
+            raise AssertionError(f"phase 7 (a) {key}: launches {got}, plain calls {plain} "
+                                 f"(want {step}: {per_fwd} a forward, its regions' again)")
         if not (torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)):
             raise AssertionError(f"phase 7 (a) {key}: non-finite loss or gradient")
         runs[key] = (loss, grads)
@@ -2628,8 +2654,10 @@ def _shared_linears(tree, cfg) -> int:
 
 
 def search_launches(cfg, env, phases) -> dict:
-    """The launches a search run's structure predicts: 128 fake-quant (and
-    STE) launches a forward (and training step) of the weight phase; one fused
+    """The launches a search run's structure predicts: 128 fake-quant
+    launches a forward of the weight phase (an evaluation), and a training
+    step's forward, its recompute (127: all but the lookup's) and 128 STE
+    launches; one fused
     decode step (row 3) per KV entry (a layer, or a hybrid's shared-block
     application) for each step of the state env on a quantized state; for
     the draft env, one GEMM per packed linear for its calibration prefill and
@@ -2638,8 +2666,10 @@ def search_launches(cfg, env, phases) -> dict:
     from repro_torch.kvcache import kv_entry_names
 
     per_fwd = _fq_per_forward(cfg, env.layer_infos())
+    recomputed = _fq_recomputed(cfg, env.layer_infos())
     want = dict.fromkeys(kernels.KERNELS, 0)
-    want.update(fake_quant=per_fwd * (env.train_steps + env.eval_passes),
+    want.update(fake_quant=per_fwd * (env.train_steps + env.eval_passes)
+                + recomputed * env.train_steps,
                 fake_quant_ste_bwd=per_fwd * env.train_steps)
     if "state_env" in phases:
         want["quant_kv_decode_step"] = len(kv_entry_names(cfg)) * phases["state_env"].steps
@@ -2732,7 +2762,9 @@ def search_phase(torch, cfg) -> dict:
     per_fwd = _fq_per_forward(cfg, env.layer_infos())
     log(f"  launches {info['launches']}: {env.train_steps} training steps x {per_fwd} STE, "
         f"{env.train_steps + env.eval_passes} forwards ({env.eval_passes} evaluations) x "
-        f"{per_fwd} fake-quant, {info['phases']['state_env'].steps} state steps x "
+        f"{per_fwd} fake-quant and {env.train_steps} recomputes x "
+        f"{_fq_recomputed(cfg, env.layer_infos())}, "
+        f"{info['phases']['state_env'].steps} state steps x "
         f"{cfg.n_layers} fused decode steps, as predicted; plain calls 0")
     log(f"  ({smi}) search phases: {_phase_walls(artifact)}; state policy mean "
         f"{artifact.state_policy.mean_bits():.3f} bits, state_bytes "
@@ -3254,58 +3286,123 @@ def serve_long(torch, cfg) -> None:
     torch.cuda.empty_cache()
 
 
-def long_loss(torch, cfg) -> None:
-    """Phase 9 (c): one ``lm_loss`` forward and backward at full width, batch 1,
-    seq 4096, through the flash path and the fake-quant kernels (the
-    "mixed" policy's QAT bits); the longest seq above 2048 that fits if 4096
-    does not."""
+def _long_step(torch, params, cfg, batch, bits, seq: int, remat: bool):
+    """One QAT step's loss and gradients at full width, batch 1: the layer
+    bodies recomputed in the backward or not (``remat``), the loss in two
+    chunks (each recomputed either way).  Run twice; returns the second run's
+    loss, gradients and wall time, the peak allocated over both, and each
+    run's (fake-quant, STE) launches."""
     from repro_torch import kernels
+    from repro_torch.models import decoder
+    from repro_torch.train.train_step import value_and_grad
+
+    def loss_fn(p, b, bb):
+        hidden = decoder.forward(p, cfg, b["tokens"], bits=bb, remat=remat)
+        return decoder.lm_loss_from_hidden(p, cfg, hidden, b["labels"], bits=bb,
+                                           loss_chunk=seq // 2)
+
+    free_memory(torch)           # the earlier phases' garbage out of both peaks
+    launches = []
+    for _ in range(2):
+        out = None               # the first run's gradients go before the second starts
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        out = value_and_grad(loss_fn, params, batch, bits)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches.append((kernels.LAUNCHES["fake_quant"], kernels.LAUNCHES["fake_quant_ste_bwd"]))
+        if any(kernels.PLAIN_CALLS.values()):
+            raise AssertionError(f"phase 9 (c): plain calls {_nonzero(kernels.PLAIN_CALLS)}")
+    return out[0], out[1], dt, torch.cuda.max_memory_allocated(), launches
+
+
+def long_loss(torch, cfg) -> None:
+    """Phase 9 (c): one QAT step's loss and gradients at full width and depth,
+    batch 1, through the flash path and the fake-quant kernels (the "mixed"
+    policy's bits), the loss in two chunks: with each layer body recomputed
+    in the backward (``remat=True``, the default) and without, at the
+    longest seq of 4096, 3072 and 2560 at which the run without fits; peaks,
+    wall times and launches side by side, losses and gradients equal."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import TokenTask, global_batch
     from repro_torch.launch.dryrun import dryrun_policy
     from repro_torch.models import decoder
     from repro_torch.quant import apply as qapply
-    from repro_torch.train.train_step import value_and_grad
 
+    smi = smi_line()
     params = decoder.init(cfg, torch.Generator(device="cuda").manual_seed(SEED + 21),
                           device="cuda")
     specs = qapply.layer_specs(params, cfg)
     bits = qapply.bits_for_scan(dryrun_policy(specs, "mixed"), params, cfg)
-    per_fwd = _fq_per_forward(cfg, specs)
-    for seq in (LONG_S, 3072, 2560):
-        batch = {k: v.to("cuda") for k, v in global_batch(
+    per_fwd = _fq_per_forward(cfg, specs, n_chunks=2)
+    want = {False: (per_fwd + 2, per_fwd),          # only the two loss chunks recomputed
+            True: (per_fwd + _fq_recomputed(cfg, specs, n_chunks=2), per_fwd)}
+
+    def batch_of(seq):
+        return {k: v.to("cuda") for k, v in global_batch(
             TokenTask(cfg.vocab_size), cfg, ShapeSpec("long", "train", seq, 1), 0).items()}
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_counts()
-        t0 = time.perf_counter()
+
+    def fits(seq, remat) -> bool:
         try:
-            # the loss in two chunks of the sequence (lm_loss's chunk must divide it)
-            loss, grads = value_and_grad(
-                lambda p, b, bb: decoder.lm_loss(p, cfg, b["tokens"], b["labels"], bits=bb,
-                                                 loss_chunk=seq // 2), params, batch, bits)
-            torch.cuda.synchronize()
+            runs[remat] = _long_step(torch, params, cfg, batch_of(seq), bits, seq, remat)
+            return True
         except torch.cuda.OutOfMemoryError:
-            log(f"  seq {seq} does not fit in the card's memory; trying a shorter one")
+            return False
+
+    runs, fits_remat = {}, None
+    for seq in (LONG_S, 3072, 2560):
+        if not fits(seq, False):
+            log(f"  ({smi}) remat=False: seq {seq} does not fit in the card's memory; trying a "
+                f"shorter one")
+            if seq == LONG_S:            # whether the recomputing step fits where this did not
+                fits_remat = fits(seq, True)
+                runs.clear()
             continue
-        dt = time.perf_counter() - t0
-        got = (kernels.LAUNCHES["fake_quant"], kernels.LAUNCHES["fake_quant_ste_bwd"])
-        plain = (kernels.PLAIN_CALLS["fake_quant"], kernels.PLAIN_CALLS["fake_quant_ste_bwd"])
-        want = per_fwd + 1          # the tied head fake-quantizes once a loss chunk: two here
-        if got != (want, want) or any(plain):
-            raise AssertionError(f"phase 9 (c): fake-quant launches {got} (want {want} each), "
-                                 f"plain calls {plain}")
-        if not (torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)):
-            raise AssertionError("phase 9 (c): non-finite loss or gradient")
-        cut = "" if seq == LONG_S else f" (not {LONG_S}: it did not fit)"
-        log(f"  ok lm_loss at seq {seq}{cut}, batch 1: loss {float(loss):.6f}, forward + "
-            f"backward {dt:.3f} s (the first call), peak allocated "
-            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, fake-quant launches {got}")
+        # the first run's gradients wait on the host while the second runs
+        host = [g.cpu() for g in runs[False][1]]
+        runs[False] = runs[False][:1] + (host,) + runs[False][2:]
+        runs[True] = _long_step(torch, params, cfg, batch_of(seq), bits, seq, remat=True)
+        if seq == LONG_S:
+            fits_remat = True
         break
     else:
-        raise AssertionError("phase 9 (c): no seq above 2048 fits")
-    del params, grads, loss
+        raise AssertionError("phase 9 (c): no seq above 2048 fits without remat")
+    for remat, (loss, grads, dt, peak, launches) in runs.items():
+        if any(got != want[remat] for got in launches):
+            raise AssertionError(f"phase 9 (c) remat={remat}: fake-quant and STE launches "
+                                 f"{launches} (want {want[remat]} a step)")
+        if not (torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)):
+            raise AssertionError(f"phase 9 (c) remat={remat}: non-finite loss or gradient")
+        cut = "" if seq == LONG_S else f" (not {LONG_S}: it did not fit without remat)"
+        log(f"  ({smi}) remat={remat}: QAT step at seq {seq}{cut}, batch 1, {cfg.n_layers} "
+            f"layers, two "
+            f"loss chunks: loss {float(loss):.6f}, loss + gradients {dt:.3f} s (the second "
+            f"call), peak allocated {peak / 1e9:.3f} GB, fake-quant and STE launches "
+            f"{launches[-1]} a step")
+    (l0, g0), (l1, g1) = runs[False][:2], runs[True][:2]
+    # the tied embedding is read by the lookup and both head chunks: its
+    # gradient's terms could only be summed in another order (rel 1e-6)
+    tied = {i for i, (path, _) in enumerate(qapply._walk(params)) if path == ("embed",)}
+    diffs, exact = [], 0
+    for i, (a, b) in enumerate(zip(g0, g1)):
+        b = b.cpu()
+        exact += torch.equal(a, b)
+        if not torch.equal(a, b) and (i not in tied or rel(b, a) > 1e-6):
+            diffs.append((i, rel(b, a)))
+    if not torch.equal(l0.cpu(), l1.cpu()) or diffs:
+        raise AssertionError(f"phase 9 (c): remat=True against remat=False: loss "
+                             f"{float(l0):.9g} / {float(l1):.9g}, differing leaves {diffs[:5]}")
+    p0, p1 = runs[False][3], runs[True][3]
+    rest = "" if exact == len(g0) else " (the tied embedding's within rel 1e-6)"
+    log(f"  ok ({smi}) remat=True against remat=False at seq {seq}: the loss and {exact} of "
+        f"{len(g0)} gradient leaves bit-equal{rest}; peak {p1 / 1e9:.3f} against "
+        f"{p0 / 1e9:.3f} GB "
+        f"({p1 / p0:.3f}), wall {runs[True][2]:.3f} against {runs[False][2]:.3f} s "
+        f"({runs[True][2] / runs[False][2]:.3f}); the remat=True step "
+        f"{'fits' if fits_remat else 'does not fit'} at seq {LONG_S}")
+    if not p1 < p0:
+        raise AssertionError(f"phase 9 (c): remat=True peaks at {p1} B, not below {p0} B")
+    del params, runs, g0, g1
     torch.cuda.empty_cache()
 
 
@@ -3960,9 +4057,11 @@ def trainer(torch, cfg) -> dict:
     clean = loops[0]
     args = train.build_parser().parse_args(TRAIN_ARGV + ["--ckpt", str(replay_dir)])
     cfg2 = built[0]
-    per_fwd = _fq_per_forward(cfg2, qapply.layer_specs(clean.state[0], cfg2))
+    specs2 = qapply.layer_specs(clean.state[0], cfg2)
+    per_fwd, recomputed = _fq_per_forward(cfg2, specs2), _fq_recomputed(cfg2, specs2)
     want = dict.fromkeys(kernels.KERNELS, 0)
-    want.update(fake_quant=per_fwd * args.steps, fake_quant_ste_bwd=per_fwd * args.steps)
+    want.update(fake_quant=(per_fwd + recomputed) * args.steps,
+                fake_quant_ste_bwd=per_fwd * args.steps)
     if rc != 0 or launches != want or any(plain.values()) or len(times) != args.steps:
         raise AssertionError(f"phase 12 (c): rc {rc}, launches {launches} (want {want}), plain "
                              f"calls {plain}, {len(times)} timed steps")
@@ -3975,8 +4074,9 @@ def trainer(torch, cfg) -> dict:
         f"{args.steps} steps of {args.batch} x {args.seq} at {args.wbits} bits in {wall:.2f} s: "
         f"step median {statistics.median(times[1:]) * 1e3:.3f} ms (first {times[0] * 1e3:.3f}); "
         f"losses {[round(h['loss'], 4) for h in clean.history]}")
-    log(f"    launches {launches}: {args.steps} steps x {per_fwd} fake-quant and STE, as "
-        f"predicted; plain calls 0; checkpoints kept {ck.list_steps(str(clean_dir))}")
+    log(f"    launches {launches}: {args.steps} steps x {per_fwd} + {recomputed} fake-quant (the "
+        f"forward, the recompute) and {per_fwd} STE, as predicted; plain calls 0; checkpoints "
+        f"kept {ck.list_steps(str(clean_dir))}")
     shutil.rmtree(clean_dir)
     # the same run with a failure: restore the latest save and replay
     _, _, step, state, batch_fn = real_build(args)
@@ -3990,9 +4090,10 @@ def trainer(torch, cfg) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     replayed = args.steps + TRAIN_FAIL_AT - (TRAIN_FAIL_AT // args.save_every) * args.save_every
-    if loop.restarts != 1 or kernels.LAUNCHES["fake_quant_ste_bwd"] != per_fwd * replayed:
-        raise AssertionError(f"phase 12 (c) replay: {loop.restarts} restarts, "
-                             f"{kernels.LAUNCHES['fake_quant_ste_bwd']} STE launches (want "
+    replay = (kernels.LAUNCHES["fake_quant"], kernels.LAUNCHES["fake_quant_ste_bwd"])
+    if loop.restarts != 1 or replay != ((per_fwd + recomputed) * replayed, per_fwd * replayed):
+        raise AssertionError(f"phase 12 (c) replay: {loop.restarts} restarts, fake-quant and "
+                             f"STE launches {replay} (want {(per_fwd + recomputed) * replayed}, "
                              f"{per_fwd * replayed})")
     diff = _first_difference(torch, loop.state, clean.state)
     if diff:
@@ -4810,6 +4911,7 @@ def moe_qat_step(torch, cfg) -> None:
                                   ShapeSpec("search", "train", 64, 8), 0), "cuda")
     api = registry.get_api(cut)
     per_fwd = _fq_per_forward(cut, specs)
+    step = (per_fwd + _fq_recomputed(cut, specs), per_fwd)
     n_params = sum(leaf.numel() for _, leaf in qapply._walk(params))
     runs = {}
     for key, impl in (("kernels", "auto"), ("plain", "torch"), ("kernels again", "auto")):
@@ -4823,7 +4925,7 @@ def moe_qat_step(torch, cfg) -> None:
         dt = time.perf_counter() - t0
         got = (kernels.LAUNCHES["fake_quant"], kernels.LAUNCHES["fake_quant_ste_bwd"])
         plain = (kernels.PLAIN_CALLS["fake_quant"], kernels.PLAIN_CALLS["fake_quant_ste_bwd"])
-        want = ((per_fwd, per_fwd), (0, 0)) if impl == "auto" else ((0, 0), (per_fwd, per_fwd))
+        want = (step, (0, 0)) if impl == "auto" else ((0, 0), step)
         if (got, plain) != want:
             raise AssertionError(f"phase 14 (a) {key}: launches {got}, plain calls {plain} "
                                  f"(want {want})")
@@ -4831,7 +4933,8 @@ def moe_qat_step(torch, cfg) -> None:
             raise AssertionError(f"phase 14 (a) {key}: non-finite loss or gradient")
         runs[key] = (loss, grads)
         log(f"  ({smi}) {key}: loss {float(loss):.6f}, loss + gradients in {dt:.3f} s; "
-            f"fake-quant launches {got} a step ({len(stacks)} of them on (E, K, N) stacks), "
+            f"fake-quant and STE launches {got} a step ({per_fwd} a forward, "
+            f"{len(stacks)} of them on (E, K, N) stacks; the recompute's {step[0] - per_fwd}), "
             f"plain calls {plain}")
     for a, b in (("kernels", "plain"), ("kernels", "kernels again")):
         (la, ga), (lb, gb) = runs[a], runs[b]
@@ -4890,10 +4993,11 @@ def cut_trainer(torch, argv, phase: str) -> dict:
         train.build, train.CheckpointStore = real_build, real_store
     launches, plain = dict(kernels.LAUNCHES), dict(kernels.PLAIN_CALLS)
     cfg2, state = built[0][0], built[0][3]
-    per_fwd = _fq_per_forward(cfg2, qapply.layer_specs(state[0], cfg2))
+    specs2 = qapply.layer_specs(state[0], cfg2)
+    per_fwd, recomputed = _fq_per_forward(cfg2, specs2), _fq_recomputed(cfg2, specs2)
     steps = len(times)
     want = dict.fromkeys(kernels.KERNELS, 0)
-    want.update(fake_quant=per_fwd * steps, fake_quant_ste_bwd=per_fwd * steps)
+    want.update(fake_quant=(per_fwd + recomputed) * steps, fake_quant_ste_bwd=per_fwd * steps)
     if rc != 0 or steps != 8 or launches != want or any(plain.values()):
         raise AssertionError(f"{phase}: rc {rc}, {steps} steps, launches {launches} "
                              f"(want {want}), plain calls {plain}")
@@ -4903,8 +5007,8 @@ def cut_trainer(torch, argv, phase: str) -> dict:
         f"step median {statistics.median(times[1:]) * 1e3:.3f} ms (first "
         f"{times[0] * 1e3:.3f}); peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB;"
         f" saves skipped {stores[0].saves}")
-    log(f"    launches {_nonzero(launches)}: {steps} steps x {per_fwd} fake-quant and STE "
-        f"({per_fwd} a forward), as predicted; plain calls 0")
+    log(f"    launches {_nonzero(launches)}: {steps} steps x {per_fwd} + {recomputed} fake-quant "
+        f"(the forward, the recompute) and {per_fwd} STE, as predicted; plain calls 0")
     del built, state
     torch.cuda.empty_cache()
     return launches
@@ -5695,6 +5799,7 @@ def zamba_qat_step(torch, cfg) -> None:
                                   ShapeSpec("search", "train", 64, 8), 0), "cuda")
     api = registry.get_api(cut)
     per_fwd = _fq_per_forward(cut, specs)
+    step = (per_fwd + _fq_recomputed(cut, specs), per_fwd)
     runs = {}
     for key, impl in (("kernels", "auto"), ("plain", "torch"), ("kernels again", "auto")):
         kernels.reset_counts()
@@ -5707,16 +5812,17 @@ def zamba_qat_step(torch, cfg) -> None:
         dt = time.perf_counter() - t0
         got = (kernels.LAUNCHES["fake_quant"], kernels.LAUNCHES["fake_quant_ste_bwd"])
         plain = (kernels.PLAIN_CALLS["fake_quant"], kernels.PLAIN_CALLS["fake_quant_ste_bwd"])
-        want = ((per_fwd, per_fwd), (0, 0)) if impl == "auto" else ((0, 0), (per_fwd, per_fwd))
+        want = (step, (0, 0)) if impl == "auto" else ((0, 0), step)
         if (got, plain) != want:
             raise AssertionError(f"phase 17 (d) {key}: launches {got}, plain calls {plain} "
                                  f"(want {want})")
         if not (torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)):
             raise AssertionError(f"phase 17 (d) {key}: non-finite loss or gradient")
         runs[key] = (loss, grads)
-        log(f"  ({smi}) QAT step, {key}: loss {float(loss):.6f} in {dt:.3f} s; fake-quant "
-            f"launches {got} ({len(specs)} leaves, the shared block's 7 at "
-            f"{hybrid.n_attn_applications(cut)} applications), plain calls {plain}")
+        log(f"  ({smi}) QAT step, {key}: loss {float(loss):.6f} in {dt:.3f} s; fake-quant and "
+            f"STE launches {got} ({len(specs)} leaves, the shared block's 7 at "
+            f"{hybrid.n_attn_applications(cut)} applications: {per_fwd} a forward, the "
+            f"recompute's {step[0] - per_fwd}), plain calls {plain}")
     for a, b in (("kernels", "plain"), ("kernels", "kernels again")):
         (la, ga), (lb, gb) = runs[a], runs[b]
         same = [torch.equal(x, y) for x, y in zip(ga, gb)]

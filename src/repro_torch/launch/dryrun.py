@@ -94,8 +94,9 @@ def build_train(cfg: ArchConfig, shape: ShapeSpec, mesh, *, qat: bool = True,
                 microbatches: int = 8, state_dtype: str = "bfloat16",
                 fsdp_pod: bool = True, remat: bool = True):
     """One QAT training step (8-bit uniform fake-quant), FSDP + TP layout.
-    ``remat`` is accepted for the reference's signature: the port's forward
-    keeps its activations (there is no recompute to switch)."""
+    ``remat`` is accepted and dropped, as the reference's ``build_train``
+    drops it: the loss calls the forwards with their default, so each layer
+    body and each loss chunk is recomputed in the backward."""
     del remat
     api = registry.get_api(cfg)
     params = _abstract_params(cfg)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.core import packing
 from repro_torch.core.quantizer import div_exact
@@ -77,6 +78,19 @@ def _unbind(tree):
     return tree.unbind(0)
 
 
+def checkpointed(fn, *args, remat: bool = True):
+    """``fn(*args)``, its activations recomputed in the backward, as the JAX
+    package's ``jax.checkpoint(..., policy=nothing_saveable)`` recomputes a
+    scan body.  Non-reentrant, so that the per-layer views of the stacked
+    leaves the body reads get their gradients through ``torch.autograd.grad``;
+    no RNG state is stashed (no forward draws random numbers).  A grad-free
+    call (evaluation, serving) runs ``fn`` directly."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                 preserve_rng_state=False)
+    return fn(*args)
+
+
 def unstack_layers(params: dict, cfg) -> dict:
     """(L, ...)-stacked train params -> per-layer list (views) for the serve path."""
     out = dict(params)
@@ -127,12 +141,14 @@ def _inputs(params: dict, tokens, embeds, cfg, *, bits=None, impl: str = "auto")
 
 def forward(params: dict, cfg, tokens: torch.Tensor | None = None,
             embeds: torch.Tensor | None = None, *, bits=None,
-            impl: str = "auto") -> torch.Tensor:
+            impl: str = "auto", remat: bool = True) -> torch.Tensor:
     """Full-sequence forward over the stacked train layout -> final hidden (B, S, d).
 
     ``bits``: None, or ``{"embed": b, "layers": {... per-layer lists ...}}``
     as ``quant.apply.bits_for_scan`` builds it (QAT per-layer bitwidths).
-    ``embeds`` (B, S, d) replaces the token lookup.
+    ``embeds`` (B, S, d) replaces the token lookup.  ``remat``: each layer
+    body is recomputed in the backward (:func:`checkpointed`), as the JAX
+    package's scan body is.
     """
     x = _inputs(params, tokens, embeds, cfg, bits=None if bits is None else bits.get("embed"),
                 impl=impl)
@@ -142,7 +158,8 @@ def forward(params: dict, cfg, tokens: torch.Tensor | None = None,
     stacked = _unbind(params["layers"])
     for i in range(cfg.n_layers):
         lb = None if bits is None else _per_layer(bits["layers"], i)
-        x = _layer_body(x, _per_layer(stacked, i), cfg, positions, lb, impl)
+        x = checkpointed(_layer_body, x, _per_layer(stacked, i), cfg, positions, lb, impl,
+                         remat=remat)
     return layers.norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
 
 
@@ -164,9 +181,9 @@ def logits_fn(params: dict, hidden: torch.Tensor, cfg, *, bits=None,
 def lm_loss(params: dict, cfg, tokens: torch.Tensor | None = None,
             labels: torch.Tensor | None = None, embeds: torch.Tensor | None = None, *,
             bits=None, impl: str = "auto", loss_chunk: int = 2048) -> torch.Tensor:
-    """Mean softmax cross-entropy, chunked over the sequence (the JAX package
-    recomputes each chunk's logits in the backward; here autograd keeps them,
-    which at the search's sequence lengths is one chunk)."""
+    """Mean softmax cross-entropy, chunked over the sequence; the layer
+    bodies and each chunk's logits are recomputed in the backward, as in the
+    JAX package."""
     hidden = forward(params, cfg, tokens, embeds, bits=bits, impl=impl)
     return lm_loss_from_hidden(params, cfg, hidden, labels, bits=bits, impl=impl,
                                loss_chunk=loss_chunk)
@@ -174,21 +191,27 @@ def lm_loss(params: dict, cfg, tokens: torch.Tensor | None = None,
 
 def lm_loss_from_hidden(params: dict, cfg, hidden: torch.Tensor, labels: torch.Tensor, *,
                         bits=None, impl: str = "auto", loss_chunk: int = 2048) -> torch.Tensor:
-    """Chunked softmax cross-entropy of ``hidden`` against the LM head."""
+    """Chunked softmax cross-entropy of ``hidden`` against the LM head.  Each
+    chunk is recomputed in the backward, as the JAX package's
+    ``@jax.checkpoint`` step is: one chunk's f32 ``(B, chunk, V)`` logits
+    live at a time, not the whole sequence's."""
     hidden = shard_batch_act(hidden)
     b, s, _ = hidden.shape
     chunk = min(loss_chunk, s)
     assert s % chunk == 0, (s, chunk)
     labels = labels.to(torch.long)
-    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for c in range(0, s, chunk):
-        logits = logits_fn(params, hidden[:, c:c + chunk], cfg, bits=bits,
-                           impl=impl).to(torch.float32)
+
+    def chunk_loss(h, y):
+        logits = logits_fn(params, h, cfg, bits=bits, impl=impl).to(torch.float32)
         # (B, C, 1) throughout: DTensor's masked partial of a vocab-sharded
         # gather cannot drop the gathered dim (the dry-run's layouts)
         logz = torch.logsumexp(logits, dim=-1, keepdim=True)
-        gold = torch.gather(logits, -1, labels[:, c:c + chunk, None])
-        total = total + torch.sum(logz - gold)
+        gold = torch.gather(logits, -1, y[..., None])
+        return torch.sum(logz - gold)
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(0, s, chunk):
+        total = total + checkpointed(chunk_loss, hidden[:, c:c + chunk], labels[:, c:c + chunk])
     return div_exact(total, float(b * s))
 
 

@@ -98,17 +98,19 @@ def _frames_in(frames: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def encode(params: dict, cfg, frames: torch.Tensor, *, bits=None,
-           impl: str = "auto") -> torch.Tensor:
+           impl: str = "auto", remat: bool = True) -> torch.Tensor:
     """frames (B, encoder_seq, d), the frontend stub's embeddings -> the
     normed encoder output.  The layers run in a Python loop over the
-    stacked layout, without recompute, as the decoder's do."""
+    stacked layout; under ``remat`` each is recomputed in the backward, as
+    the decoder's are (``decoder.checkpointed``)."""
     x = shard_batch_act(_frames_in(frames, cfg))
     positions = layers.position_ids(x.shape[0], x.shape[1], "none", device=x.device)
     enc_bits = layers._b(bits, "enc_layers")
     stacked = decoder._unbind(params["enc_layers"])
     for i in range(cfg.n_encoder_layers):
         lb = None if enc_bits is None else decoder._per_layer(enc_bits, i)
-        x = _enc_layer(decoder._per_layer(stacked, i), x, cfg, positions, lb, impl)
+        x = decoder.checkpointed(_enc_layer, decoder._per_layer(stacked, i), x, cfg, positions,
+                                 lb, impl, remat=remat)
     return _norm(params["enc_norm"], x, cfg)
 
 
@@ -126,8 +128,10 @@ def _dec_layer(lp: dict, h: torch.Tensor, enc_out: torch.Tensor, cfg, positions,
 
 
 def decode_train(params: dict, cfg, tokens: torch.Tensor, enc_out: torch.Tensor, *, bits=None,
-                 impl: str = "auto") -> torch.Tensor:
-    """The teacher-forced decoder -> normed hidden states (B, S, d)."""
+                 impl: str = "auto", remat: bool = True) -> torch.Tensor:
+    """The teacher-forced decoder -> normed hidden states (B, S, d).  Under
+    ``remat`` each layer, its ``cross_kv`` over ``enc_out`` included, is
+    recomputed in the backward, as in the JAX package."""
     b, s = tokens.shape
     x = decoder.embed_tokens(params, tokens, cfg, bits=layers._b(bits, "embed"), impl=impl)
     x = shard_batch_act(x + sinusoid(s, cfg.d_model, device=x.device).to(x.dtype))
@@ -136,7 +140,8 @@ def decode_train(params: dict, cfg, tokens: torch.Tensor, enc_out: torch.Tensor,
     stacked = decoder._unbind(params["dec_layers"])
     for i in range(cfg.n_layers):
         lb = None if dec_bits is None else decoder._per_layer(dec_bits, i)
-        x = _dec_layer(decoder._per_layer(stacked, i), x, enc_out, cfg, positions, lb, impl)
+        x = decoder.checkpointed(_dec_layer, decoder._per_layer(stacked, i), x, enc_out, cfg,
+                                 positions, lb, impl, remat=remat)
     return _norm(params["final_norm"], x, cfg)
 
 

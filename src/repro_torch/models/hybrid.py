@@ -70,15 +70,17 @@ def _apply_shared(sp: dict, x: torch.Tensor, cfg, positions, *, bits=None,
 
 def forward(params: dict, cfg, tokens: torch.Tensor | None = None,
             embeds: torch.Tensor | None = None, *, bits=None,
-            impl: str = "auto") -> torch.Tensor:
+            impl: str = "auto", remat: bool = True) -> torch.Tensor:
     """Full-sequence forward over the stacked layout -> final hidden (B, S, d).
 
     The JAX package's ``lax.cond(idx % attn_every == 0)`` inside its layer
-    scan is a Python loop here, without recompute, as ``mamba2.forward``
-    runs; the shared block's leaves are the same tensors at every
-    application, so autograd sums their gradients.  ``bits`` as
-    ``quant.apply.bits_for_scan`` builds it (``"shared_attn"`` one float a
-    leaf, ``"layers"`` per-layer lists)."""
+    scan is a Python loop here; under ``remat`` layer ``i``'s body, the
+    shared block's application included where ``i`` takes it, is
+    recomputed in the backward (``decoder.checkpointed``), as the JAX
+    package's checkpointed scan body is.  The shared block's leaves are the
+    same tensors at every application, so autograd sums their gradients.
+    ``bits`` as ``quant.apply.bits_for_scan`` builds it (``"shared_attn"``
+    one float a leaf, ``"layers"`` per-layer lists)."""
     x = shard_batch_act(decoder._inputs(params, tokens, embeds, cfg,
                                         bits=layers._b(bits, "embed"), impl=impl))
     b, s = x.shape[:2]
@@ -87,14 +89,18 @@ def forward(params: dict, cfg, tokens: torch.Tensor | None = None,
     shared_bits = layers._b(bits, "shared_attn")
     layer_bits = layers._b(bits, "layers")
     stacked = decoder._unbind(params["layers"])
-    for i in range(cfg.n_layers):
+
+    def body(x, lp, lb, shared: bool):
         x = shard_batch_act(x)
-        if i % cfg.attn_every == 0:
+        if shared:
             x = _apply_shared(sp, x, cfg, positions, bits=shared_bits, impl=impl)
-        lp = decoder._per_layer(stacked, i)
+        return x + mamba2.block_forward(lp, layers.rmsnorm(lp["ln"], x, cfg.norm_eps), cfg,
+                                        bits=lb, impl=impl)
+
+    for i in range(cfg.n_layers):
         lb = None if layer_bits is None else decoder._per_layer(layer_bits, i)
-        x = x + mamba2.block_forward(lp, layers.rmsnorm(lp["ln"], x, cfg.norm_eps), cfg,
-                                     bits=lb, impl=impl)
+        x = decoder.checkpointed(body, x, decoder._per_layer(stacked, i), lb,
+                                 i % cfg.attn_every == 0, remat=remat)
     return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 

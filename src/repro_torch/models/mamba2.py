@@ -253,22 +253,27 @@ def init(cfg, generator: torch.Generator | None = None, device=None) -> dict:
     }
 
 
+def _layer_body(x, lp: dict, cfg, lb, impl: str) -> torch.Tensor:
+    x = shard_batch_act(x)
+    return x + block_forward(lp, layers.rmsnorm(lp["ln"], x, cfg.norm_eps), cfg, bits=lb,
+                             impl=impl)
+
+
 def forward(params: dict, cfg, tokens: torch.Tensor | None = None,
             embeds: torch.Tensor | None = None, *, bits=None,
-            impl: str = "auto") -> torch.Tensor:
+            impl: str = "auto", remat: bool = True) -> torch.Tensor:
     """Full-sequence forward over the stacked layout -> final hidden (B, S, d).
-    The layers run in a Python loop over per-layer views, without
-    recompute, as the decoder's do; ``bits`` as ``quant.apply.bits_for_scan``
+    The layers run in a Python loop over per-layer views; under ``remat``
+    each is recomputed in the backward, as the decoder's are
+    (``decoder.checkpointed``); ``bits`` as ``quant.apply.bits_for_scan``
     builds it."""
     x = decoder._inputs(params, tokens, embeds, cfg, bits=layers._b(bits, "embed"), impl=impl)
     x = shard_batch_act(x)
     stacked = decoder._unbind(params["layers"])
     for i in range(cfg.n_layers):
-        lp = decoder._per_layer(stacked, i)
         lb = None if bits is None else decoder._per_layer(bits["layers"], i)
-        x = shard_batch_act(x)
-        x = x + block_forward(lp, layers.rmsnorm(lp["ln"], x, cfg.norm_eps), cfg, bits=lb,
-                              impl=impl)
+        x = decoder.checkpointed(_layer_body, x, decoder._per_layer(stacked, i), cfg, lb, impl,
+                                 remat=remat)
     return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 

@@ -149,18 +149,24 @@ def test_forward_loss_and_gradients_match_jax(model):
 
 def test_the_shared_gradient_sums_its_applications(model):
     """The one shared parameter set against three private copies of it, one
-    an application: the shared leaf's gradient is the copies' sum."""
+    an application: the shared leaf's gradient is the copies' sum.  The
+    backward recomputes each application from the same input, which gets
+    the same copy again."""
     _, tcfg, _, tp = model
     toks = torch.from_numpy(np.random.default_rng(9).integers(0, tcfg.vocab_size, (2, 16)))
     w = tp["shared_attn"]["attn"]["wo"].detach().clone().requires_grad_()
     copies = [w.detach().clone().requires_grad_() for _ in range(3)]
     grads = []
     for leaves in ([w] * 3, copies):
-        it = iter(leaves)
+        it, seen = iter(leaves), []
         real = th._apply_shared
 
         def one_copy(sp, x, cfg, positions, **kw):
-            sp = dict(sp, attn=dict(sp["attn"], wo=next(it)))
+            leaf = next((c for y, c in seen if y is x), None)
+            if leaf is None:
+                leaf = next(it)
+                seen.append((x, leaf))
+            sp = dict(sp, attn=dict(sp["attn"], wo=leaf))
             return real(sp, x, cfg, positions, **kw)
 
         th._apply_shared = one_copy
